@@ -1,0 +1,58 @@
+"""Carry parameters between the JAX reference and the port.
+
+Both packages keep the same names and layouts (conv weights HWIO, dense
+weights (in, out)), so a conversion is a plain copy through numpy.  The
+flat order of a parameter dict is its sorted key order — the JAX pytree
+leaf order — so a flat vector means the same in both packages.  Leading
+batch dimensions (the K clients of a round) ride in front of each leaf.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+Shapes = Dict[str, Tuple[int, ...]]
+
+
+def params_from_numpy(d: Mapping[str, np.ndarray],
+                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in d.items()}
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def param_shapes(params: Mapping[str, torch.Tensor],
+                 batch_dims: int = 0) -> Shapes:
+    """Per-leaf shapes in leaf order, without the leading batch dims."""
+    return {k: tuple(params[k].shape[batch_dims:]) for k in sorted(params)}
+
+
+def flatten_params(params: Mapping[str, torch.Tensor],
+                   batch_dims: int = 0) -> torch.Tensor:
+    """Concatenate the leaves in leaf order: (*batch, D)."""
+    leaves = [params[k] for k in sorted(params)]
+    batch = leaves[0].shape[:batch_dims]
+    return torch.cat([v.reshape(*batch, -1) for v in leaves], dim=-1)
+
+
+def unflatten_params(flat: torch.Tensor, shapes: Shapes) -> Dict[str, torch.Tensor]:
+    """Views of ``flat`` (*batch, D) with each leaf's shape behind the batch
+    dims; ``shapes`` is in leaf order."""
+    batch = flat.shape[:-1]
+    out, off = {}, 0
+    for k in sorted(shapes):
+        n = math.prod(shapes[k])
+        out[k] = flat[..., off:off + n].reshape(*batch, *shapes[k])
+        off += n
+    if off != flat.shape[-1]:
+        raise ValueError(f"flat width {flat.shape[-1]} != {off} parameters")
+    return out
