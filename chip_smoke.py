@@ -213,30 +213,42 @@ def reference_phase(torch, get_config, build_model, FLSimulator, convert):
           "round parameters disagree with the CPU path")
 
 
-def profile_phase(torch, sim, params):
-    """Device time by kernel over one more round (torch.profiler, CUPTI)."""
+def profile_phase(torch, sim, params, rounds=5):
+    """Device busy share of a round.  The round time is the median host time
+    of ``rounds`` unprofiled rounds, each ended by ``synchronize``; the
+    device time by kernel comes from one more round under a CUDA-only
+    ``torch.profiler`` trace (CUPTI), which adds no per-op host tracing."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    round_ms = []
+    for _ in range(rounds):
         t0 = time.perf_counter()
         sim.run_round(params, gen)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round(params, gen)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and evt.device_type.name == "CUDA":
+        if dev_us > 0:
             rows.append((dev_us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    median_ms = sorted(round_ms)[len(round_ms) // 2]
     print(json.dumps({"profile_round": {
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms if rows else None,
-        "device_busy_share": busy_ms / wall_ms if rows else None,
+        "round_ms_unprofiled": round_ms, "round_ms_median": median_ms,
+        "round_ms_profiled": profiled_ms,
+        "device_busy_ms": busy_ms if rows else None,
+        "device_busy_share": busy_ms / median_ms if rows else None,
         "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
-                        for ms, n, k in rows[:10]]}}))
+                        for ms, n, k in rows[:12]]}}))
 
 
 def time_ms(torch, fn, reps=50):

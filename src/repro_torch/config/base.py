@@ -1,6 +1,7 @@
 """Typed config dataclasses — the port's own copy of ``repro.config.base``,
-trimmed to what the FL simulator slice reads.  Field names, defaults and
-units are the reference's, so one config means the same in both packages.
+trimmed to the fields the FL simulator slice reads; a field comes back with
+the slice that first reads it.  Field names, defaults and units are the
+reference's, so one config means the same in both packages.
 """
 from __future__ import annotations
 
@@ -11,15 +12,6 @@ from dataclasses import dataclass, field
 class ModelConfig:
     name: str = "model"
     family: str = "dense"           # only "cnn" is ported so far
-    n_layers: int = 2
-    d_model: int = 256
-    n_heads: int = 4
-    n_kv_heads: int = 4
-    d_ff: int = 1024
-    vocab_size: int = 1024
-    norm_type: str = "rmsnorm"
-    activation: str = "silu"
-    max_seq_len: int = 8192
     source: str = ""
 
 
@@ -39,10 +31,6 @@ class QuantConfig:
     @property
     def enabled(self) -> bool:
         return self.bits > 0
-
-    @property
-    def gain(self) -> float:
-        return float(2 ** (self.bits - 1)) if self.enabled else 1.0
 
 
 @dataclass(frozen=True)
@@ -77,8 +65,6 @@ class FLConfig:
     devices_per_round: int = 10     # K
     local_iters: int = 3            # I
     learning_rate: float = 0.001
-    rounds: int = 50
-    tau_limit_s: float = 1.0        # per-round latency constraint
     error_aware: bool = True        # eq.6 renormalization vs naive eq.5
     seed: int = 0
 
@@ -86,10 +72,6 @@ class FLConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     global_batch: int = 256
-    seq_len: int = 4096
-    steps: int = 100
-    learning_rate: float = 3e-4
-    optimizer: str = "sgd"          # the paper uses plain SGD
 
 
 @dataclass(frozen=True)

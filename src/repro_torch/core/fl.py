@@ -77,6 +77,7 @@ class FLSimulator:
         self.alphas = torch.tensor(client_store.client_weights(),
                                    dtype=torch.float32, device=self.device)
         self.macs = macs_per_iter or config.energy.macs_per_iteration
+        self._energy: Optional[Tuple[float, float]] = None
 
     def _uniform(self, gen: Optional[torch.Generator], shape) -> torch.Tensor:
         if gen is None:
@@ -186,7 +187,15 @@ class FLSimulator:
         return params, history
 
     def round_energy(self) -> Tuple[float, float]:
-        """Expected per-round energy (J) and latency (s) at the operating point."""
+        """Expected per-round energy (J) and latency (s) at the operating point.
+
+        Seeded from ``fl.seed``, so the same every round: computed on the
+        first call and kept."""
+        if self._energy is None:
+            self._energy = self._expected_energy()
+        return self._energy
+
+    def _expected_energy(self) -> Tuple[float, float]:
         cfg = self.config
         bits = cfg.quant.bits if cfg.quant.enabled else 32
         gen = make_generator(cfg.fl.seed, self.device)  # seed-reproducible MC draw

@@ -8,16 +8,24 @@ order of the Pallas kernel it stands for (``repro/kernels/quantize.py``,
 Divisors and multipliers are 0-dim tensors on the input's device, never
 Python scalars: on CUDA, PyTorch turns ``tensor / python_float`` into a
 multiply by the reciprocal, which would round differently from the kernel.
+They are made once per value and device, so a call holds no host-to-device
+copy.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=64)
+def _scalar_on(value: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(np.float32(value), dtype=torch.float32, device=device)
+
+
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(np.float32(value), dtype=torch.float32,
-                        device=like.device)
+    return _scalar_on(float(value), like.device)
 
 
 def stochastic_quantize_ref(x: torch.Tensor, u: torch.Tensor | None,

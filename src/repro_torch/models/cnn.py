@@ -12,7 +12,8 @@ the forward permutes to PyTorch's NCHW/OIHW around each convolution.
 
 ``forward_stacked`` runs K clients with K different parameter sets in one
 pass: the convolutions are grouped (``groups=K``, client k's sample b in
-channel group k of batch row b) and the dense layers are ``bmm``.
+channel group k of batch row b) and the dense layers are ``bmm``.  It is
+the one implementation: ``forward`` and ``loss`` run it at K=1.
 """
 from __future__ import annotations
 
@@ -95,16 +96,6 @@ class CNNModel:
             "fc2_w": he((128, 10), 128), "fc2_b": zeros(10),
         }
 
-    def forward(self, params: Params, images: torch.Tensor) -> torch.Tensor:
-        """images: (B, 28, 28, 1) NHWC -> logits (B, 10)."""
-        x = images.float().permute(0, 3, 1, 2)                     # NCHW
-        x = _conv_relu_pool(x, params["conv1_w"][None], params["conv1_b"][None], 1)
-        x = _conv_relu_pool(x, params["conv2_w"][None], params["conv2_b"][None], 1)
-        # fc1 consumes the NHWC flatten, (h, w, c) order
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        x = F.relu(x @ params["fc1_w"] + params["fc1_b"])
-        return x @ params["fc2_w"] + params["fc2_b"]
-
     def forward_stacked(self, params: Params, images: torch.Tensor) -> torch.Tensor:
         """K clients at once: leaves (K, ...), images (K, B, 28, 28, 1) ->
         logits (K, B, 10)."""
@@ -118,22 +109,11 @@ class CNNModel:
         x = F.relu(torch.bmm(x, params["fc1_w"]) + params["fc1_b"][:, None, :])
         return torch.bmm(x, params["fc2_w"]) + params["fc2_b"][:, None, :]
 
-    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
-             u: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """QAT loss: forward through STE-fake-quantized weights (paper eq. 4).
-
-        ``u`` is the flat fake-quant noise over the leaves in leaf order;
-        None trains on the raw weights, as the reference does without a key.
-        """
-        qcfg = self.config.quant
-        p = params
-        if u is not None and qcfg.enabled and qcfg.quantize_training:
-            p = quant.fake_quant_params(params, u, qcfg)
-        logits = self.forward(p, batch["images"])
-        ce = _cross_entropy(logits, batch["labels"])
-        acc = (logits.argmax(-1) == batch["labels"]).float().mean()
-        return ce, {"ce": ce, "accuracy": acc}
+    def forward(self, params: Params, images: torch.Tensor) -> torch.Tensor:
+        """One client: images (B, 28, 28, 1) NHWC -> logits (B, 10), through
+        :meth:`forward_stacked` at K=1."""
+        return self.forward_stacked({k: v[None] for k, v in params.items()},
+                                    images[None])[0]
 
     def loss_stacked(self, params: Params, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -144,3 +124,20 @@ class CNNModel:
         ce = _cross_entropy(logits, batch["labels"])
         acc = (logits.argmax(-1) == batch["labels"]).float().mean(-1)
         return ce, acc
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             u: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One client's QAT loss: forward through STE-fake-quantized weights
+        (paper eq. 4), through :meth:`loss_stacked` at K=1.
+
+        ``u`` is the flat fake-quant noise over the leaves in leaf order;
+        None trains on the raw weights, as the reference does without a key.
+        """
+        qcfg = self.config.quant
+        p = params
+        if u is not None and qcfg.enabled and qcfg.quantize_training:
+            p = quant.fake_quant_params(params, u, qcfg)
+        ce, acc = self.loss_stacked({k: v[None] for k, v in p.items()},
+                                    {k: v[None] for k, v in batch.items()})
+        return ce[0], {"ce": ce[0], "accuracy": acc[0]}

@@ -1,0 +1,32 @@
+"""The port's config copy (``repro_torch.config``) against
+``repro.config.base``: every field it keeps has the reference's name and
+default, and ``mnist_cnn`` sets them to the reference's values."""
+import dataclasses
+
+import pytest
+
+import repro.config.base as jbase
+from repro.configs import get_config as jget_config
+from repro_torch.config import base as tbase
+from repro_torch.configs import get_config
+
+SECTIONS = ["model", "quant", "channel", "energy", "fl", "train"]
+
+
+@pytest.mark.parametrize("section", SECTIONS)
+def test_fields_are_the_references(section):
+    tcls = type(getattr(tbase.Config(), section))
+    jcls = type(getattr(jbase.Config(), section))
+    assert tcls.__name__ == jcls.__name__
+    jdefaults = {f.name: f.default for f in dataclasses.fields(jcls)}
+    for f in dataclasses.fields(tcls):
+        assert f.name in jdefaults, f"{section}.{f.name} is not a reference field"
+        assert f.default == jdefaults[f.name], f"{section}.{f.name} default differs"
+
+
+@pytest.mark.parametrize("section", SECTIONS)
+def test_mnist_cnn_matches_the_reference(section):
+    tsec = getattr(get_config("mnist_cnn"), section)
+    jsec = getattr(jget_config("mnist_cnn"), section)
+    for f in dataclasses.fields(tsec):
+        assert getattr(tsec, f.name) == getattr(jsec, f.name), f"{section}.{f.name}"

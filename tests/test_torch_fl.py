@@ -151,6 +151,20 @@ def test_fl_simulator_error_aware_beats_naive_at_high_q():
     assert results[True] <= results[False] * 1.5
 
 
+def test_round_energy_is_drawn_once(monkeypatch):
+    from repro_torch.core import fl as tfl
+    calls = []
+    draw = tfl.ch.sample_rayleigh_gain2
+    monkeypatch.setattr(tfl.ch, "sample_rayleigh_gain2",
+                        lambda *a, **kw: calls.append(1) or draw(*a, **kw))
+    cfg = _small_fl_config()
+    sim = FLSimulator(build_model(cfg), cfg, _Weights(), device="cpu")
+    e, tau = sim.round_energy()
+    assert e > 0 and tau > 0
+    assert sim.round_energy() == (e, tau)
+    assert len(calls) == 1
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _small_fl_config()

@@ -44,14 +44,25 @@ def test_counts_match_the_paper():
     assert sum(int(np.prod(s)) for s in shapes.values()) == PAPER_WEIGHTS
 
 
-def test_forward_matches_jax(models, params_np):
+@pytest.mark.parametrize("K", [1, 3])
+def test_forward_matches_jax(models, params_np, K):
+    """``forward`` (K=1) and ``forward_stacked`` (K clients, each with its own
+    parameters) against the reference's forward, client by client."""
     jm, tm = models
-    b = _batch(16, 0)
-    want = np.asarray(jm.forward({k: jnp.asarray(v) for k, v in params_np.items()},
-                                 jnp.asarray(b["images"])))
-    got = tm.forward(convert.params_from_numpy(params_np, "cpu"),
-                     torch.from_numpy(b["images"])).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    b = _batch(K * 8, 0)
+    images = b["images"].reshape(K, 8, 28, 28, 1)
+    clients = [{k: v * (1.0 + 0.1 * c) for k, v in params_np.items()} for c in range(K)]
+    want = np.stack([np.asarray(jm.forward({k: jnp.asarray(v) for k, v in p.items()},
+                                           jnp.asarray(images[c])))
+                     for c, p in enumerate(clients)])
+    if K == 1:
+        got = tm.forward(convert.params_from_numpy(clients[0], "cpu"),
+                         torch.from_numpy(images[0]))[None]
+    else:
+        stacked = {k: torch.from_numpy(np.stack([p[k] for p in clients]))
+                   for k in params_np}
+        got = tm.forward_stacked(stacked, torch.from_numpy(images))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("quantized", [True, False])
