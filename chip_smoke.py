@@ -5,13 +5,19 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc.
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version, trains the paper's QNN for a few
-rounds of Algorithm 1 through ``FLSimulator`` at the paper's widths
-(N=100 clients, K=10 per round, I=3 local steps, batch 32, 8-bit, q=0.01),
-checks that the round went through the kernels and agrees with the CPU
-path on a small input, and times each kernel beside its plain version and
-its bound.  Any failure raises and exits non-zero; the last line is the
-JSON ``{"ok": true, "device": ...}``.
+each against its plain PyTorch version, and drives the port's two paths
+through the kernels at the paper's widths:
+
+* Algorithm 1 through ``FLSimulator`` (N=100 clients, K=10 per round, I=3
+  local steps, batch 32, 8-bit, q=0.01);
+* the cohort round ``make_fl_round`` on the same QNN over C=10 cohorts
+  (I=3, 32 images per microbatch) in the paper, int, packed, ring (both
+  front-ends) and auto wire formats.
+
+For each path it checks the launch counts, that the round agrees with the
+CPU path on a small input, and times the rounds; then it times each kernel
+beside its plain version and its bound.  Any failure raises and exits
+non-zero; the last line is the JSON ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 ROUNDS = 5
+COHORT_ROUNDS = 3
 SHAPES = {"main": (10, 421_642), "ragged": (3, 5003)}
+PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
 KERNELS = {
     "stochastic_quantize_codes": ("src/repro_torch/kernels/csrc/quantize.cu",
                                   "src/repro/kernels/quantize.py:38"),
@@ -37,7 +45,15 @@ KERNELS = {
                          "src/repro/kernels/quantize.py:75"),
     "masked_aggregate": ("src/repro_torch/kernels/csrc/aggregate.cu",
                          "src/repro/kernels/aggregate.py:28"),
+    "quantize_pack": (PACK_SRC, "src/repro/kernels/pack.py:76"),
+    "unpack_dequantize": (PACK_SRC, "src/repro/kernels/pack.py:134"),
+    "quantize_pack_chunk": (PACK_SRC, "src/repro/kernels/pack.py:273"),
+    "repack": (PACK_SRC, "src/repro/kernels/pack.py:192"),
 }
+#: the cohort round's modes: (label, collective, pipeline_hops)
+COHORT_MODES = (("paper", "paper", True), ("int", "int", True),
+                ("packed", "packed", True), ("ring", "ring", True),
+                ("ring_sequential", "ring", False), ("auto", "auto", True))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -71,7 +87,8 @@ def build_phase(build):
 
 def kernels_phase(torch, ops, tref):
     """Each kernel against its plain version at the main and a ragged shape."""
-    err = {k: 0.0 for k in KERNELS}
+    err = {k: 0.0 for k in ("stochastic_quantize_codes", "dequantize_codes",
+                            "masked_aggregate")}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, (K, D) in SHAPES.items():
         x = (torch.rand((K, D), generator=gen, device="cuda") - 0.5) * 3
@@ -124,6 +141,80 @@ def kernels_phase(torch, ops, tref):
     return err
 
 
+def _max_diff(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def wire_kernels_phase(torch, ops, tref, quant):
+    """The four wire kernels against their plain versions, ``torch.equal``:
+    bits {1,2,4,8} x clip {1, 0.3} x both roundings at lanes {bits,
+    bits+ceil(log2 C), 32}; the un-bias by sum_of·G and by an explicit
+    bias; quantize_pack_chunk at k in {1, 3, 4}; repack at hops 0, 1, C-1."""
+    err = {k: 0.0 for k in ("quantize_pack", "unpack_dequantize",
+                            "quantize_pack_chunk", "repack")}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = 0
+
+    def same(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        err[name] = max(err[name], _max_diff(got, want))
+        check(torch.equal(got, want), f"{name} differs: {what}")
+        cases += 1
+
+    for label, (C, D) in SHAPES.items():
+        x = (torch.rand((C, D), generator=gen, device="cuda") - 0.5) * 3
+        u = torch.rand((C, D), generator=gen, device="cuda")
+        for bits in (1, 2, 4, 8):
+            lanes = sorted({bits, quant.packed_lane_bits(bits, C), 32})
+            g = 2 ** (bits - 1)
+            for clip in (1.0, 0.3):
+                xc = x * clip
+                for stochastic, lane in ((s, l) for s in (True, False)
+                                         for l in lanes):
+                    what = f"{label} bits={bits} clip={clip} lane={lane} " \
+                           f"stochastic={stochastic}"
+                    kw = dict(clip=clip, lane_bits=lane, stochastic=stochastic)
+                    same("quantize_pack", ops.quantize_pack(xc, u, bits, **kw),
+                         tref.quantize_pack_ref(xc, u, bits, **kw), what)
+                    for k in (1, 3, 4):
+                        got = ops.quantize_pack_chunk(xc, u, bits, num_chunks=k,
+                                                      **kw)
+                        want = tref.quantize_pack_chunk_ref(xc, u, bits,
+                                                            num_chunks=k, **kw)
+                        same("quantize_pack_chunk", got[0], want[0], what + f" k={k}")
+                        same("quantize_pack_chunk", got[1], want[1], what + f" k={k}")
+                for lane in lanes:
+                    m = 2 ** (lane - bits) if lane < 32 else C   # sum_of that fits
+                    m = min(m, C)
+                    codes = torch.randint(-g * m, (g - 1) * m + 1, (C, D),
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int32)
+                    for sum_of, bias in ((m, None), (1, quant.lane_bias(lane))):
+                        if bias is not None:
+                            codes = codes.clamp(-g, g - 1)
+                        words = quant.pack_codes(codes, bits, lane_bits=lane,
+                                                 sum_of=sum_of, bias=bias)
+                        kw = dict(lane_bits=lane, sum_of=sum_of, bias=bias)
+                        what = f"{label} bits={bits} lane={lane} sum_of={sum_of} bias={bias}"
+                        same("unpack_dequantize",
+                             ops.unpack_dequantize(words, bits, D, clip=clip, **kw),
+                             tref.unpack_dequantize_ref(words, bits, D, clip=clip, **kw),
+                             what + f" clip={clip}")
+                        for hop in (0, 1, C - 1):
+                            acc = codes.clone()
+                            got = ops.repack(words, acc, bits, D, hop=hop, **kw)
+                            check(got.data_ptr() == acc.data_ptr(),
+                                  "repack must update acc in place")
+                            same("repack", got,
+                                 tref.repack_ref(words, codes.clone(), bits, D,
+                                                 hop=hop, **kw),
+                                 what + f" hop={hop}")
+    print(f"wire kernels == plain (torch.equal) in {cases} cases at the main "
+          f"(C=10, D=421,642) and ragged (C=3, D=5,003) shapes")
+    return err
+
+
 def paper_config(get_config, *, K=10, I=3, batch=32):
     cfg = get_config("mnist_cnn")
     return dataclasses.replace(
@@ -162,8 +253,9 @@ def main_path_phase(torch, ops, get_config, build_model, make_federated_digits,
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(bool(torch.isfinite(params).all()), "non-finite parameters")
     I, R = cfg.fl.local_iters, ROUNDS
-    want = {"stochastic_quantize_codes": (I + 1) * R,
-            "dequantize_codes": (I + 1) * R, "masked_aggregate": R}
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update({"stochastic_quantize_codes": (I + 1) * R,
+                 "dequantize_codes": (I + 1) * R, "masked_aggregate": R})
     print(f"launches on the main path ({R} rounds): {launches}")
     check(launches == want, f"launch counts {launches} != predicted {want}")
     return launches, sim, params
@@ -213,24 +305,162 @@ def reference_phase(torch, get_config, build_model, FLSimulator, convert):
           "round parameters disagree with the CPU path")
 
 
-def profile_phase(torch, sim, params, rounds=5):
+def cohort_config(get_config, mode_hops=True, *, I=3, micro=32, C=10, q=0.01):
+    cfg = paper_config(get_config, K=C, I=I, batch=C * I * micro)
+    return dataclasses.replace(
+        cfg, quant=dataclasses.replace(cfg.quant, pipeline_hops=mode_hops),
+        channel=dataclasses.replace(cfg.channel, error_prob=q))
+
+
+def predicted_cohort_launches(collective, hops, C, I, R):
+    """Launches of R cohort rounds: the STE takes one quantize and one
+    dequantize per local step in every mode; the uplink as the wire format
+    runs it (auto resolves to packed at C=10, 8 bits)."""
+    up = {"paper": {"stochastic_quantize_codes": 1, "dequantize_codes": 1},
+          "int": {"stochastic_quantize_codes": 1, "dequantize_codes": 1},
+          "packed": {"quantize_pack": 1, "unpack_dequantize": 1},
+          "auto": {"quantize_pack": 1, "unpack_dequantize": 1},
+          "ring": ({"quantize_pack_chunk": 1, "repack": C - 1,
+                    "dequantize_codes": 1} if hops else
+                   {"quantize_pack": 1, "repack": C, "dequantize_codes": 1})}
+    per_round = {"stochastic_quantize_codes": I, "dequantize_codes": I}
+    for k, v in up[collective].items():
+        per_round[k] = per_round.get(k, 0) + v
+    return {k: v * R for k, v in per_round.items()}
+
+
+def cohort_round_phase(torch, ops, get_config, build_model, digit_dataset,
+                       make_fl_round, smi):
+    """The cohort round at full width: the QNN over C=10 cohorts, I=3, 32
+    images per microbatch, in every ported wire format, COHORT_ROUNDS
+    rounds each from the same parameters and generator seed."""
+    C, I, micro, R = 10, 3, 32, COHORT_ROUNDS
+    cfg = cohort_config(get_config, I=I, micro=micro, C=C)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = digit_dataset(gen, R * C * I * micro)
+    batches = [{k: v[r * C * I * micro:(r + 1) * C * I * micro]
+                for k, v in data.items()} for r in range(R)]
+    params0 = torch.cat([v.reshape(-1) for _, v in sorted(model.init(1).items())])
+    # warm-up (cuDNN's first calls), outside the counted runs
+    make_fl_round(model, cfg, (C,), collective="paper")(
+        params0, batches[0], torch.Generator(device="cuda").manual_seed(99))
+    torch.cuda.synchronize()
+    total = {k: 0 for k in ops.LAUNCHES}
+    results = {}
+    for label, collective, hops in COHORT_MODES:
+        fn = make_fl_round(model, cohort_config(get_config, hops, I=I,
+                                                micro=micro, C=C),
+                           (C,), collective=collective)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        params, hist, ms = params0, [], []
+        ops.reset_launch_counts()
+        for r in range(R):
+            t0 = time.perf_counter()
+            params, m = fn(params, batches[r], g)
+            loss = float(m["loss"])              # waits for the round
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append((params, loss, float(m["survivors"]),
+                         m["wire_bits_per_param"]))
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        want = {k: 0 for k in ops.LAUNCHES}
+        want.update(predicted_cohort_launches(collective, hops, C, I, R))
+        check(launches == want, f"{label}: launches {launches} != predicted {want}")
+        losses = [h[1] for h in hist]
+        check(all(map(math.isfinite, losses)), f"{label}: non-finite loss {losses}")
+        check(all(bool(torch.isfinite(h[0]).all()) for h in hist),
+              f"{label}: non-finite parameters")
+        results[label] = hist
+        print(json.dumps({"cohort_round": label, "collective": collective,
+                          "pipeline_hops": hops, "C": C, "I": I,
+                          "global_batch": C * I * micro, "losses": losses,
+                          "survivors": [h[2] for h in hist],
+                          "wire_bits_per_param": hist[0][3],
+                          "round_ms": ms, "round_ms_median": sorted(ms)[R // 2],
+                          "launches": {k: v for k, v in launches.items() if v},
+                          "card": smi}))
+    packed = [h[1] for h in results["packed"]]
+    check(packed[-1] < packed[0], f"packed loss did not fall: {packed}")
+    check(results["packed"][0][3] == 32.0 / 2, "packed must ship 16 bits/param")
+    check(results["ring"][0][3] == 72.0, "ring must ship 72 bits/param at C=10")
+    check(results["auto"][0][3] == results["packed"][0][3], "auto must resolve to packed")
+    for r in range(R):
+        for label in ("packed", "ring", "ring_sequential", "auto"):
+            check(torch.equal(results[label][r][0], results["int"][r][0]),
+                  f"round {r}: {label} params differ from int")
+    print(f"cohort round: params torch.equal across int, packed, ring (both "
+          f"front-ends) and auto after each of {R} rounds; launches as predicted")
+    packed_round = make_fl_round(model, cfg, (C,), collective="packed")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    profile_phase(torch, "make_fl_round packed C=10",
+                  lambda: packed_round(params0, batches[0], g))
+    return total
+
+
+def cohort_reference_phase(torch, get_config, build_model, make_fl_round,
+                           local_sgd, RoundNoise, quant):
+    """One small cohort round on the card against the same round on the CPU
+    (C=4, I=2, 8 images per microbatch), the slice-1 bar: uplink codes
+    >= 99.9 % equal and none off by more than 1, params within one step."""
+    C, I, micro = 4, 2, 8
+    cfg = cohort_config(get_config, I=I, micro=micro, C=C, q=0.3)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(7)
+    params = torch.cat([v.reshape(-1) for _, v in sorted(
+        model.init(3, device="cpu").items())])
+    D = params.numel()
+    B = C * I * micro
+    batch = {"images": torch.rand((B, 28, 28, 1), generator=gen),
+             "labels": torch.randint(0, 10, (B,), generator=gen)}
+    noise = RoundNoise(torch.rand((C, I, D), generator=gen),
+                       torch.rand((C, D), generator=gen),
+                       torch.tensor([1.0, 0.0, 1.0, 1.0]))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params.to(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        nz = RoundNoise(*(t.to(dev) for t in noise))
+        fn = make_fl_round(model, cfg, (C,), collective="packed", device=dev)
+        new, m = fn(p, b, noise=nz)
+        cb = {k: v.reshape(C, I, micro, *v.shape[1:]) for k, v in b.items()}
+        local, _, _ = local_sgd(model, cfg, p, cb, u_train=nz.u_train)
+        x = (local - p) * nz.lam[:, None]       # weighted by alpha·lam·C = lam
+        codes = quant.quantize_codes(x.contiguous(), nz.u_up.contiguous(), 8)
+        out[dev] = (codes.cpu(), new.cpu(), float(m["loss"]))
+    diff = (out["cuda"][0] - out["cpu"][0]).abs()
+    agree = float((diff == 0).float().mean())
+    perr = (out["cuda"][1] - out["cpu"][1]).abs()
+    print(f"card vs CPU, one cohort round C={C} I={I} microbatch {micro} "
+          f"(packed): uplink codes agree on {agree:.6f}, max code diff "
+          f"{float(diff.max()):.0f}, max param diff {float(perr.max()):.3g}, "
+          f"loss {out['cuda'][2]:.6f} vs {out['cpu'][2]:.6f}")
+    check(float(diff.max()) <= 1 and agree >= 0.999, "cohort uplink codes disagree")
+    check(float(perr.max()) <= 1 / 128 and float((perr <= 1e-5).float().mean()) >= 0.999,
+          "cohort round parameters disagree with the CPU path")
+
+
+def profile_phase(torch, label, run_round, rounds=5):
     """Device busy share of a round.  The round time is the median host time
     of ``rounds`` unprofiled rounds, each ended by ``synchronize``; the
     device time by kernel comes from one more round under a CUDA-only
-    ``torch.profiler`` trace (CUPTI), which adds no per-op host tracing."""
+    ``torch.profiler`` trace (CUPTI), which adds no per-op host tracing but
+    can slow the kernels themselves: the busy share is given both against
+    the unprofiled median and against the traced round's own time."""
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
     torch.cuda.synchronize()
     round_ms = []
     for _ in range(rounds):
         t0 = time.perf_counter()
-        sim.run_round(params, gen)
+        run_round()
         torch.cuda.synchronize()
         round_ms.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run_round(params, gen)
+        run_round()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -243,10 +473,13 @@ def profile_phase(torch, sim, params, rounds=5):
     busy_ms = sum(r[0] for r in rows)
     median_ms = sorted(round_ms)[len(round_ms) // 2]
     print(json.dumps({"profile_round": {
+        "path": label,
         "round_ms_unprofiled": round_ms, "round_ms_median": median_ms,
         "round_ms_profiled": profiled_ms,
         "device_busy_ms": busy_ms if rows else None,
         "device_busy_share": busy_ms / median_ms if rows else None,
+        "device_busy_share_of_profiled_round":
+            busy_ms / profiled_ms if rows else None,
         "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
                         for ms, n, k in rows[:12]]}}))
 
@@ -274,7 +507,13 @@ def bound_ms(nbytes: float, nops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def timing_phase(torch, ops, tref, smi):
+def timing_phase(torch, ops, tref, quant, agg, smi):
+    """Every kernel at the shape the main paths give it (8 bits, C=K=10,
+    D=421,642): the packed psum's lane 12 for quantize_pack and
+    unpack_dequantize, the ring's native lane 8 for quantize_pack_chunk
+    (k=1) and one repack hop.  Bounds count each input byte read once and
+    each output byte written once; integer operations are counted against
+    the f32 rate, as the bytes bound every one of these kernels."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -283,6 +522,12 @@ def timing_phase(torch, ops, tref, smi):
     codes = ops.stochastic_quantize_codes(x, u, 8)
     w = torch.rand(K, generator=gen, device="cuda") * 0.1
     inv_gain = 1.0 / 128
+    lane = quant.packed_lane_bits(8, K)                     # 12: 2 codes a word
+    W = quant.packed_words(D, 8, lane_bits=lane)
+    summed = agg.sum_words(ops.quantize_pack(x, u, 8, lane_bits=lane))  # (W,)
+    Wn = quant.packed_words(D, 8)                            # 4 codes a word
+    ring_words = ops.quantize_pack(x, u, 8)                  # (K, Wn)
+    acc = codes.clone()
     rows = {
         "stochastic_quantize_codes": (
             lambda: ops.stochastic_quantize_codes(x, u, 8),
@@ -297,6 +542,23 @@ def timing_phase(torch, ops, tref, smi):
             lambda: tref.masked_aggregate_ref(x, w),
             lambda: (w @ x) / torch.clamp(w.sum(), min=1e-12),
             4.0 * n + 4.0 * D + 4.0 * K, 2.0 * n),
+        "quantize_pack": (
+            lambda: ops.quantize_pack(x, u, 8, lane_bits=lane),
+            lambda: tref.quantize_pack_ref(x, u, 8, lane_bits=lane), None,
+            8.0 * n + 4.0 * K * W, 8.0 * n),
+        "unpack_dequantize": (
+            lambda: ops.unpack_dequantize(summed, 8, D, lane_bits=lane, sum_of=K),
+            lambda: tref.unpack_dequantize_ref(summed, 8, D, lane_bits=lane,
+                                               sum_of=K), None,
+            4.0 * W + 4.0 * D, 4.0 * D),
+        "quantize_pack_chunk": (
+            lambda: ops.quantize_pack_chunk(x, u, 8, num_chunks=1),
+            lambda: tref.quantize_pack_chunk_ref(x, u, 8, num_chunks=1), None,
+            8.0 * n + 4.0 * K * Wn + 4.0 * n, 8.0 * n),
+        "repack": (
+            lambda: ops.repack(ring_words, acc, 8, D, hop=1),
+            lambda: tref.repack_ref(ring_words, acc, 8, D, hop=1), None,
+            4.0 * K * Wn + 8.0 * n, 4.0 * n),
     }
     out = {}
     for name, (kernel, plain, library, nbytes, nops) in rows.items():
@@ -316,8 +578,11 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; it needs a card")
     from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.core.fl import FLSimulator
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import quantization as quant
+    from repro_torch.core.fl import FLSimulator, RoundNoise, local_sgd, make_fl_round
     from repro_torch.data.pipeline import make_federated_digits
+    from repro_torch.data.synthetic import digit_dataset
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as tref
     from repro_torch.models import build_model
@@ -325,14 +590,23 @@ def main() -> int:
     name, count, smi = device_phase(torch)
     build_phase(build)
     err = kernels_phase(torch, ops, tref)
+    err.update(wire_kernels_phase(torch, ops, tref, quant))
     launches, sim, params = main_path_phase(torch, ops, get_config, build_model,
                                             make_federated_digits, FLSimulator,
                                             convert)
-    profile_phase(torch, sim, params)
+    sim_gen = torch.Generator(device="cuda").manual_seed(3)
+    profile_phase(torch, "FLSimulator", lambda: sim.run_round(params, sim_gen))
     reference_phase(torch, get_config, build_model, FLSimulator, convert)
-    times = timing_phase(torch, ops, tref, smi)
+    cohort = cohort_round_phase(torch, ops, get_config, build_model,
+                                digit_dataset, make_fl_round, smi)
+    cohort_reference_phase(torch, get_config, build_model, make_fl_round,
+                           local_sgd, RoundNoise, quant)
+    times = timing_phase(torch, ops, tref, quant, agg, smi)
+    for k in KERNELS:
+        check(launches[k] + cohort[k] > 0, f"{k} was not launched on a main path")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[k], "max_abs_err": err[k], **times[k]}
+                "launches": launches[k] + cohort[k], "max_abs_err": err[k],
+                **times[k]}
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,11 +1,19 @@
 """Typed config dataclasses — the port's own copy of ``repro.config.base``,
-trimmed to the fields the FL simulator slice reads; a field comes back with
-the slice that first reads it.  Field names, defaults and units are the
+trimmed to the fields the ported slices read; a field comes back with the
+slice that first reads it.  Field names, defaults and units are the
 reference's, so one config means the same in both packages.
+
+``QuantConfig.use_pallas`` is not ported: on a CUDA tensor the port always
+runs its hand-written kernel, and on a CPU tensor the kernel's plain
+version, so there is nothing to switch.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+# The distributed collective wire formats ``make_fl_round`` accepts ("auto"
+# resolves to a concrete mode when the round is built).
+COLLECTIVE_CHOICES = ("paper", "int", "packed", "ring", "rsag", "auto")
 
 
 @dataclass(frozen=True)
@@ -27,6 +35,14 @@ class QuantConfig:
     stochastic: bool = True         # stochastic (unbiased) vs nearest rounding
     quantize_training: bool = True  # quantize weights during local training (QNN)
     quantize_uplink: bool = True    # quantize the transmitted delta
+    # what the cohort round puts on the wire (make_fl_round default):
+    # "f32" (paper-faithful float sum), "int", "packed", "ring", "rsag",
+    # "auto" — see core/aggregation.py
+    wire_format: str = "f32"
+    # the hop modes' schedule: True fuses the ring's quantize->pack front-end
+    # into one quantize_pack_chunk launch; False runs quantize_pack and a
+    # repack from zero.  Bit-identical either way.
+    pipeline_hops: bool = True
 
     @property
     def enabled(self) -> bool:
@@ -66,6 +82,8 @@ class FLConfig:
     local_iters: int = 3            # I
     learning_rate: float = 0.001
     error_aware: bool = True        # eq.6 renormalization vs naive eq.5
+    # names of the cohort axes of make_fl_round, outermost first
+    cohort_axes: tuple = ("pod", "data")
     seed: int = 0
 
 

@@ -1,37 +1,102 @@
-"""Federated training orchestration (paper Algorithm 1): the simulator.
+"""Federated training orchestration (paper Algorithm 1).
 
-``FLSimulator`` is the paper's N=100-device MNIST setting: explicit client
-sampling, I local QAT-SGD steps per client (eq. 4, STE fake-quant), uplink
-delta quantization, Bernoulli packet drops, error-aware aggregation
-(eq. 6), and per-round energy/latency from the §II-D model.
+Two runtimes share the same local steps (:func:`local_sgd`):
+
+* ``FLSimulator`` is the paper's N=100-device MNIST setting: explicit
+  client sampling, I local QAT-SGD steps per client (eq. 4, STE
+  fake-quant), uplink delta quantization, Bernoulli packet drops,
+  error-aware aggregation (eq. 6), and per-round energy/latency from the
+  §II-D model.  The uplink is one quantize and one dequantize launch over
+  (K, D), and eq. 6 one ``masked_aggregate`` launch.
+
+* ``make_fl_round`` is the cohort round: C = Π axis_sizes client cohorts,
+  each taking I local steps on its slice of the global batch, surviving
+  with probability 1-q, and aggregating through a selectable wire format
+  (``aggregation.aggregate``: paper, int, packed, ring, auto).  The
+  reference runs one cohort per mesh shard; the port runs the C cohorts
+  stacked on one device, the cohort the leading dimension of every
+  tensor.
 
 Where the reference ``vmap``s a ``lax.scan`` over clients, the port writes
-the batch out: the K selected clients' parameters are one flat (K, D)
+the batch out: the clients' (or cohorts') parameters are one flat (K, D)
 float32 tensor (columns in leaf order), so every local step is one
-fake-quant launch pair over all K clients, one stacked forward (grouped
+fake-quant launch pair over all K, one stacked forward (grouped
 convolutions, ``bmm``) and one backward of the summed loss, which gives
-each client its own gradient.  The uplink is one quantize and one
-dequantize launch over (K, D), and eq. 6 one ``masked_aggregate`` launch.
+each its own gradient.
 """
 from __future__ import annotations
 
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
 from repro_torch import convert
-from repro_torch.config.base import Config
+from repro_torch.config.base import COLLECTIVE_CHOICES, Config
 from repro_torch.core import aggregation as agg
 from repro_torch.core import channel as ch
 from repro_torch.core import energy as energy_mod
 from repro_torch.core import quantization as quant
 from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.population import telemetry
 
 Batch = Dict[str, torch.Tensor]
 GenLike = Union[int, torch.Generator]
+
+
+def _uniform(gen: Optional[torch.Generator], shape,
+             device: torch.device) -> torch.Tensor:
+    if gen is None:
+        raise ValueError("pass a generator, or the noise tensors")
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def _full_fp32(device: torch.device) -> None:
+    """Run the round in full float32, as the reference does: TF32 off for
+    cuDNN convolutions (on by default) and matrix products — a
+    process-wide setting."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def local_sgd(model, config: Config, params: torch.Tensor, batches: Batch,
+              gen: Optional[torch.Generator] = None, *,
+              u_train: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """I local steps of quantized SGD (eq. 4) for K clients at once.
+
+    params (D,); batches leaves (K, I, B, ...); u_train (K, I, D) the
+    fake-quant noise of each step (drawn from ``gen`` when None).  Returns
+    the K local parameter vectors (K, D) and each step's loss and accuracy,
+    (I, K) each.
+    """
+    fl, qcfg = config.fl, config.quant
+    K, I = batches["labels"].shape[:2]
+    D = params.shape[0]
+    fake_quant = qcfg.enabled and qcfg.quantize_training
+    p = params.detach().expand(K, D).clone()
+    losses, accs = [], []
+    for i in range(I):
+        p.requires_grad_(True)
+        with torch.enable_grad():
+            pq = p
+            if fake_quant:
+                u = (u_train[:, i] if u_train is not None
+                     else _uniform(gen, (K, D), params.device))
+                pq = quant.fake_quant_ste(p, u, qcfg.bits, qcfg.clip,
+                                          qcfg.stochastic)
+            ce, acc = model.loss_stacked(
+                convert.unflatten_params(pq, model.param_shapes),
+                {k: v[:, i] for k, v in batches.items()})
+            (grad,) = torch.autograd.grad(ce.sum(), p)
+        p = p.detach() - fl.learning_rate * grad
+        losses.append(ce.detach())
+        accs.append(acc)
+    return p, torch.stack(losses), torch.stack(accs)
 
 
 @dataclass
@@ -66,9 +131,7 @@ class FLSimulator:
         if client_store.device.type != self.device.type:
             raise ValueError(f"client store on {client_store.device}, "
                              f"simulator on {self.device}")
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        _full_fp32(self.device)
         self.model = model
         self.config = config
         self.store = client_store
@@ -78,11 +141,6 @@ class FLSimulator:
                                    dtype=torch.float32, device=self.device)
         self.macs = macs_per_iter or config.energy.macs_per_iteration
         self._energy: Optional[Tuple[float, float]] = None
-
-    def _uniform(self, gen: Optional[torch.Generator], shape) -> torch.Tensor:
-        if gen is None:
-            raise ValueError("pass a generator, or the noise tensors")
-        return torch.rand(shape, generator=gen, device=self.device)
 
     # -- the K selected clients: I local steps of quantized SGD (eq. 4) --------
 
@@ -97,32 +155,15 @@ class FLSimulator:
         Returns the (quantized) deltas (K, D) and each client's mean loss and
         accuracy over its I steps, (K,) each.
         """
-        fl, qcfg = self.config.fl, self.config.quant
-        K, I = batches["labels"].shape[:2]
-        D = params.shape[0]
-        fake_quant = qcfg.enabled and qcfg.quantize_training
-        p = params.detach().expand(K, D).clone()
-        losses, accs = [], []
-        for i in range(I):
-            p.requires_grad_(True)
-            with torch.enable_grad():
-                pq = p
-                if fake_quant:
-                    u = u_train[:, i] if u_train is not None else self._uniform(gen, (K, D))
-                    pq = quant.fake_quant_ste(p, u, qcfg.bits, qcfg.clip,
-                                              qcfg.stochastic)
-                ce, acc = self.model.loss_stacked(
-                    convert.unflatten_params(pq, self.shapes),
-                    {k: v[:, i] for k, v in batches.items()})
-                (grad,) = torch.autograd.grad(ce.sum(), p)
-            p = p.detach() - fl.learning_rate * grad
-            losses.append(ce.detach())
-            accs.append(acc)
+        qcfg = self.config.quant
+        p, losses, accs = local_sgd(self.model, self.config, params, batches,
+                                    gen, u_train=u_train)
         delta = p - params
         if qcfg.enabled and qcfg.quantize_uplink:
-            u = u_up if u_up is not None else self._uniform(gen, (K, D))
+            u = u_up if u_up is not None else _uniform(gen, delta.shape,
+                                                       self.device)
             delta = quant.quantize(delta, u, qcfg)
-        return delta, torch.stack(losses).mean(0), torch.stack(accs).mean(0)
+        return delta, losses.mean(0), accs.mean(0)
 
     def _round(self, params: torch.Tensor, batches: Batch,
                client_alphas: torch.Tensor,
@@ -236,3 +277,119 @@ class FLSimulator:
             if target_accuracy and h["accuracy"] >= target_accuracy:
                 break
         return params, history
+
+
+# ---------------------------------------------------------------------------
+# the cohort round: C cohorts stacked on one device
+# ---------------------------------------------------------------------------
+
+_WIRE_TO_COLLECTIVE = {"f32": "paper", "int": "int", "packed": "packed",
+                       "ring": "ring", "rsag": "rsag", "auto": "auto"}
+
+
+class RoundNoise(NamedTuple):
+    """Every random draw of one cohort round, so a test can inject the
+    reference's own: u_train (C, I, D) fake-quant noise per local step,
+    u_up (C, D) uplink rounding noise, lam (C,) packet successes."""
+    u_train: torch.Tensor
+    u_up: torch.Tensor
+    lam: torch.Tensor
+
+
+def fl_data_axes(axis_sizes: Sequence[int],
+                 config: Optional[Config] = None) -> Tuple[str, ...]:
+    """Names of the cohort axes of sizes ``axis_sizes``: the trailing
+    entries of ``fl.cohort_axes``, so (10,) is ("data",) and (2, 5) is
+    ("pod", "data") under the default."""
+    wanted = config.fl.cohort_axes if config is not None else ("pod", "data")
+    if len(axis_sizes) > len(wanted):
+        raise ValueError(f"{len(axis_sizes)} cohort axes, but "
+                         f"fl.cohort_axes names {len(wanted)}: {wanted}")
+    return tuple(wanted[len(wanted) - len(axis_sizes):])
+
+
+def resolve_collective(config: Config, collective: Optional[str]) -> str:
+    """Explicit ``collective`` wins; else ``config.quant.wire_format``."""
+    if collective is None:
+        collective = _WIRE_TO_COLLECTIVE.get(config.quant.wire_format)
+        if collective is None:
+            raise ValueError(
+                f"unknown quant.wire_format {config.quant.wire_format!r}; "
+                f"expected one of {sorted(_WIRE_TO_COLLECTIVE)}")
+    if collective not in COLLECTIVE_CHOICES:
+        raise ValueError(f"unknown collective {collective!r}")
+    return collective
+
+
+def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
+                  collective: Optional[str] = None,
+                  device: DeviceLike = None) -> Optional[Callable]:
+    """Build the cohort round over C = Π ``axis_sizes`` cohorts.
+
+    collective: "paper" | "int" | "packed" | "ring" | "auto" | None (the
+    default: ``config.quant.wire_format``).  "rsag", and a ring over more
+    than one non-trivial axis, raise ``NotImplementedError``.  Returns None
+    when there is no cohort axis, as the reference does.  ``device=None``
+    means the CUDA device.
+
+    Returned fn: ``round_fn(params, batch, gen=None, *, noise=None) ->
+    (params, metrics)``.  params is the flat (D,) float32 vector;
+    ``batch`` leaves are (global_batch, ...), and cohort c takes rows
+    [c·b, (c+1)·b), b = global_batch / C, split into I microbatches with
+    the remainder b mod I dropped.  Each cohort's data weight is α = 1/C.
+    The draws come from the ``torch.Generator`` ``gen`` or, all of them,
+    from ``noise`` (:class:`RoundNoise`).  ``metrics`` holds the mean loss
+    and the survivors (0-dim tensors), ``wire_bits_per_param`` and its
+    per-phase split ``wire_phase_bits_per_param``.
+    """
+    fl, qcfg = config.fl, config.quant
+    collective = resolve_collective(config, collective)
+    axis_sizes = tuple(int(s) for s in axis_sizes)
+    axes = fl_data_axes(axis_sizes, config)
+    if not axes:
+        return None
+    C = int(math.prod(axis_sizes))
+    plan = agg.make_wire_plan(collective, qcfg, axes, axis_sizes)
+    agg.check_ported(plan)
+    dev = resolve_device(device)
+    _full_fp32(dev)
+    I = fl.local_iters
+    D = sum(math.prod(s) for s in model.param_shapes.values())
+    quantize_up = qcfg.enabled and qcfg.quantize_uplink
+
+    def cohort_batches(batch: Batch) -> Batch:
+        out = {}
+        for k, v in batch.items():
+            if v.shape[0] % C:
+                raise ValueError(f"global batch {v.shape[0]} does not split "
+                                 f"over {C} cohorts")
+            mb = v.shape[0] // C // I
+            v = v.reshape(C, v.shape[0] // C, *v.shape[1:])[:, :I * mb]
+            out[k] = v.reshape(C, I, mb, *v.shape[2:])
+        return out
+
+    def round_fn(params: torch.Tensor, batch: Batch,
+                 gen: Optional[torch.Generator] = None, *,
+                 noise: Optional[RoundNoise] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        if params.shape != (D,) or params.device.type != dev.type:
+            raise ValueError(f"params must be ({D},) on {dev}, got "
+                             f"{tuple(params.shape)} on {params.device}")
+        if noise is None and gen is None:
+            raise ValueError("pass a generator, or the noise tensors")
+        batches = cohort_batches(batch)
+        u_train = noise.u_train if noise is not None else None
+        p, losses, _ = local_sgd(model, config, params, batches, gen,
+                                 u_train=u_train)
+        if noise is not None:
+            lam, u_up = noise.lam, noise.u_up
+        else:
+            lam = ch.sample_packet_success(gen, (C,),
+                                           config.channel.error_prob)
+            u_up = _uniform(gen, (C, D), dev) if quantize_up else None
+        agg_delta = agg.aggregate(plan, p - params, 1.0 / C, lam, u_up)
+        metrics = telemetry.distributed_metrics(
+            plan, loss=losses.mean(), survivors=lam.sum())
+        return params + agg_delta, metrics
+
+    return round_fn

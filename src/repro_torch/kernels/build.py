@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "aggregate")
+SOURCES = ("quantize", "aggregate", "pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -30,12 +30,18 @@ _c = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
 _i = ctypes.c_int
+_u = ctypes.c_uint
 #: C signature of every exported function (all return cudaError_t as int)
 SIGNATURES = {
     "repro_quantize_codes": (_c, _c, _c, _ll, _f, _i, _i, _c),
     "repro_dequantize_codes": (_c, _c, _ll, _f, _c),
     "repro_masked_aggregate_f32": (_c, _c, _c, _i, _ll, _f, _c),
     "repro_masked_aggregate_i32": (_c, _c, _c, _i, _ll, _f, _c),
+    "repro_quantize_pack": (_c, _c, _c, _i, _ll, _ll, _i, _f, _i, _i, _c),
+    "repro_unpack_dequantize": (_c, _c, _i, _ll, _ll, _i, _u, _f, _c),
+    "repro_quantize_pack_chunk": (_c, _c, _c, _c, _i, _ll, _i, _ll, _ll, _i,
+                                  _u, _f, _i, _i, _c),
+    "repro_repack": (_c, _c, _i, _ll, _ll, _i, _i, _u, _c),
 }
 
 _lock = threading.Lock()

@@ -9,15 +9,18 @@ can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import quantization as wire
 from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"stochastic_quantize_codes": 0,
-                            "dequantize_codes": 0, "masked_aggregate": 0}
+                            "dequantize_codes": 0, "masked_aggregate": 0,
+                            "quantize_pack": 0, "unpack_dequantize": 0,
+                            "quantize_pack_chunk": 0, "repack": 0}
 
 
 def reset_launch_counts() -> None:
@@ -57,6 +60,34 @@ def _check_bits(bits: int) -> None:
         raise ValueError(f"bits must be in [1, 24], got {bits}")
 
 
+def _inv_gain(bits: int, clip: float) -> float:
+    return float(np.float32(clip / float(2 ** (bits - 1))))
+
+
+def _wire_args(bits: int, lane_bits: int, sum_of: int,
+               bias: Optional[int]) -> Tuple[int, int, int]:
+    """(lane, cpw, bias) of a packed buffer; raises on a lane over 32 bits
+    or a bias outside uint32."""
+    _check_bits(bits)
+    lane = lane_bits or bits
+    cpw = wire.codes_per_word(bits, lane_bits=lane)
+    b = int(2 ** (bits - 1)) * int(sum_of) if bias is None else int(bias)
+    if not 0 <= b < 2 ** 32:
+        raise ValueError(f"bias {b} is outside uint32")
+    return lane, cpw, b
+
+
+def _check_rows(x: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, n), got {tuple(x.shape)}")
+
+
+def _check_noise(x: torch.Tensor, u: Optional[torch.Tensor],
+                 stochastic: bool) -> None:
+    if stochastic and (u is None or u.shape != x.shape):
+        raise ValueError("stochastic quantization needs u of x's shape")
+
+
 def stochastic_quantize_codes(x: torch.Tensor, u: Optional[torch.Tensor],
                               bits: int, *, clip: float = 1.0,
                               stochastic: bool = True) -> torch.Tensor:
@@ -65,8 +96,7 @@ def stochastic_quantize_codes(x: torch.Tensor, u: Optional[torch.Tensor],
     ``u`` is read only when ``stochastic``; nearest rounding may pass None.
     """
     _check_bits(bits)
-    if stochastic and (u is None or u.shape != x.shape):
-        raise ValueError("stochastic quantization needs u of x's shape")
+    _check_noise(x, u, stochastic)
     if not _on_cuda(x, "x"):
         return ref.stochastic_quantize_ref(x, u, bits, clip=clip,
                                            stochastic=stochastic)
@@ -91,9 +121,8 @@ def dequantize_codes(codes: torch.Tensor, bits: int, *,
         return ref.dequantize_ref(codes, bits, clip=clip)
     _check(codes, torch.int32, codes.device, "codes")
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
-    inv_gain = float(np.float32(clip / float(2 ** (bits - 1))))
     err = build.library("quantize").repro_dequantize_codes(
-        codes.data_ptr(), out.data_ptr(), codes.numel(), inv_gain,
+        codes.data_ptr(), out.data_ptr(), codes.numel(), _inv_gain(bits, clip),
         _stream(codes.device))
     _raise_on(err, "dequantize_codes")
     LAUNCHES["dequantize_codes"] += 1
@@ -126,3 +155,122 @@ def masked_aggregate(updates: torch.Tensor, weights: torch.Tensor,
     _raise_on(err, "masked_aggregate")
     LAUNCHES["masked_aggregate"] += 1
     return out
+
+
+def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor], bits: int, *,
+                  clip: float = 1.0, lane_bits: int = 0,
+                  stochastic: bool = True) -> torch.Tensor:
+    """f32 x (R, n) with noise u -> words (R, ceil(n/cpw)), int32 tensors
+    holding the uint32 pattern: quantize, bias +G and pack planar at
+    ``lane_bits`` (default ``bits``)."""
+    lane, cpw, _ = _wire_args(bits, lane_bits, 1, None)
+    _check_rows(x)
+    _check_noise(x, u, stochastic)
+    if not _on_cuda(x, "x"):
+        return ref.quantize_pack_ref(x, u, bits, clip=clip, lane_bits=lane,
+                                     stochastic=stochastic)
+    _check(x, torch.float32, x.device, "x")
+    if stochastic:
+        _check(u, torch.float32, x.device, "u")
+    R, n = x.shape
+    W = wire.packed_words(n, bits, lane_bits=lane)
+    words = torch.empty((R, W), dtype=torch.int32, device=x.device)
+    err = build.library("pack").repro_quantize_pack(
+        x.data_ptr(), u.data_ptr() if stochastic else None, words.data_ptr(),
+        R, n, W, lane, float(np.float32(clip)), bits, int(stochastic),
+        _stream(x.device))
+    _raise_on(err, "quantize_pack")
+    LAUNCHES["quantize_pack"] += 1
+    return words
+
+
+def unpack_dequantize(packed: torch.Tensor, bits: int, size: int, *,
+                      clip: float = 1.0, lane_bits: int = 0, sum_of: int = 1,
+                      bias: Optional[int] = None) -> torch.Tensor:
+    """words (R, W) or (W,) -> f32 (R, size) or (size,): extract each lane,
+    un-bias by sum_of·G (or ``bias``) modulo 2^32, times float32(clip/G)."""
+    lane, cpw, b = _wire_args(bits, lane_bits, sum_of, bias)
+    if not 0 <= size <= cpw * packed.shape[-1]:
+        raise ValueError(f"size {size} does not fit {packed.shape[-1]} words "
+                         f"of {cpw} codes")
+    if packed.dim() not in (1, 2):
+        raise ValueError(f"packed must be (W,) or (R, W), got "
+                         f"{tuple(packed.shape)}")
+    if not _on_cuda(packed, "packed"):
+        return ref.unpack_dequantize_ref(packed, bits, size, clip=clip,
+                                         lane_bits=lane, sum_of=sum_of,
+                                         bias=bias)
+    p2 = packed.reshape(-1, packed.shape[-1])
+    _check(p2, torch.int32, packed.device, "packed")
+    R, W = p2.shape
+    out = torch.empty((R, size), dtype=torch.float32, device=packed.device)
+    err = build.library("pack").repro_unpack_dequantize(
+        p2.data_ptr(), out.data_ptr(), R, size, W, lane, b,
+        _inv_gain(bits, clip), _stream(packed.device))
+    _raise_on(err, "unpack_dequantize")
+    LAUNCHES["unpack_dequantize"] += 1
+    return out.reshape(size) if packed.dim() == 1 else out
+
+
+def quantize_pack_chunk(x: torch.Tensor, u: Optional[torch.Tensor], bits: int,
+                        *, clip: float = 1.0, lane_bits: int = 0,
+                        stochastic: bool = True, num_chunks: int = 1,
+                        bias: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 x (R, n) with noise u -> (words (R, k, Wc), codes (R, k, C)),
+    k = ``num_chunks``, C = ceil(n/k), Wc = ceil(C/cpw): quantize once and
+    emit each chunk's packed words and its int32 codes.  The chunk tail is
+    the real zero code (biased on the wire); word padding is raw 0."""
+    lane, cpw, b = _wire_args(bits, lane_bits, 1, bias)
+    _check_rows(x)
+    if num_chunks < 1:
+        raise ValueError(f"num_chunks must be >= 1, got {num_chunks}")
+    _check_noise(x, u, stochastic)
+    if not _on_cuda(x, "x"):
+        return ref.quantize_pack_chunk_ref(x, u, bits, clip=clip,
+                                           lane_bits=lane,
+                                           stochastic=stochastic,
+                                           num_chunks=num_chunks, bias=bias)
+    _check(x, torch.float32, x.device, "x")
+    if stochastic:
+        _check(u, torch.float32, x.device, "u")
+    R, n = x.shape
+    k = int(num_chunks)
+    C = -(-n // k)
+    Wc = wire.packed_words(C, bits, lane_bits=lane)
+    words = torch.empty((R, k, Wc), dtype=torch.int32, device=x.device)
+    codes = torch.empty((R, k, C), dtype=torch.int32, device=x.device)
+    err = build.library("pack").repro_quantize_pack_chunk(
+        x.data_ptr(), u.data_ptr() if stochastic else None, words.data_ptr(),
+        codes.data_ptr(), R, n, k, C, Wc, lane, b, float(np.float32(clip)),
+        bits, int(stochastic), _stream(x.device))
+    _raise_on(err, "quantize_pack_chunk")
+    LAUNCHES["quantize_pack_chunk"] += 1
+    return words, codes
+
+
+def repack(packed: torch.Tensor, acc: torch.Tensor, bits: int, size: int, *,
+           hop: int = 0, lane_bits: int = 0, sum_of: int = 1,
+           bias: Optional[int] = None) -> torch.Tensor:
+    """The ring hop's accumulate, in place: for words (R, W) and int32 acc
+    (R, size), ``acc[r] += unpack(packed[(r - hop) mod R])`` un-biased by
+    sum_of·G (or ``bias``).  Returns ``acc``."""
+    lane, cpw, b = _wire_args(bits, lane_bits, sum_of, bias)
+    if packed.dim() != 2 or acc.shape != (packed.shape[0], size):
+        raise ValueError(f"need packed (R, W) and acc (R, {size}), got "
+                         f"{tuple(packed.shape)} and {tuple(acc.shape)}")
+    if size > cpw * packed.shape[1]:
+        raise ValueError(f"size {size} does not fit {packed.shape[1]} words "
+                         f"of {cpw} codes")
+    if not _on_cuda(packed, "packed"):
+        return ref.repack_ref(packed, acc, bits, size, hop=hop, lane_bits=lane,
+                              sum_of=sum_of, bias=bias)
+    _check(packed, torch.int32, packed.device, "packed")
+    _check(acc, torch.int32, packed.device, "acc")
+    R, W = packed.shape
+    err = build.library("pack").repro_repack(
+        packed.data_ptr(), acc.data_ptr(), R, size, W, int(hop) % R, lane, b,
+        _stream(packed.device))
+    _raise_on(err, "repack")
+    LAUNCHES["repack"] += 1
+    return acc

@@ -3,7 +3,12 @@
 The CPU path and the tests run these; on the card only ``chip_smoke.py``
 calls them, as the yardstick the kernels are held to.  Each follows the op
 order of the Pallas kernel it stands for (``repro/kernels/quantize.py``,
-``repro/kernels/aggregate.py``), so the quantizer is bit-exact with it.
+``repro/kernels/aggregate.py``, ``repro/kernels/pack.py``), so the
+quantizer is bit-exact with it.
+
+The wire versions take a leading row (cohort) dimension: each row is one
+call of the reference's kernel.  Their words are int32 tensors holding
+the uint32 bit pattern (see ``core/quantization.py``).
 
 Divisors and multipliers are 0-dim tensors on the input's device, never
 Python scalars: on CUDA, PyTorch turns ``tensor / python_float`` into a
@@ -14,9 +19,13 @@ copy.
 from __future__ import annotations
 
 import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+# the module, not its names: core.quantization imports this module in turn
+from repro_torch.core import quantization as wire
 
 
 @functools.lru_cache(maxsize=64)
@@ -57,3 +66,51 @@ def masked_aggregate_ref(updates: torch.Tensor, weights: torch.Tensor,
     w = weights.float()
     num = (w[:, None] * updates.float()).sum(0)
     return num / torch.clamp(w.sum(), min=eps)
+
+
+def quantize_pack_ref(x: torch.Tensor, u: Optional[torch.Tensor], bits: int, *,
+                      clip: float = 1.0, lane_bits: int = 0,
+                      stochastic: bool = True) -> torch.Tensor:
+    """x, u (R, n) -> words (R, ceil(n/cpw)): quantize, then pack planar
+    with the +G bias at ``lane_bits``."""
+    codes = stochastic_quantize_ref(x, u, bits, clip=clip, stochastic=stochastic)
+    return wire.pack_codes(codes, bits, lane_bits=lane_bits)
+
+
+def unpack_dequantize_ref(packed: torch.Tensor, bits: int, size: int, *,
+                          clip: float = 1.0, lane_bits: int = 0,
+                          sum_of: int = 1,
+                          bias: Optional[int] = None) -> torch.Tensor:
+    """words (..., W) -> f32 (..., size): unpack, un-bias by sum_of·G (or
+    ``bias``) modulo 2^32, times float32(clip/G)."""
+    codes = wire.unpack_codes(packed, bits, size, lane_bits=lane_bits,
+                         sum_of=sum_of, bias=bias)
+    return dequantize_ref(codes, bits, clip=clip)
+
+
+def quantize_pack_chunk_ref(x: torch.Tensor, u: Optional[torch.Tensor],
+                            bits: int, *, clip: float = 1.0,
+                            lane_bits: int = 0, stochastic: bool = True,
+                            num_chunks: int = 1, bias: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x, u (R, n) -> (words (R, k, Wc), codes (R, k, C)), C = ceil(n/k):
+    quantize, pad each row's codes with real zero codes to k·C, split into
+    k chunks and pack each at ``lane_bits`` with the +G bias (or
+    ``bias``)."""
+    codes = stochastic_quantize_ref(x, u, bits, clip=clip, stochastic=stochastic)
+    R, n = codes.shape
+    k = int(num_chunks)
+    C = -(-n // k)
+    chunks = torch.nn.functional.pad(codes, (0, k * C - n)).reshape(R, k, C)
+    return wire.pack_codes(chunks, bits, lane_bits=lane_bits, bias=bias), chunks
+
+
+def repack_ref(packed: torch.Tensor, acc: torch.Tensor, bits: int, size: int,
+               *, hop: int = 0, lane_bits: int = 0, sum_of: int = 1,
+               bias: Optional[int] = None) -> torch.Tensor:
+    """The ring hop's accumulate, in place: ``acc[r] += unpack(packed[(r -
+    hop) mod R])`` for words (R, W) and acc (R, size) int32.  Returns acc."""
+    src = torch.roll(packed, shifts=int(hop), dims=0)
+    acc += wire.unpack_codes(src, bits, size, lane_bits=lane_bits, sum_of=sum_of,
+                        bias=bias)
+    return acc

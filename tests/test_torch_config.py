@@ -30,3 +30,16 @@ def test_mnist_cnn_matches_the_reference(section):
     jsec = getattr(jget_config("mnist_cnn"), section)
     for f in dataclasses.fields(tsec):
         assert getattr(tsec, f.name) == getattr(jsec, f.name), f"{section}.{f.name}"
+
+
+def test_wire_fields_are_ported_and_use_pallas_is_not():
+    """The cohort round reads ``wire_format``, ``pipeline_hops`` and
+    ``cohort_axes`` with the reference's defaults.  ``use_pallas`` is not
+    ported: on a CUDA tensor the port always runs its kernel, on a CPU
+    tensor the kernel's plain version."""
+    tq = {f.name for f in dataclasses.fields(tbase.QuantConfig)}
+    jq = {f.name for f in dataclasses.fields(jbase.QuantConfig)}
+    assert {"wire_format", "pipeline_hops"} <= tq
+    assert "use_pallas" in jq and "use_pallas" not in tq
+    assert tbase.FLConfig().cohort_axes == jbase.FLConfig().cohort_axes
+    assert tbase.COLLECTIVE_CHOICES == jbase.COLLECTIVE_CHOICES

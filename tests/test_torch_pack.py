@@ -1,0 +1,309 @@
+"""The port's packed wire format against the reference's.
+
+The plain versions of the four wire kernels (``repro_torch/kernels/ref.py``,
+what a CPU tensor runs) are held bit-exact to the Pallas kernels of
+``repro/kernels/pack.py`` in interpret mode, on the same numpy inputs and
+the reference's own rounding noise; ``pack_codes`` / ``unpack_codes`` and
+the wire plan to ``repro.core``.  Each row of a port call is one call of
+the reference.  Words are compared as uint32 (the port holds them as int32
+bit patterns).  The CUDA kernels are held to the plain versions by the
+``gpu`` test, which needs a card.
+"""
+import itertools
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.config.base import QuantConfig
+from repro_torch.core import aggregation as tagg
+from repro_torch.core import quantization as tq
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+
+BITS = [1, 2, 4, 8]
+SIZES = [1, 127, 5003]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    import jax
+    import jax.numpy as jnp
+
+    from repro.config.base import QuantConfig as JQuantConfig
+    from repro.core import aggregation as agg
+    from repro.core import quantization as quant
+    from repro.kernels import pack
+    return types.SimpleNamespace(jax=jax, jnp=jnp, pack=pack, quant=quant,
+                                 agg=agg, QuantConfig=JQuantConfig)
+
+
+def _lanes(bits):
+    """The native lane, a guard lane for a 3-4 cohort sum, the full word."""
+    return sorted({bits, bits + 2, 32})
+
+
+def _inputs(jx, rows, n, clip, seed):
+    """x uniform over ±1.5·clip led by the boundary cases, and the
+    reference's own rounding noise (``jax.random.uniform``)."""
+    kx, ku = jx.jax.random.split(jx.jax.random.PRNGKey(seed))
+    x = np.array(jx.jax.random.uniform(kx, (rows, n), minval=-1.5 * clip,
+                                       maxval=1.5 * clip))
+    edge = np.array([clip, -clip, 0.0, 2 * clip], np.float32)[:n]
+    x[:, :len(edge)] = edge
+    u = np.array(jx.jax.random.uniform(ku, (rows, n)))
+    return x, u
+
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+def _pallas(jx, fn, *args, **kw):
+    """A Pallas kernel in interpret mode, numpy operands made jax arrays."""
+    args = [jx.jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
+    return fn(*args, interpret=True, **kw)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_pack_codes_round_trip_matches_reference(jx, bits):
+    """Words bit-exact with ``quantization.pack_codes`` and codes with
+    ``unpack_codes``, for the default, sum_of and lane-bias variants."""
+    g = 2 ** (bits - 1)
+    rng = np.random.default_rng(bits)
+    for n, lane in itertools.product(SIZES, _lanes(bits)):
+        variants = [(1, None), (1, tq.lane_bias(lane))]
+        if lane >= bits + 2:
+            variants.append((3, None))            # partial sums of 3 codes
+        for sum_of, bias in variants:
+            codes = rng.integers(-g * sum_of, (g - 1) * sum_of + 1,
+                                 (2, n)).astype(np.int32)
+            want = np.stack([np.asarray(jx.quant.pack_codes(
+                jx.jnp.asarray(c), bits, lane_bits=lane, sum_of=sum_of,
+                bias=bias)) for c in codes])
+            got = tq.pack_codes(torch.from_numpy(codes), bits, lane_bits=lane,
+                                sum_of=sum_of, bias=bias)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(_u32(got), want)
+            back = tq.unpack_codes(got, bits, n, lane_bits=lane,
+                                   sum_of=sum_of, bias=bias)
+            ref_back = np.asarray(jx.quant.unpack_codes(
+                jx.jnp.asarray(want[1]), bits, n, lane_bits=lane,
+                sum_of=sum_of, bias=bias))
+            np.testing.assert_array_equal(back.numpy(), codes)
+            np.testing.assert_array_equal(back[1].numpy(), ref_back)
+
+
+@pytest.mark.parametrize("lane_kind", [0, 1, 2])
+@pytest.mark.parametrize("bits", BITS)
+def test_quantize_pack_plain_bit_exact_with_pallas(jx, bits, lane_kind):
+    lanes = _lanes(bits)
+    lane = lanes[min(lane_kind, len(lanes) - 1)]
+    cases = [(1, 1.0, True), (127, 0.3, True), (5003, 1.0, True),
+             (5003, 0.3, False)]
+    for n, clip, stochastic in cases:
+        x, u = _inputs(jx, 2, n, clip, seed=bits * 7 + n)
+        got = ops.quantize_pack(torch.from_numpy(x), torch.from_numpy(u), bits,
+                                clip=clip, lane_bits=lane,
+                                stochastic=stochastic)
+        for r in range(2):
+            want = _pallas(jx, jx.pack.quantize_pack, x[r], u[r], bits,
+                           clip=clip, lane_bits=lane, stochastic=stochastic)
+            np.testing.assert_array_equal(_u32(got[r]), np.asarray(want))
+
+
+@pytest.mark.parametrize("num_chunks", [1, 3, 4])
+@pytest.mark.parametrize("bits", BITS)
+def test_quantize_pack_chunk_plain_bit_exact_with_pallas(jx, bits, num_chunks):
+    """Words and codes per chunk, the chunk tail a real zero code; at the
+    native lane with the +G bias and at lane 32 with the lane-symmetric
+    bias 2^31."""
+    for n, clip, lane, bias in ((127, 1.0, bits, None),
+                                (5003, 0.3, bits, None),
+                                (5003, 1.0, 32, tq.lane_bias(32))):
+        x, u = _inputs(jx, 2, n, clip, seed=bits + n + num_chunks)
+        words, codes = ops.quantize_pack_chunk(
+            torch.from_numpy(x), torch.from_numpy(u), bits, clip=clip,
+            lane_bits=lane, num_chunks=num_chunks, bias=bias)
+        for r in range(2):
+            jw, jc = _pallas(jx, jx.pack.quantize_pack_chunk, x[r], u[r], bits,
+                             clip=clip, lane_bits=lane, num_chunks=num_chunks,
+                             bias=bias)
+            np.testing.assert_array_equal(_u32(words[r]), np.asarray(jw))
+            np.testing.assert_array_equal(codes[r].numpy(), np.asarray(jc))
+
+
+def _wire_variants(bits):
+    """(lane, sum_of, bias) cases: native and full-word lanes with the +G
+    bias, a guard lane holding sums of 3, the lane-symmetric bias."""
+    out = [(bits, 1, None), (32, 1, None), (32, 1, tq.lane_bias(32))]
+    if bits + 2 < 32:
+        out += [(bits + 2, 3, None), (bits + 2, 1, tq.lane_bias(bits + 2))]
+    return out
+
+
+def _words(rng, bits, lane, sum_of, bias, rows, n):
+    g = 2 ** (bits - 1)
+    codes = rng.integers(-g * sum_of, (g - 1) * sum_of + 1, (rows, n))
+    return tq.pack_codes(torch.from_numpy(codes.astype(np.int32)), bits,
+                         lane_bits=lane, sum_of=sum_of, bias=bias)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_unpack_dequantize_plain_bit_exact_with_pallas(jx, bits):
+    rng = np.random.default_rng(bits)
+    for (lane, sum_of, bias), n, clip in itertools.product(
+            _wire_variants(bits), (127, 5003), (1.0, 0.3)):
+        words = _words(rng, bits, lane, sum_of, bias, 1, n)
+        got = ops.unpack_dequantize(words[0], bits, n, clip=clip,
+                                    lane_bits=lane, sum_of=sum_of, bias=bias)
+        want = _pallas(jx, jx.pack.unpack_dequantize, _u32(words[0]), bits, n,
+                       clip=clip, lane_bits=lane, sum_of=sum_of, bias=bias)
+        assert got.dtype == torch.float32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_repack_plain_bit_exact_with_pallas(jx, bits):
+    """Row r of acc takes the words of row (r - hop) mod R, as the Pallas
+    repack takes the words one ppermute delivered; acc is updated in place."""
+    rng = np.random.default_rng(10 + bits)
+    R = 3
+    for (lane, sum_of, bias), n, hop in itertools.product(
+            _wire_variants(bits), (1, 5003), (0, 1, 5)):
+        words = _words(rng, bits, lane, sum_of, bias, R, n)
+        acc0 = rng.integers(-1000, 1000, (R, n)).astype(np.int32)
+        acc = torch.from_numpy(acc0.copy())
+        out = ops.repack(words, acc, bits, n, hop=hop, lane_bits=lane,
+                         sum_of=sum_of, bias=bias)
+        assert out is acc
+        for r in (0, 2):
+            want = _pallas(jx, jx.pack.repack, _u32(words[(r - hop) % R]),
+                           acc0[r], bits, n, lane_bits=lane, sum_of=sum_of,
+                           bias=bias)
+            np.testing.assert_array_equal(acc[r].numpy(), np.asarray(want))
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    ops.reset_launch_counts()
+    x = torch.linspace(-1.2, 1.2, 101).reshape(1, -1)
+    u = torch.full_like(x, 0.5)
+    words = ops.quantize_pack(x, u, 8)
+    torch.testing.assert_close(words, tref.quantize_pack_ref(x, u, 8),
+                               rtol=0, atol=0)
+    ops.unpack_dequantize(words, 8, 101)
+    w2, c2 = ops.quantize_pack_chunk(x, u, 8, num_chunks=1)
+    assert torch.equal(w2[:, 0], words)
+    ops.repack(words, c2[:, 0].clone(), 8, 101)
+    assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
+
+
+def test_wire_wrappers_reject_bad_arguments():
+    x = torch.zeros(2, 10)
+    with pytest.raises(ValueError, match="32-bit"):
+        ops.quantize_pack(x, x, 8, lane_bits=33)
+    with pytest.raises(ValueError, match="u of x's shape"):
+        ops.quantize_pack(x, None, 8)
+    with pytest.raises(ValueError, match="uint32"):
+        ops.unpack_dequantize(torch.zeros(3, dtype=torch.int32), 8, 12,
+                              bias=2 ** 32)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.unpack_dequantize(torch.zeros(3, dtype=torch.int32), 8, 13)
+    with pytest.raises(ValueError, match="acc"):
+        ops.repack(torch.zeros(2, 3, dtype=torch.int32),
+                   torch.zeros(3, 12, dtype=torch.int32), 8, 12)
+    with pytest.raises(ValueError, match="num_chunks"):
+        ops.quantize_pack_chunk(x, x, 8, num_chunks=0)
+
+
+# -- the wire plan: pure Python, equal to the reference's --------------------
+
+PLAN_BITS = [0, 1, 2, 4, 8, 16, 30]
+PLAN_SIZES = [(2,), (3,), (4,), (8,), (10,), (16,), (32,), (2, 4), (4, 16),
+              (2, 2, 2)]
+
+
+@pytest.mark.parametrize("uplink", [True, False])
+@pytest.mark.parametrize("bits", PLAN_BITS)
+def test_wire_plan_equals_the_reference(jx, bits, uplink):
+    """``make_wire_plan``, ``resolve_auto``, ``effective_wire_format`` and
+    ``wire_phase_bits_per_param`` return the reference's values exactly for
+    every mode and cohort layout of ``tests/test_aggregation.py`` (and
+    more)."""
+    q = QuantConfig(bits=bits, quantize_uplink=uplink)
+    jq = jx.QuantConfig(bits=bits, quantize_uplink=uplink)
+    for sizes in PLAN_SIZES:
+        axes = ("pod", "data", "x")[-len(sizes):]
+        n = int(np.prod(sizes))
+        assert tagg.resolve_auto(q, sizes) == jx.agg.resolve_auto(jq, sizes)
+        for mode in ("paper", "int", "packed", "ring", "rsag", "auto"):
+            got = tagg.make_wire_plan(mode, q, axes, sizes)
+            want = jx.agg.make_wire_plan(mode, jq, axes, sizes)
+            assert (got.mode, got.resolved, got.effective, got.axes,
+                    got.axis_sizes, got.num_shards, got.wire_bits) == \
+                (want.mode, want.resolved, want.effective, want.axes,
+                 want.axis_sizes, want.num_shards, want.wire_bits)
+            assert tagg.wire_phase_bits_per_param(mode, q, sizes) == \
+                jx.agg.wire_phase_bits_per_param(mode, jq, sizes)
+            assert tagg.effective_wire_format(mode, q, n) == \
+                jx.agg.effective_wire_format(mode, jq, n)
+    with pytest.raises(ValueError):
+        tagg.make_wire_plan("bogus", q, ("data",), (2,))
+
+
+def test_int_container_and_payload_counts_equal_the_reference(jx):
+    names = {torch.int8: "int8", torch.int16: "int16", torch.int32: "int32"}
+    for bits, shards in itertools.product([1, 2, 4, 8, 16], [1, 2, 3, 16, 512]):
+        assert names[tagg._int_container(bits, shards)] == \
+            jx.jnp.dtype(jx.agg._int_container(bits, shards)).name
+        assert tq.packed_lane_bits(bits, shards) == \
+            jx.quant.packed_lane_bits(bits, shards)
+    for n, bits, sizes in itertools.product([1, 5003, 421_642], [1, 2, 8, 16],
+                                            [(2,), (10,), (2, 4), (16,)]):
+        assert tq.packed_payload_bits(n, bits, num_shards=int(np.prod(sizes))) \
+            == jx.quant.packed_payload_bits(n, bits,
+                                            num_shards=int(np.prod(sizes)))
+        assert tq.ring_payload_bits(n, bits, sizes) == \
+            jx.quant.ring_payload_bits(n, bits, sizes)
+        assert tq.rsag_payload_bits(n, bits, sizes) == \
+            jx.quant.rsag_payload_bits(n, bits, sizes)
+    assert tq.lane_bias(32) == jx.quant.lane_bias(32) == 2 ** 31
+
+
+@pytest.mark.gpu
+def test_cuda_pack_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for (R, n), bits, clip in itertools.product(((10, 421_642), (3, 5003),
+                                                 (1, 7)), BITS, (1.0, 0.3)):
+        x = (torch.rand((R, n), generator=gen, device=dev) - 0.5) * 3 * clip
+        u = torch.rand((R, n), generator=gen, device=dev)
+        for lane in _lanes(bits):
+            words = ops.quantize_pack(x, u, bits, clip=clip, lane_bits=lane)
+            assert torch.equal(words, tref.quantize_pack_ref(
+                x, u, bits, clip=clip, lane_bits=lane))
+            for k in (1, 3):
+                got = ops.quantize_pack_chunk(x, u, bits, clip=clip,
+                                              lane_bits=lane, num_chunks=k)
+                want = tref.quantize_pack_chunk_ref(x, u, bits, clip=clip,
+                                                    lane_bits=lane,
+                                                    num_chunks=k)
+                assert all(map(torch.equal, got, want))
+        for lane, sum_of, bias in _wire_variants(bits):
+            codes = torch.randint(-2 ** (bits - 1), 2 ** (bits - 1), (R, n),
+                                  generator=gen, device=dev, dtype=torch.int32)
+            words = tq.pack_codes(codes, bits, lane_bits=lane, bias=bias)
+            assert torch.equal(
+                ops.unpack_dequantize(words, bits, n, clip=clip,
+                                      lane_bits=lane, bias=bias),
+                tref.unpack_dequantize_ref(words, bits, n, clip=clip,
+                                           lane_bits=lane, bias=bias))
+            acc = codes.clone()
+            want = tref.repack_ref(words, codes.clone(), bits, n, hop=1,
+                                   lane_bits=lane, bias=bias)
+            assert torch.equal(ops.repack(words, acc, bits, n, hop=1,
+                                          lane_bits=lane, bias=bias), want)
+    torch.cuda.synchronize()
