@@ -11,8 +11,12 @@ through the kernels at the paper's widths:
 * Algorithm 1 through ``FLSimulator`` (N=100 clients, K=10 per round, I=3
   local steps, batch 32, 8-bit, q=0.01);
 * the cohort round ``make_fl_round`` on the same QNN over C=10 cohorts
-  (I=3, 32 images per microbatch) in the paper, int, packed, ring (both
-  front-ends) and auto wire formats.
+  (I=3, 32 images per microbatch): on one axis (10,) in the paper, int,
+  packed, ring, rsag (ring and rsag with both front-ends) and auto wire
+  formats, and on two axes (2, 5) ("pod", "data") in int, packed, ring,
+  rsag and auto;
+* the int8 product ``kernels.ops.qmatmul``, whose entry point is the
+  kernel API itself (no round calls it), at the shapes it is given.
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -34,6 +38,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
+SHORT_BOUND_MS = 5e-3         # below this bound a kernel is also timed back to back
 ROUNDS = 5
 COHORT_ROUNDS = 3
 SHAPES = {"main": (10, 421_642), "ragged": (3, 5003)}
@@ -49,11 +55,33 @@ KERNELS = {
     "unpack_dequantize": (PACK_SRC, "src/repro/kernels/pack.py:134"),
     "quantize_pack_chunk": (PACK_SRC, "src/repro/kernels/pack.py:273"),
     "repack": (PACK_SRC, "src/repro/kernels/pack.py:192"),
+    "pack_sums": (PACK_SRC, "src/repro/kernels/pack.py:368"),
+    "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
+                "src/repro/kernels/qmatmul.py:35"),
 }
-#: the cohort round's modes: (label, collective, pipeline_hops)
-COHORT_MODES = (("paper", "paper", True), ("int", "int", True),
-                ("packed", "packed", True), ("ring", "ring", True),
-                ("ring_sequential", "ring", False), ("auto", "auto", True))
+#: the cohort round's layouts and modes: (label, collective, pipeline_hops)
+COHORT_MODES = {
+    (10,): (("paper", "paper", True), ("int", "int", True),
+            ("packed", "packed", True), ("ring", "ring", True),
+            ("ring_sequential", "ring", False), ("rsag", "rsag", True),
+            ("rsag_sequential", "rsag", False), ("auto", "auto", True)),
+    (2, 5): (("int", "int", True), ("packed", "packed", True),
+             ("ring", "ring", True), ("ring_sequential", "ring", False),
+             ("rsag", "rsag", True), ("rsag_sequential", "rsag", False),
+             ("auto", "auto", True)),
+}
+#: wire bits/param each layout's plan must price (8 bits)
+COHORT_WIRE_BITS = {(10,): {"paper": 32.0, "int": 16.0, "packed": 16.0,
+                            "ring": 72.0, "rsag": 26.4, "auto": 16.0},
+                    (2, 5): {"int": 16.0, "packed": 16.0, "ring": 152.0 / 3,
+                             "rsag": 32.8, "auto": 16.0}}
+#: qmatmul's shapes (M, K, N): kernels_micro's, the QNN's fc1 at the
+#: cohort round's 960 images, the exactness case of tests/test_kernels.py
+QMATMUL_SHAPES = ((256, 512, 256), (960, 3136, 128), (8, 4096, 8))
+#: the one PyTorch call timed beside a kernel (library_ms), where one exists
+LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
+                 "masked_aggregate": "w @ x / sum(w)",
+                 "qmatmul": "torch._int_mm (int32, no scaling)"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -146,12 +174,16 @@ def _max_diff(got, want) -> float:
 
 
 def wire_kernels_phase(torch, ops, tref, quant):
-    """The four wire kernels against their plain versions, ``torch.equal``:
+    """The five wire kernels against their plain versions, ``torch.equal``:
     bits {1,2,4,8} x clip {1, 0.3} x both roundings at lanes {bits,
     bits+ceil(log2 C), 32}; the un-bias by sum_of·G and by an explicit
-    bias; quantize_pack_chunk at k in {1, 3, 4}; repack at hops 0, 1, C-1."""
+    bias; quantize_pack_chunk at k in {1, 3, 4}; repack at hops 0, 1, C-1
+    and along each axis of the (2, 5) grid; pack_sums at every rsag hop
+    lane of 8 bits at C=10 (lanes 8-12, lane-symmetric bias), at lane 32
+    with the bias 2^31 and at the two-axis ring's level change (lane 9,
+    sums of 2)."""
     err = {k: 0.0 for k in ("quantize_pack", "unpack_dequantize",
-                            "quantize_pack_chunk", "repack")}
+                            "quantize_pack_chunk", "repack", "pack_sums")}
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = 0
 
@@ -210,9 +242,84 @@ def wire_kernels_phase(torch, ops, tref, quant):
                                  tref.repack_ref(words, codes.clone(), bits, D,
                                                  hop=hop, **kw),
                                  what + f" hop={hop}")
+                        same("pack_sums",
+                             ops.pack_sums(codes, bits, lane_bits=lane,
+                                           sum_of=sum_of, bias=bias),
+                             tref.pack_sums_ref(codes, bits, lane_bits=lane,
+                                                sum_of=sum_of, bias=bias),
+                             what)
+    C, D = SHAPES["main"]
+    chunk = -(-D // C)
+    g = 128
+    for lane in sorted({quant.packed_lane_bits(8, h) for h in range(1, C + 1)}):
+        m = min(2 ** (lane - 8), C)             # the codes a lane can sum
+        sums = torch.randint(-g * m, (g - 1) * m + 1, (C, chunk),
+                             generator=gen, device="cuda", dtype=torch.int32)
+        kw = dict(lane_bits=lane, bias=quant.lane_bias(lane))
+        same("pack_sums", ops.pack_sums(sums, 8, **kw),
+             tref.pack_sums_ref(sums, 8, **kw), f"rsag hop shape lane={lane}")
+    sums = torch.randint(-2 ** 30, 2 ** 30, (C, chunk), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    same("pack_sums", ops.pack_sums(sums, 8, lane_bits=32, bias=2 ** 31),
+         tref.pack_sums_ref(sums, 8, lane_bits=32, bias=2 ** 31),
+         "lane 32, bias 2^31")
+    sums = torch.randint(-2 * g, 2 * (g - 1) + 1, (C, D), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    same("pack_sums", ops.pack_sums(sums, 8, lane_bits=9, sum_of=2),
+         tref.pack_sums_ref(sums, 8, lane_bits=9, sum_of=2),
+         "two-axis ring level change")
+    words = quant.pack_codes(sums, 8, lane_bits=9, sum_of=2)
+    for axis, inner, hops in ((2, 5, (1,)), (5, 1, (1, 2, 3, 4))):
+        for hop in hops:
+            kw = dict(hop=hop, lane_bits=9, sum_of=2, axis_size=axis,
+                      inner=inner)
+            same("repack", ops.repack(words, sums.clone(), 8, D, **kw),
+                 tref.repack_ref(words, sums.clone(), 8, D, **kw),
+                 f"(2, 5) grid axis={axis} inner={inner} hop={hop}")
     print(f"wire kernels == plain (torch.equal) in {cases} cases at the main "
-          f"(C=10, D=421,642) and ragged (C=3, D=5,003) shapes")
+          f"(C=10, D=421,642), rsag hop (C=10, {chunk:,}) and ragged (C=3, "
+          f"D=5,003) shapes")
     return err
+
+
+def qmatmul_phase(torch, ops, tref):
+    """qmatmul against its plain version, ``torch.equal``, at
+    QMATMUL_SHAPES (the last all 127, the exact-accumulation case); then
+    the entry point driven once per shape with the launch counts reset
+    just before, which is the count the kernels line reports."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    inputs = []
+    err = 0.0
+    for M, K, N in QMATMUL_SHAPES:
+        x = torch.randint(-128, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        if K == 4096:
+            x.fill_(127)
+            w.fill_(127)
+        inputs.append((x, w))
+        got = ops.qmatmul(x, w, 0.01, 0.02)
+        want = tref.qmatmul_ref(x, w, 0.01, 0.02)
+        torch.cuda.synchronize()
+        err = max(err, _max_diff(got, want))
+        check(torch.equal(got, want), f"qmatmul differs at {(M, K, N)}")
+        if K == 4096:
+            exact = ops.qmatmul(x, w, 1.0, 1.0)
+            check(float(exact[0, 0]) == 127 * 127 * K,
+                  f"qmatmul accumulation inexact: {float(exact[0, 0])}")
+    ops.reset_launch_counts()
+    outs = [ops.qmatmul(x, w, 0.05, 0.1) for x, w in inputs]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(launches["qmatmul"] == len(QMATMUL_SHAPES)
+          and sum(launches.values()) == len(QMATMUL_SHAPES),
+          f"qmatmul entry point launches {launches}")
+    check(all(bool(torch.isfinite(o).all()) for o in outs), "non-finite qmatmul")
+    print(f"qmatmul == plain (torch.equal) at {list(QMATMUL_SHAPES)}; "
+          f"K=4096 accumulation exact; entry point launches "
+          f"{launches['qmatmul']}")
+    return err, launches["qmatmul"]
 
 
 def paper_config(get_config, *, K=10, I=3, batch=32):
@@ -312,28 +419,56 @@ def cohort_config(get_config, mode_hops=True, *, I=3, micro=32, C=10, q=0.01):
         channel=dataclasses.replace(cfg.channel, error_prob=q))
 
 
-def predicted_cohort_launches(collective, hops, C, I, R):
-    """Launches of R cohort rounds: the STE takes one quantize and one
-    dequantize per local step in every mode; the uplink as the wire format
-    runs it (auto resolves to packed at C=10, 8 bits)."""
-    up = {"paper": {"stochastic_quantize_codes": 1, "dequantize_codes": 1},
-          "int": {"stochastic_quantize_codes": 1, "dequantize_codes": 1},
-          "packed": {"quantize_pack": 1, "unpack_dequantize": 1},
-          "auto": {"quantize_pack": 1, "unpack_dequantize": 1},
-          "ring": ({"quantize_pack_chunk": 1, "repack": C - 1,
-                    "dequantize_codes": 1} if hops else
-                   {"quantize_pack": 1, "repack": C, "dequantize_codes": 1})}
+def predicted_cohort_launches(collective, hops, axis_sizes, I, R):
+    """Launches of R cohort rounds, counted from the reference's schedules
+    (``src/repro/core/aggregation.py`` ``_reduce_ring``, ``_rsag_level``,
+    ``_reduce_rsag``).  The STE takes one quantize and one dequantize per
+    local step in every mode; the uplink as the wire format runs it, "auto"
+    resolving to packed at (10,) and at (2, 5), 8 bits.  Per non-trivial
+    axis of K entries:
+
+    * ring: K - 1 repacks, and a pack_sums of the partial sums before every
+      axis but the first; front-end quantize_pack_chunk (pipelined) or
+      quantize_pack and a repack from zero; one dequantize of the sum.
+    * rsag: K - 1 scatter hops of one pack_sums and one repack each, the
+      first axis's hop-1 pack_sums done by the quantize_pack_chunk front
+      under ``pipeline_hops`` (otherwise the quantize kernel runs first);
+      the gather's pack_sums; a repack into zeros before the last axis and
+      one unpack_dequantize after it.
+
+    So (10,): ring 1 chunk + 9 repack + 1 dequantize, rsag 1 chunk + 9
+    repack + 9 pack_sums + 1 unpack; (2, 5): ring 1 chunk + 5 repack + 1
+    pack_sums + 1 dequantize, rsag 1 chunk + 6 repack + 6 pack_sums + 1
+    unpack (pipelined)."""
+    ks = [k for k in axis_sizes if k > 1]
+    if collective in ("paper", "int"):
+        up = {"stochastic_quantize_codes": 1, "dequantize_codes": 1}
+    elif collective in ("packed", "auto"):
+        up = {"quantize_pack": 1, "unpack_dequantize": 1}
+    elif collective == "ring":
+        up = ({"quantize_pack_chunk": 1} if hops else
+              {"quantize_pack": 1, "repack": 1})
+        up["repack"] = up.get("repack", 0) + sum(k - 1 for k in ks)
+        up.update({"pack_sums": len(ks) - 1, "dequantize_codes": 1})
+    else:   # rsag
+        up = ({"quantize_pack_chunk": 1} if hops else
+              {"stochastic_quantize_codes": 1})
+        up.update({"repack": sum(k - 1 for k in ks) + len(ks) - 1,
+                   "pack_sums": sum(ks) - int(hops),
+                   "unpack_dequantize": 1})
     per_round = {"stochastic_quantize_codes": I, "dequantize_codes": I}
-    for k, v in up[collective].items():
+    for k, v in up.items():
         per_round[k] = per_round.get(k, 0) + v
-    return {k: v * R for k, v in per_round.items()}
+    return {k: v * R for k, v in per_round.items() if v}
 
 
 def cohort_round_phase(torch, ops, get_config, build_model, digit_dataset,
                        make_fl_round, smi):
     """The cohort round at full width: the QNN over C=10 cohorts, I=3, 32
-    images per microbatch, in every ported wire format, COHORT_ROUNDS
-    rounds each from the same parameters and generator seed."""
+    images per microbatch, on each layout of COHORT_MODES in each of its
+    wire formats, COHORT_ROUNDS rounds each from the same parameters,
+    batches and generator seed.  The launch counts are set to 0 just
+    before each format's rounds and read just after."""
     C, I, micro, R = 10, 3, 32, COHORT_ROUNDS
     cfg = cohort_config(get_config, I=I, micro=micro, C=C)
     model = build_model(cfg)
@@ -348,64 +483,79 @@ def cohort_round_phase(torch, ops, get_config, build_model, digit_dataset,
     torch.cuda.synchronize()
     total = {k: 0 for k in ops.LAUNCHES}
     results = {}
-    for label, collective, hops in COHORT_MODES:
-        fn = make_fl_round(model, cohort_config(get_config, hops, I=I,
-                                                micro=micro, C=C),
-                           (C,), collective=collective)
-        g = torch.Generator(device="cuda").manual_seed(11)
-        params, hist, ms = params0, [], []
-        ops.reset_launch_counts()
+    for sizes, modes in COHORT_MODES.items():
+        for label, collective, hops in modes:
+            fn = make_fl_round(model, cohort_config(get_config, hops, I=I,
+                                                    micro=micro, C=C),
+                               sizes, collective=collective)
+            g = torch.Generator(device="cuda").manual_seed(11)
+            params, hist, ms = params0, [], []
+            ops.reset_launch_counts()
+            for r in range(R):
+                t0 = time.perf_counter()
+                params, m = fn(params, batches[r], g)
+                loss = float(m["loss"])              # waits for the round
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                hist.append((params, loss, float(m["survivors"]),
+                             m["wire_bits_per_param"]))
+            launches = dict(ops.LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            want = {k: 0 for k in ops.LAUNCHES}
+            want.update(predicted_cohort_launches(collective, hops, sizes, I, R))
+            check(launches == want,
+                  f"{sizes} {label}: launches {launches} != predicted {want}")
+            losses = [h[1] for h in hist]
+            check(all(map(math.isfinite, losses)),
+                  f"{sizes} {label}: non-finite loss {losses}")
+            check(all(bool(torch.isfinite(h[0]).all()) for h in hist),
+                  f"{sizes} {label}: non-finite parameters")
+            check(abs(hist[0][3] - COHORT_WIRE_BITS[sizes][collective]) < 1e-9,
+                  f"{sizes} {label}: wire bits {hist[0][3]} != "
+                  f"{COHORT_WIRE_BITS[sizes][collective]}")
+            results[sizes, label] = hist
+            print(json.dumps({"cohort_round": label, "axis_sizes": list(sizes),
+                              "collective": collective, "pipeline_hops": hops,
+                              "C": C, "I": I, "global_batch": C * I * micro,
+                              "losses": losses,
+                              "survivors": [h[2] for h in hist],
+                              "wire_bits_per_param": hist[0][3],
+                              "round_ms": ms,
+                              "round_ms_median": sorted(ms)[R // 2],
+                              "launches": {k: v for k, v in launches.items() if v},
+                              "card": smi}))
         for r in range(R):
-            t0 = time.perf_counter()
-            params, m = fn(params, batches[r], g)
-            loss = float(m["loss"])              # waits for the round
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            hist.append((params, loss, float(m["survivors"]),
-                         m["wire_bits_per_param"]))
-        launches = dict(ops.LAUNCHES)
-        for k, v in launches.items():
-            total[k] += v
-        want = {k: 0 for k in ops.LAUNCHES}
-        want.update(predicted_cohort_launches(collective, hops, C, I, R))
-        check(launches == want, f"{label}: launches {launches} != predicted {want}")
-        losses = [h[1] for h in hist]
-        check(all(map(math.isfinite, losses)), f"{label}: non-finite loss {losses}")
-        check(all(bool(torch.isfinite(h[0]).all()) for h in hist),
-              f"{label}: non-finite parameters")
-        results[label] = hist
-        print(json.dumps({"cohort_round": label, "collective": collective,
-                          "pipeline_hops": hops, "C": C, "I": I,
-                          "global_batch": C * I * micro, "losses": losses,
-                          "survivors": [h[2] for h in hist],
-                          "wire_bits_per_param": hist[0][3],
-                          "round_ms": ms, "round_ms_median": sorted(ms)[R // 2],
-                          "launches": {k: v for k, v in launches.items() if v},
-                          "card": smi}))
-    packed = [h[1] for h in results["packed"]]
+            for label, _, _ in modes:
+                if label != "paper":
+                    check(torch.equal(results[sizes, label][r][0],
+                                      results[sizes, "int"][r][0]),
+                          f"{sizes} round {r}: {label} params differ from int")
+    packed = [h[1] for h in results[(C,), "packed"]]
     check(packed[-1] < packed[0], f"packed loss did not fall: {packed}")
-    check(results["packed"][0][3] == 32.0 / 2, "packed must ship 16 bits/param")
-    check(results["ring"][0][3] == 72.0, "ring must ship 72 bits/param at C=10")
-    check(results["auto"][0][3] == results["packed"][0][3], "auto must resolve to packed")
     for r in range(R):
-        for label in ("packed", "ring", "ring_sequential", "auto"):
-            check(torch.equal(results[label][r][0], results["int"][r][0]),
-                  f"round {r}: {label} params differ from int")
-    print(f"cohort round: params torch.equal across int, packed, ring (both "
-          f"front-ends) and auto after each of {R} rounds; launches as predicted")
-    packed_round = make_fl_round(model, cfg, (C,), collective="packed")
-    g = torch.Generator(device="cuda").manual_seed(3)
-    profile_phase(torch, "make_fl_round packed C=10",
-                  lambda: packed_round(params0, batches[0], g))
+        check(torch.equal(results[(2, 5), "int"][r][0],
+                          results[(C,), "int"][r][0]),
+              f"round {r}: int at (2, 5) differs from int at (10,)")
+    print(f"cohort round: params torch.equal across int, packed, ring and "
+          f"rsag (both front-ends) and auto after each of {R} rounds at "
+          f"(10,) and at (2, 5), and between the layouts; launches and wire "
+          f"bits as predicted")
+    for sizes, mode in (((C,), "packed"), ((2, 5), "rsag")):
+        round_fn = make_fl_round(model, cfg, sizes, collective=mode)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        profile_phase(torch, f"make_fl_round {mode} {sizes}",
+                      lambda: round_fn(params0, batches[0], g))
     return total
 
 
 def cohort_reference_phase(torch, get_config, build_model, make_fl_round,
-                           local_sgd, RoundNoise, quant):
+                           local_sgd, RoundNoise, quant, sizes, collective):
     """One small cohort round on the card against the same round on the CPU
-    (C=4, I=2, 8 images per microbatch), the slice-1 bar: uplink codes
-    >= 99.9 % equal and none off by more than 1, params within one step."""
-    C, I, micro = 4, 2, 8
+    (C=4 cohorts laid out as ``sizes``, I=2, 8 images per microbatch), the
+    slice-1 bar: uplink codes >= 99.9 % equal and none off by more than 1,
+    params within one step."""
+    C, I, micro = math.prod(sizes), 2, 8
     cfg = cohort_config(get_config, I=I, micro=micro, C=C, q=0.3)
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(7)
@@ -423,7 +573,7 @@ def cohort_reference_phase(torch, get_config, build_model, make_fl_round,
         p = params.to(dev)
         b = {k: v.to(dev) for k, v in batch.items()}
         nz = RoundNoise(*(t.to(dev) for t in noise))
-        fn = make_fl_round(model, cfg, (C,), collective="packed", device=dev)
+        fn = make_fl_round(model, cfg, sizes, collective=collective, device=dev)
         new, m = fn(p, b, noise=nz)
         cb = {k: v.reshape(C, I, micro, *v.shape[1:]) for k, v in b.items()}
         local, _, _ = local_sgd(model, cfg, p, cb, u_train=nz.u_train)
@@ -433,8 +583,8 @@ def cohort_reference_phase(torch, get_config, build_model, make_fl_round,
     diff = (out["cuda"][0] - out["cpu"][0]).abs()
     agree = float((diff == 0).float().mean())
     perr = (out["cuda"][1] - out["cpu"][1]).abs()
-    print(f"card vs CPU, one cohort round C={C} I={I} microbatch {micro} "
-          f"(packed): uplink codes agree on {agree:.6f}, max code diff "
+    print(f"card vs CPU, one cohort round {sizes} I={I} microbatch {micro} "
+          f"({collective}): uplink codes agree on {agree:.6f}, max code diff "
           f"{float(diff.max()):.0f}, max param diff {float(perr.max()):.3g}, "
           f"loss {out['cuda'][2]:.6f} vs {out['cpu'][2]:.6f}")
     check(float(diff.max()) <= 1 and agree >= 0.999, "cohort uplink codes disagree")
@@ -502,8 +652,35 @@ def time_ms(torch, fn, reps=50):
     return times[len(times) // 2]
 
 
-def bound_ms(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+def time_back_to_back_ms(torch, fn, reps=50):
+    """Mean device time of ``reps`` launches of ``fn`` run back to back
+    between two events, L2 not flushed between them.  For a kernel shorter
+    than the host's enqueue time, one event pair around one launch measures
+    the enqueue.  Here the card is first put to sleep (``torch.cuda._sleep``)
+    so that the events and all ``reps`` launches are queued before it
+    wakes; if the start event has already run when the last launch is
+    queued, the card caught up with the host and the sleep is lengthened."""
+    for _ in range(5):
+        fn()
+    cycles = 10 ** 7
+    while cycles <= 10 ** 10:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        queued = not s.query()
+        torch.cuda.synchronize()
+        if queued:
+            return s.elapsed_time(e) / reps
+        cycles *= 4
+    raise AssertionError("the card never got ahead of the host's enqueue")
+
+
+def bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -511,9 +688,15 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     """Every kernel at the shape the main paths give it (8 bits, C=K=10,
     D=421,642): the packed psum's lane 12 for quantize_pack and
     unpack_dequantize, the ring's native lane 8 for quantize_pack_chunk
-    (k=1) and one repack hop.  Bounds count each input byte read once and
-    each output byte written once; integer operations are counted against
-    the f32 rate, as the bytes bound every one of these kernels."""
+    (k=1) and one repack hop, the two-axis ring's level change for
+    pack_sums (lane 9, sums of 2), qmatmul at the QNN's fc1 over 960
+    images.  Extra rows time pack_sums at an rsag hop (C=10 chunks of
+    42,165, lane 12) and qmatmul at (256, 512, 256).  Bounds count each
+    input byte read once and each output byte written once; integer
+    operations of the wire kernels are counted against the f32 rate, as
+    the bytes bound every one of them, and qmatmul's against the int8
+    tensor-core rate.  A kernel whose bound is under SHORT_BOUND_MS is
+    also timed back to back (``ms_back_to_back``)."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -528,6 +711,22 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     Wn = quant.packed_words(D, 8)                            # 4 codes a word
     ring_words = ops.quantize_pack(x, u, 8)                  # (K, Wn)
     acc = codes.clone()
+    sums2 = torch.randint(-256, 255, (K, D), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    W9 = quant.packed_words(D, 8, lane_bits=9)
+    chunk = -(-D // K)
+    hop_sums = torch.randint(-1280, 1271, (K, chunk), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    W12c = quant.packed_words(chunk, 8, lane_bits=12)
+    bias12 = quant.lane_bias(12)
+    mm = {}
+    for M, Kd, N in QMATMUL_SHAPES[:2]:
+        mm[M, Kd, N] = (
+            torch.randint(-128, 128, (M, Kd), generator=gen, device="cuda",
+                          dtype=torch.int8),
+            torch.randint(-128, 128, (Kd, N), generator=gen, device="cuda",
+                          dtype=torch.int8))
+    (xq, wq), (xs, ws) = mm[960, 3136, 128], mm[256, 512, 256]
     rows = {
         "stochastic_quantize_codes": (
             lambda: ops.stochastic_quantize_codes(x, u, 8),
@@ -559,15 +758,50 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             lambda: ops.repack(ring_words, acc, 8, D, hop=1),
             lambda: tref.repack_ref(ring_words, acc, 8, D, hop=1), None,
             4.0 * K * Wn + 8.0 * n, 4.0 * n),
+        "pack_sums": (
+            lambda: ops.pack_sums(sums2, 8, lane_bits=9, sum_of=2),
+            lambda: tref.pack_sums_ref(sums2, 8, lane_bits=9, sum_of=2), None,
+            4.0 * n + 4.0 * K * W9, 2.0 * n),
+        "pack_sums@rsag_hop": (
+            lambda: ops.pack_sums(hop_sums, 8, lane_bits=12, bias=bias12),
+            lambda: tref.pack_sums_ref(hop_sums, 8, lane_bits=12, bias=bias12),
+            None, 4.0 * K * chunk + 4.0 * K * W12c, 2.0 * K * chunk),
+        "qmatmul": (
+            lambda: ops.qmatmul(xq, wq, 0.05, 0.1),
+            lambda: tref.qmatmul_ref(xq, wq, 0.05, 0.1),
+            lambda: torch._int_mm(xq, wq),
+            960 * 3136 + 3136 * 128 + 4.0 * 960 * 128,
+            2.0 * 960 * 3136 * 128, INT8_OPS_PER_S),
+        "qmatmul@256x512x256": (
+            lambda: ops.qmatmul(xs, ws, 0.05, 0.1),
+            lambda: tref.qmatmul_ref(xs, ws, 0.05, 0.1),
+            lambda: torch._int_mm(xs, ws),
+            256 * 512 + 512 * 256 + 4.0 * 256 * 256,
+            2.0 * 256 * 512 * 256, INT8_OPS_PER_S),
     }
+    shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
+              "qmatmul@256x512x256": [256, 512, 256]}
     out = {}
-    for name, (kernel, plain, library, nbytes, nops) in rows.items():
-        b_ms, b_by = bound_ms(nbytes, nops)
+    for name, (kernel, plain, library, nbytes, nops, *rate) in rows.items():
+        b_ms, b_by = bound_ms(nbytes, nops, *rate)
         out[name] = {"ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
                      "library_ms": time_ms(torch, library) if library else None,
                      "bound_ms": b_ms, "bound_by": b_by}
-        print(json.dumps({"timing": name, "shape": [K, D], **out[name],
-                          "l2": "flushed before each launch", "card": smi}))
+        extra = {}
+        if b_ms < SHORT_BOUND_MS:
+            extra["ms_back_to_back"] = time_back_to_back_ms(torch, kernel)
+            extra["plain_ms_back_to_back"] = time_back_to_back_ms(torch, plain)
+        print(json.dumps({"timing": name, "shape": shapes.get(name, [K, D]),
+                          **out[name], **extra,
+                          "ms_is": "median of 50 single launches, L2 flushed "
+                                   "before each",
+                          **({"ms_back_to_back_is": "mean of 50 launches "
+                              "queued behind a sleep and run back to back "
+                              "between two events, L2 warm"}
+                             if extra else {}),
+                          "library": LIBRARY_CALLS.get(name.split("@")[0]),
+                          "card": smi}))
+        out[name].update(extra)
     return out
 
 
@@ -591,6 +825,7 @@ def main() -> int:
     build_phase(build)
     err = kernels_phase(torch, ops, tref)
     err.update(wire_kernels_phase(torch, ops, tref, quant))
+    err["qmatmul"], qmatmul_launches = qmatmul_phase(torch, ops, tref)
     launches, sim, params = main_path_phase(torch, ops, get_config, build_model,
                                             make_federated_digits, FLSimulator,
                                             convert)
@@ -599,13 +834,18 @@ def main() -> int:
     reference_phase(torch, get_config, build_model, FLSimulator, convert)
     cohort = cohort_round_phase(torch, ops, get_config, build_model,
                                 digit_dataset, make_fl_round, smi)
-    cohort_reference_phase(torch, get_config, build_model, make_fl_round,
-                           local_sgd, RoundNoise, quant)
+    for sizes, collective in (((4,), "packed"), ((2, 2), "rsag")):
+        cohort_reference_phase(torch, get_config, build_model, make_fl_round,
+                               local_sgd, RoundNoise, quant, sizes, collective)
     times = timing_phase(torch, ops, tref, quant, agg, smi)
-    for k in KERNELS:
-        check(launches[k] + cohort[k] > 0, f"{k} was not launched on a main path")
+    # qmatmul is on no round: its entry point is the kernel API, driven by
+    # qmatmul_phase with the counts reset just before
+    path_launches = {k: launches[k] + cohort[k] for k in KERNELS}
+    path_launches["qmatmul"] = qmatmul_launches
+    for k, n in path_launches.items():
+        check(n > 0, f"{k} was not launched on its path")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[k] + cohort[k], "max_abs_err": err[k],
+                "launches": path_launches[k], "max_abs_err": err[k],
                 **times[k]}
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))

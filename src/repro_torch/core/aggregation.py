@@ -6,13 +6,18 @@ Simulator forms: the deltas arrive stacked as one flat (K, D) tensor
 
 Collective forms (the cohort round, ``core.fl.make_fl_round``) run in the
 **cohort-stacked** form on one device: the C cohorts are the leading
-dimension of every tensor.  Where the reference runs one shard per cohort
-under ``shard_map``, the port reads its collectives so:
+dimension of every tensor, stacked row-major over the cohort grid
+``axis_sizes`` (row p·K_data + d for ("pod", "data")).  Where the
+reference runs one shard per cohort under ``shard_map``, the port reads
+its collectives so:
 
   ``lax.psum`` over the cohort axes  -> a sum over the leading dimension
                                         (modulo 2^32 for packed words);
-  ``lax.ppermute`` by one hop h       -> row r reads row (r - h) mod C;
-  ``lax.axis_index``                  -> the row index.
+  ``lax.ppermute`` by h along axis a  -> row r reads the row of its group
+                                        whose index on a is h less, mod K_a
+                                        (``ops.repack``'s axis hop);
+  ``lax.axis_index(a)``               -> (r // inner_a) mod K_a, inner_a
+                                        the product of the later axes.
 
 One launch of each kernel covers all cohorts.  A :class:`WirePlan` built
 once by :func:`make_wire_plan` resolves "auto", applies the degenerate
@@ -25,17 +30,23 @@ fallbacks and prices the wire, exactly as the reference's.  Wire formats:
   "packed"  codes biased and bit-packed into 32-bit words with a
             ceil(log2 C)-bit guard per lane, so one modular word sum adds
             every lane carry-free (``quantize_pack`` / ``unpack_dequantize``).
-  "ring"    codes packed at the native lane and passed C-1 hops round the
-            ring, each hop unpacked into an int32 accumulator (``repack``).
+  "ring"    codes packed at the native lane and passed K-1 hops round the
+            ring of each non-trivial axis, each hop unpacked into an int32
+            accumulator (``repack``); between axes the partial sums of m
+            codes are re-packed at lane bits+ceil(log2 m) (``pack_sums``).
             ``QuantConfig.pipeline_hops`` picks the front-end: one
             ``quantize_pack_chunk`` launch (True) or ``quantize_pack`` and a
             repack from zero (False).  Same codes, same sum.
-  "rsag"    not ported yet (it needs the ``pack_sums`` kernel); it raises,
-            as does a ring over more than one non-trivial cohort axis.
+  "rsag"    reduce-scatter + all-gather per non-trivial axis: the vector
+            splits into K chunks, hop h ships one chunk of partial sums at
+            a growing lane (``pack_sums``, ``repack``), and the gather
+            forwards the finished chunks unchanged.  Front-end: one
+            ``quantize_pack_chunk`` launch (``pipeline_hops``) or the
+            quantizer and a ``pack_sums``.
 
 Every quantized mode computes the same integer codes and the same exact
 integer sum, and dequantizes that sum by the same multiply,
-``codes · float32(clip/G)``, so "int", "packed" and "ring" give
+``codes · float32(clip/G)``, so "int", "packed", "ring" and "rsag" give
 bit-identical aggregates at every clip.  (The reference's pure path
 divides and its Pallas kernels multiply, so at a clip that is not a power
 of two its modes can differ from each other by up to 2 ulp — ROADMAP C;
@@ -213,20 +224,6 @@ def make_wire_plan(collective: str, qcfg: QuantConfig, axes: Sequence[str],
                     wire_bits=wire_bits_per_param(resolved, qcfg, axis_sizes))
 
 
-def check_ported(plan: WirePlan) -> None:
-    """Raise for the wire paths the port does not run yet (ROADMAP B8):
-    rsag, and a ring whose second level needs the ``pack_sums`` repack."""
-    if plan.effective == "rsag":
-        raise NotImplementedError(
-            f"collective {plan.mode!r} runs rsag, which is not ported yet: "
-            "it needs the pack_sums kernel (ROADMAP B8)")
-    if plan.effective == "ring" and sum(k > 1 for k in plan.axis_sizes) > 1:
-        raise NotImplementedError(
-            f"a ring over cohort axes {plan.axis_sizes} repacks its partial "
-            "sums between levels with pack_sums, which is not ported yet "
-            "(ROADMAP B8)")
-
-
 # ---------------------------------------------------------------------------
 # plan execution, cohort-stacked: every tensor leads with the C cohorts
 # ---------------------------------------------------------------------------
@@ -246,7 +243,6 @@ def aggregate(plan: WirePlan, delta: torch.Tensor, alpha: float,
     nearest rounding or an unquantized uplink).  Returns the aggregated
     delta (D,) that every cohort holds after the collective.
     """
-    check_ported(plan)
     if delta.dim() != 2 or lam.shape != (delta.shape[0],):
         raise ValueError(f"need delta (C, D) and lam (C,), got "
                          f"{tuple(delta.shape)} and {tuple(lam.shape)}")
@@ -292,11 +288,21 @@ def _reduce_packed(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
                                  sum_of=plan.num_shards)
 
 
+def _cohort_levels(plan: WirePlan) -> Tuple[Tuple[int, int], ...]:
+    """(K, inner) of each non-trivial cohort axis in plan order: K entries,
+    ``inner`` rows per step (the product of the later axes' sizes)."""
+    sizes = plan.axis_sizes
+    return tuple((k, _prod(sizes[i + 1:])) for i, k in enumerate(sizes)
+                 if k > 1)
+
+
 def ring_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
-    """The native-width ring over one cohort axis: (C, D) int32 where row r
-    holds its own codes plus those of rows r-1, ..., r-(C-1) — each row the
-    full code sum.  Hop h adds the packed words of row (r - h) mod C, as
-    ``ppermute`` by one hop h times delivers them."""
+    """The native-width ring over every non-trivial cohort axis, in plan
+    order: (C, D) int32 where every row ends with the full code sum.  On an
+    axis of K entries, hop h adds the packed words of the row h steps back
+    along it, as ``ppermute`` by one hop h times delivers them; between
+    axes the partial sums of m codes are re-packed at lane
+    bits+ceil(log2 m) with the sum_of·G bias (``pack_sums``)."""
     qcfg = plan.quant
     bits = qcfg.bits
     C, n = x.shape
@@ -312,8 +318,15 @@ def ring_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
         acc = ops.repack(buf, torch.zeros((C, n), dtype=torch.int32,
                                           device=x.device),
                          bits, n, hop=0, lane_bits=bits)
-    for h in range(1, C):
-        ops.repack(buf, acc, bits, n, hop=h, lane_bits=bits)
+    m = 1   # codes summed in each accumulator entry so far
+    for K, inner in _cohort_levels(plan):
+        lane = quant.packed_lane_bits(bits, m)
+        if m > 1:
+            buf = ops.pack_sums(acc, bits, lane_bits=lane, sum_of=m)
+        for h in range(1, K):
+            ops.repack(buf, acc, bits, n, hop=h, lane_bits=lane, sum_of=m,
+                       axis_size=K, inner=inner)
+        m *= K
     return acc
 
 
@@ -325,9 +338,102 @@ def _reduce_ring(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
     return quant.dequantize_codes(acc[0], qcfg.bits, clip=qcfg.clip)
 
 
+def _gather_chunks(vals: torch.Tensor, K: int, inner: int,
+                   n: int) -> torch.Tensor:
+    """The all-gather's layout: vals (R, C) holds, in the row at index idx
+    on the axis, the finished chunk (idx + 1) mod K; every row of the group
+    takes chunk j from the row at index (j - 1) mod K.  Returns (R, n)."""
+    R, C = vals.shape
+    r = torch.arange(R, device=vals.device)
+    base = r - ((r // inner) % K) * inner          # the group's index-0 row
+    j = torch.arange(K, device=vals.device)
+    src = base[:, None] + ((j - 1) % K * inner)[None, :]
+    return vals[src].reshape(R, K * C)[:, :n]
+
+
+def rsag_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
+    """Reduce-scatter + all-gather over every non-trivial cohort axis, in
+    plan order: (C, D) f32 where every row ends with the dequantized code
+    sum.
+
+    A level over an axis of K entries splits each row's vector of partial
+    sums of ``unit`` codes into K chunks of ceil(D/K) (the pad tail rides
+    as zero codes).  Scatter hop h packs every row's running chunk at lane
+    bits+ceil(log2(unit·h)) with the lane-symmetric ``lane_bias``
+    (``pack_sums``) and adds the words of the row one step back along the
+    axis into row r's chunk (idx_r - h) mod K (``repack``).  The row at
+    index idx then holds the full sum of chunk (idx + 1) mod K; the
+    gather forwards the packed finished chunks unchanged, so one unpack of
+    every row's words gives every chunk.  A level before the last unpacks
+    into int32 codes (``repack`` into a zero accumulator), the last one
+    straight into f32 (``unpack_dequantize``).
+
+    Front-end: under ``pipeline_hops`` one ``quantize_pack_chunk`` launch
+    gives level 0's chunks and hop 1's payload; otherwise the quantizer and
+    a ``pack_sums``."""
+    qcfg = plan.quant
+    bits = qcfg.bits
+    R, n = x.shape
+    levels = _cohort_levels(plan)
+    rows = torch.arange(R, device=x.device)
+    if not levels:
+        codes = quant.quantize_codes(x, u, bits, clip=qcfg.clip,
+                                     stochastic=qcfg.stochastic)
+        return quant.dequantize_codes(codes, bits, clip=qcfg.clip)
+    front = None
+    if qcfg.pipeline_hops:
+        lane0 = quant.packed_lane_bits(bits, 1)
+        front = ops.quantize_pack_chunk(
+            x, _contig(u), bits, clip=qcfg.clip, lane_bits=lane0,
+            stochastic=qcfg.stochastic, num_chunks=levels[0][0],
+            bias=quant.lane_bias(lane0))
+    else:
+        codes = quant.quantize_codes(x, u, bits, clip=qcfg.clip,
+                                     stochastic=qcfg.stochastic)
+    unit = 1
+    for li, (K, inner) in enumerate(levels):
+        C = -(-n // K)
+        idx = (rows // inner) % K
+        if li == 0 and front is not None:
+            words, chunks = front
+        else:
+            chunks = torch.nn.functional.pad(codes, (0, K * C - n))
+            chunks = chunks.reshape(R, K, C)
+        carry = chunks[rows, idx]
+        for h in range(1, K):
+            lane = quant.packed_lane_bits(bits, unit * h)
+            bias = quant.lane_bias(lane)
+            if h == 1 and li == 0 and front is not None:
+                payload = words[rows, idx]       # the own chunk, pre-packed
+            else:
+                payload = ops.pack_sums(carry, bits, lane_bits=lane,
+                                        bias=bias)
+            carry = chunks[rows, (idx - h) % K]
+            ops.repack(payload, carry, bits, C, hop=1, lane_bits=lane,
+                       bias=bias, axis_size=K, inner=inner)
+        lane = quant.packed_lane_bits(bits, unit * K)
+        bias = quant.lane_bias(lane)
+        buf = ops.pack_sums(carry, bits, lane_bits=lane, bias=bias)
+        if li == len(levels) - 1:
+            vals = ops.unpack_dequantize(buf, bits, C, clip=qcfg.clip,
+                                         lane_bits=lane, bias=bias)
+        else:
+            vals = ops.repack(buf, torch.zeros((R, C), dtype=torch.int32,
+                                               device=x.device),
+                              bits, C, hop=0, lane_bits=lane, bias=bias)
+        codes = _gather_chunks(vals, K, inner, n)
+        unit *= K
+    return codes
+
+
+def _reduce_rsag(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
+    """Every row of rsag's result holds the same dequantized sum: row 0."""
+    return rsag_sum(plan, x, u)[0]
+
+
 def _contig(u: torch.Tensor | None) -> torch.Tensor | None:
     return u.contiguous() if u is not None else None
 
 
 _REDUCERS = {"int": _reduce_int, "packed": _reduce_packed,
-             "ring": _reduce_ring}
+             "ring": _reduce_ring, "rsag": _reduce_rsag}

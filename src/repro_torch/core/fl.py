@@ -12,10 +12,10 @@ Two runtimes share the same local steps (:func:`local_sgd`):
 * ``make_fl_round`` is the cohort round: C = Π axis_sizes client cohorts,
   each taking I local steps on its slice of the global batch, surviving
   with probability 1-q, and aggregating through a selectable wire format
-  (``aggregation.aggregate``: paper, int, packed, ring, auto).  The
-  reference runs one cohort per mesh shard; the port runs the C cohorts
-  stacked on one device, the cohort the leading dimension of every
-  tensor.
+  (``aggregation.aggregate``: paper, int, packed, ring, rsag, auto).
+  The reference runs one cohort per mesh shard; the port runs the C
+  cohorts stacked on one device, the cohort the leading dimension of
+  every tensor, row-major over the cohort axes.
 
 Where the reference ``vmap``s a ``lax.scan`` over clients, the port writes
 the batch out: the clients' (or cohorts') parameters are one flat (K, D)
@@ -326,11 +326,15 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                   device: DeviceLike = None) -> Optional[Callable]:
     """Build the cohort round over C = Π ``axis_sizes`` cohorts.
 
-    collective: "paper" | "int" | "packed" | "ring" | "auto" | None (the
-    default: ``config.quant.wire_format``).  "rsag", and a ring over more
-    than one non-trivial axis, raise ``NotImplementedError``.  Returns None
-    when there is no cohort axis, as the reference does.  ``device=None``
-    means the CUDA device.
+    collective: "paper" | "int" | "packed" | "ring" | "rsag" | "auto" |
+    None (the default: ``config.quant.wire_format``).  Returns None when
+    there is no cohort axis, as the reference does.  ``device=None`` means
+    the CUDA device.
+
+    The cohorts are stacked row-major over ``axis_sizes``, whose axes are
+    the trailing names of ``fl.cohort_axes``: at (P, K) over ("pod",
+    "data") cohort (p, d) is row c = p·K + d, the flat shard index of the
+    reference's ``P(("pod", "data"))`` batch split.
 
     Returned fn: ``round_fn(params, batch, gen=None, *, noise=None) ->
     (params, metrics)``.  params is the flat (D,) float32 vector;
@@ -338,9 +342,10 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     [c·b, (c+1)·b), b = global_batch / C, split into I microbatches with
     the remainder b mod I dropped.  Each cohort's data weight is α = 1/C.
     The draws come from the ``torch.Generator`` ``gen`` or, all of them,
-    from ``noise`` (:class:`RoundNoise`).  ``metrics`` holds the mean loss
-    and the survivors (0-dim tensors), ``wire_bits_per_param`` and its
-    per-phase split ``wire_phase_bits_per_param``.
+    from ``noise`` (:class:`RoundNoise`, its rows in cohort order).
+    ``metrics`` holds the mean loss and the survivors (0-dim tensors),
+    ``wire_bits_per_param`` and its per-phase split
+    ``wire_phase_bits_per_param``.
     """
     fl, qcfg = config.fl, config.quant
     collective = resolve_collective(config, collective)
@@ -350,7 +355,6 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
         return None
     C = int(math.prod(axis_sizes))
     plan = agg.make_wire_plan(collective, qcfg, axes, axis_sizes)
-    agg.check_ported(plan)
     dev = resolve_device(device)
     _full_fp32(dev)
     I = fl.local_iters

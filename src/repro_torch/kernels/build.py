@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "aggregate", "pack")
+SOURCES = ("quantize", "aggregate", "pack", "qmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -41,7 +41,9 @@ SIGNATURES = {
     "repro_unpack_dequantize": (_c, _c, _i, _ll, _ll, _i, _u, _f, _c),
     "repro_quantize_pack_chunk": (_c, _c, _c, _c, _i, _ll, _i, _ll, _ll, _i,
                                   _u, _f, _i, _i, _c),
-    "repro_repack": (_c, _c, _i, _ll, _ll, _i, _i, _u, _c),
+    "repro_repack": (_c, _c, _i, _ll, _ll, _i, _i, _i, _i, _u, _c),
+    "repro_pack_sums": (_c, _c, _i, _ll, _ll, _i, _u, _c),
+    "repro_qmatmul": (_c, _c, _c, _i, _i, _i, _f, _c),
 }
 
 _lock = threading.Lock()

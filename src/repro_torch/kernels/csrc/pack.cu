@@ -1,8 +1,9 @@
 // The packed wire format: fused quantize-and-pack, unpack-and-dequantize,
-// quantize-pack-chunk and the ring hop's repack (paper §II-D2 payload).
+// quantize-pack-chunk, the ring hop's repack and the partial-sum pack
+// (paper §II-D2 payload).
 //
 // Replaces the Pallas TPU kernels quantize_pack, unpack_dequantize,
-// quantize_pack_chunk and repack in src/repro/kernels/pack.py.
+// quantize_pack_chunk, repack and pack_sums in src/repro/kernels/pack.py.
 //
 // Layout: a row (one cohort) of n codes packs planar into W = ceil(n/cpw)
 // 32-bit words, cpw = 32 / lane: code i = j*W + w sits in bits
@@ -13,21 +14,30 @@
 // 421,642 codes, 8 bits) quantize_pack (lane 12) moves 42.2 MB,
 // quantize_pack_chunk (lane 8) 54.8 MB and a repack hop 38.0 MB, about 13,
 // 16 and 11 us at 3.35 TB/s; unpack_dequantize moves 2.5 MB and is bound
-// by its launch.
+// by its launch.  pack_sums at the two-axis ring's level change (10 rows
+// of 421,642 partial sums to lane 9) moves 22.5 MB, about 6.7 us; at an
+// rsag hop (10 rows of 42,165) it moves about 2.3 MB and is launch-bound.
 //
 // Design: one thread per output word per row, the row in blockIdx.y.  The
 // thread reads its cpw planes at j*W + w, so neighbouring threads touch
 // neighbouring addresses in every plane and every load is coalesced; the
-// word is built in a register and stored once.  The quantizer is the step
+// word is built in a register and stored once (pack_word, shared by
+// quantize_pack and pack_sums: the lanes are added modulo 2^32, as the
+// reference sums its shifted planes).  The quantizer is the step
 // of csrc/quantize.cu (__fdiv_rn / __fmul_rn / __fadd_rn, rintf, built
 // with -fmad=false), so the codes equal the quantize kernel's bit for bit.
 // Biases are uint32 and every bias and un-bias is a modular uint32 add, so
 // the lane-symmetric bias 2^31 at lane 32 is exact.  A lane of 32 bits
 // gets its mask without the undefined shift 1u << 32.
 //
-// The ring's repack reads the words of row (r - hop) mod R and adds them
-// into row r of acc in place: the cohort-stacked form of one ppermute hop,
-// with no copy of acc and no rotated copy of the words.
+// The ring's repack reads the words of the row ``hop`` steps back along
+// one axis of the cohort grid and adds them into row r of acc in place:
+// the cohort-stacked form of one ppermute hop, with no copy of acc and no
+// rotated copy of the words.  Rows stack row-major over the grid; an axis
+// of K entries with ``inner`` rows per step maps row r to
+//   (r / (K*inner))*K*inner + (((r / inner) mod K - hop) mod K)*inner
+//   + r mod inner,
+// which is (r - hop) mod R for the one-axis ring (K = R, inner = 1).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,6 +57,21 @@ __host__ __device__ __forceinline__ uint32_t lane_mask(int lane) {
   return lane >= 32 ? 0xffffffffu : ((1u << lane) - 1u);
 }
 
+// One word w of a planar row of n codes: sum over the cpw planes of
+// (code(j*W + w) + bias) << j*lane, modulo 2^32; padding lanes stay 0.
+template <typename CodeAt>
+__device__ __forceinline__ uint32_t pack_word(CodeAt code_at, long long w,
+                                              long long W, long long n,
+                                              int lane, int cpw,
+                                              uint32_t bias) {
+  uint32_t word = 0;
+  for (int j = 0; j < cpw; ++j) {
+    const long long i = j * W + w;
+    if (i < n) word += ((uint32_t)code_at(i) + bias) << (j * lane);
+  }
+  return word;
+}
+
 // x, u: (R, n); words: (R, W).  Bias +G.
 __global__ void quantize_pack_kernel(const float* __restrict__ x,
                                      const float* __restrict__ u,
@@ -58,17 +83,26 @@ __global__ void quantize_pack_kernel(const float* __restrict__ x,
   const long long row = blockIdx.y;
   const float* xr = x + row * n;
   const float* ur = u + row * n;
-  const uint32_t g = (uint32_t)gain;
-  uint32_t word = 0;
-  for (int j = 0; j < cpw; ++j) {
-    const long long i = j * W + w;
-    if (i < n) {
-      int code = quantize_one(xr[i], stochastic ? ur[i] : 0.0f, clip, gain,
-                              stochastic);
-      word |= ((uint32_t)code + g) << (j * lane);
-    }
-  }
-  words[row * W + w] = word;
+  words[row * W + w] = pack_word(
+      [&](long long i) {
+        return quantize_one(xr[i], stochastic ? ur[i] : 0.0f, clip, gain,
+                            stochastic);
+      },
+      w, W, n, lane, cpw, (uint32_t)gain);
+}
+
+// codes: (R, n) int32 partial sums; words: (R, W).  The bias is added
+// modulo 2^32, so lane 32 with the bias 2^31 is exact.
+__global__ void pack_sums_kernel(const int* __restrict__ codes,
+                                 uint32_t* __restrict__ words, long long n,
+                                 long long W, int lane, int cpw,
+                                 uint32_t bias) {
+  const long long w = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  const long long row = blockIdx.y;
+  const int* cr = codes + row * n;
+  words[row * W + w] = pack_word([&](long long i) { return cr[i]; }, w, W, n,
+                                 lane, cpw, bias);
 }
 
 // words: (R, W); out: (R, size) f32.
@@ -123,15 +157,19 @@ __global__ void quantize_pack_chunk_kernel(
 }
 
 // words: (R, W); acc: (R, size) int32, updated in place from the words of
-// row (r - hop) mod R.
+// the row ``hop`` steps back along an axis of ``axis`` entries, ``inner``
+// rows per step; 0 <= hop < axis.
 __global__ void repack_kernel(const uint32_t* __restrict__ words,
                               int* __restrict__ acc, long long size,
-                              long long W, int rows, int hop, int lane,
-                              int cpw, uint32_t bias) {
+                              long long W, int hop, int axis, int inner,
+                              int lane, int cpw, uint32_t bias) {
   const long long w = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (w >= W) return;
   const int row = blockIdx.y;
-  const int src = ((row - hop) % rows + rows) % rows;
+  const int span = axis * inner;
+  const int src = (row / span) * span +
+                  (((row / inner) % axis - hop + axis) % axis) * inner +
+                  row % inner;
   const uint32_t word = words[(long long)src * W + w];
   const uint32_t mask = lane_mask(lane);
   int* a = acc + (long long)row * size;
@@ -194,12 +232,23 @@ int repro_quantize_pack_chunk(const void* x, const void* u, void* words,
 }
 
 int repro_repack(const void* words, void* acc, int rows, long long size,
-                 long long W, int hop, int lane, unsigned int bias,
-                 void* stream) {
+                 long long W, int hop, int axis, int inner, int lane,
+                 unsigned int bias, void* stream) {
   if (rows > 0 && W > 0) {
     repack_kernel<<<grid_for(W, rows), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (int*)acc, size, W, rows, hop, lane,
+        (const uint32_t*)words, (int*)acc, size, W, hop, axis, inner, lane,
         32 / lane, (uint32_t)bias);
+  }
+  return (int)cudaGetLastError();
+}
+
+int repro_pack_sums(const void* codes, void* words, int rows, long long n,
+                    long long W, int lane, unsigned int bias, void* stream) {
+  if (rows > 0 && W > 0) {
+    pack_sums_kernel<<<grid_for(W, rows), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+        (const int*)codes, (uint32_t*)words, n, W, lane, 32 / lane,
+        (uint32_t)bias);
   }
   return (int)cudaGetLastError();
 }

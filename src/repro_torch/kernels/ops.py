@@ -20,7 +20,8 @@ from repro_torch.kernels import build, ref
 LAUNCHES: Dict[str, int] = {"stochastic_quantize_codes": 0,
                             "dequantize_codes": 0, "masked_aggregate": 0,
                             "quantize_pack": 0, "unpack_dequantize": 0,
-                            "quantize_pack_chunk": 0, "repack": 0}
+                            "quantize_pack_chunk": 0, "repack": 0,
+                            "pack_sums": 0, "qmatmul": 0}
 
 
 def reset_launch_counts() -> None:
@@ -251,10 +252,14 @@ def quantize_pack_chunk(x: torch.Tensor, u: Optional[torch.Tensor], bits: int,
 
 def repack(packed: torch.Tensor, acc: torch.Tensor, bits: int, size: int, *,
            hop: int = 0, lane_bits: int = 0, sum_of: int = 1,
-           bias: Optional[int] = None) -> torch.Tensor:
+           bias: Optional[int] = None, axis_size: int = 0,
+           inner: int = 1) -> torch.Tensor:
     """The ring hop's accumulate, in place: for words (R, W) and int32 acc
-    (R, size), ``acc[r] += unpack(packed[(r - hop) mod R])`` un-biased by
-    sum_of·G (or ``bias``).  Returns ``acc``."""
+    (R, size), ``acc[r] += unpack(packed[src])`` un-biased by sum_of·G (or
+    ``bias``), src the row ``hop`` steps back along one axis of the cohort
+    grid: ``axis_size`` entries (default R) of ``inner`` rows each, the rows
+    stacked row-major (``ref.repack_ref``).  The defaults read row
+    (r - hop) mod R.  Returns ``acc``."""
     lane, cpw, b = _wire_args(bits, lane_bits, sum_of, bias)
     if packed.dim() != 2 or acc.shape != (packed.shape[0], size):
         raise ValueError(f"need packed (R, W) and acc (R, {size}), got "
@@ -262,15 +267,67 @@ def repack(packed: torch.Tensor, acc: torch.Tensor, bits: int, size: int, *,
     if size > cpw * packed.shape[1]:
         raise ValueError(f"size {size} does not fit {packed.shape[1]} words "
                          f"of {cpw} codes")
+    R = packed.shape[0]
+    axis = int(axis_size) or R
+    if axis < 1 or inner < 1 or R % (axis * inner):
+        raise ValueError(f"{R} rows do not stack an axis of {axis} entries "
+                         f"with {inner} rows each")
     if not _on_cuda(packed, "packed"):
         return ref.repack_ref(packed, acc, bits, size, hop=hop, lane_bits=lane,
-                              sum_of=sum_of, bias=bias)
+                              sum_of=sum_of, bias=bias, axis_size=axis,
+                              inner=inner)
     _check(packed, torch.int32, packed.device, "packed")
     _check(acc, torch.int32, packed.device, "acc")
-    R, W = packed.shape
+    W = packed.shape[1]
     err = build.library("pack").repro_repack(
-        packed.data_ptr(), acc.data_ptr(), R, size, W, int(hop) % R, lane, b,
-        _stream(packed.device))
+        packed.data_ptr(), acc.data_ptr(), R, size, W, int(hop) % axis, axis,
+        int(inner), lane, b, _stream(packed.device))
     _raise_on(err, "repack")
     LAUNCHES["repack"] += 1
     return acc
+
+
+def pack_sums(codes: torch.Tensor, bits: int, *, lane_bits: int = 0,
+              sum_of: int = 1, bias: Optional[int] = None) -> torch.Tensor:
+    """int32 partial sums (R, n) -> words (R, ceil(n/cpw)), int32 tensors
+    holding the uint32 pattern: bias by sum_of·G (or ``bias``) modulo 2^32
+    and pack planar at ``lane_bits`` (default ``bits``).  Padding lanes are
+    raw 0."""
+    lane, cpw, b = _wire_args(bits, lane_bits, sum_of, bias)
+    _check_rows(codes)
+    if not _on_cuda(codes, "codes"):
+        return ref.pack_sums_ref(codes, bits, lane_bits=lane, sum_of=sum_of,
+                                 bias=bias)
+    _check(codes, torch.int32, codes.device, "codes")
+    R, n = codes.shape
+    W = wire.packed_words(n, bits, lane_bits=lane)
+    words = torch.empty((R, W), dtype=torch.int32, device=codes.device)
+    err = build.library("pack").repro_pack_sums(
+        codes.data_ptr(), words.data_ptr(), R, n, W, lane, b,
+        _stream(codes.device))
+    _raise_on(err, "pack_sums")
+    LAUNCHES["pack_sums"] += 1
+    return words
+
+
+def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, sx: float,
+            sw: float) -> torch.Tensor:
+    """int8 x_q (M, K) @ int8 w_q (K, N) -> f32 (M, N): the exact int32
+    product times float32(float32(sx)·float32(sw)), the per-tensor scales."""
+    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"need x_q (M, K) and w_q (K, N), got "
+                         f"{tuple(x_q.shape)} and {tuple(w_q.shape)}")
+    if not _on_cuda(x_q, "x_q"):
+        return ref.qmatmul_ref(x_q, w_q, sx, sw)
+    _check(x_q, torch.int8, x_q.device, "x_q")
+    _check(w_q, torch.int8, x_q.device, "w_q")
+    (M, K), N = x_q.shape, w_q.shape[1]
+    if max(M, N, K) >= 2 ** 31 or -(-M // 32) > 65535:
+        raise ValueError(f"qmatmul shape {(M, K, N)} is too large")
+    out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
+    err = build.library("qmatmul").repro_qmatmul(
+        x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), M, N, K,
+        float(np.float32(sx) * np.float32(sw)), _stream(x_q.device))
+    _raise_on(err, "qmatmul")
+    LAUNCHES["qmatmul"] += 1
+    return out

@@ -3,8 +3,8 @@
 The CPU path and the tests run these; on the card only ``chip_smoke.py``
 calls them, as the yardstick the kernels are held to.  Each follows the op
 order of the Pallas kernel it stands for (``repro/kernels/quantize.py``,
-``repro/kernels/aggregate.py``, ``repro/kernels/pack.py``), so the
-quantizer is bit-exact with it.
+``repro/kernels/aggregate.py``, ``repro/kernels/pack.py``,
+``repro/kernels/qmatmul.py``), so the quantizer is bit-exact with it.
 
 The wire versions take a leading row (cohort) dimension: each row is one
 call of the reference's kernel.  Their words are int32 tensors holding
@@ -105,12 +105,40 @@ def quantize_pack_chunk_ref(x: torch.Tensor, u: Optional[torch.Tensor],
     return wire.pack_codes(chunks, bits, lane_bits=lane_bits, bias=bias), chunks
 
 
+def pack_sums_ref(codes: torch.Tensor, bits: int, *, lane_bits: int = 0,
+                  sum_of: int = 1, bias: Optional[int] = None) -> torch.Tensor:
+    """int32 partial sums (R, n) -> words (R, ceil(n/cpw)): bias by
+    sum_of·G (or ``bias``) modulo 2^32 and pack planar at ``lane_bits``."""
+    return wire.pack_codes(codes, bits, lane_bits=lane_bits, sum_of=sum_of,
+                           bias=bias)
+
+
 def repack_ref(packed: torch.Tensor, acc: torch.Tensor, bits: int, size: int,
                *, hop: int = 0, lane_bits: int = 0, sum_of: int = 1,
-               bias: Optional[int] = None) -> torch.Tensor:
-    """The ring hop's accumulate, in place: ``acc[r] += unpack(packed[(r -
-    hop) mod R])`` for words (R, W) and acc (R, size) int32.  Returns acc."""
-    src = torch.roll(packed, shifts=int(hop), dims=0)
-    acc += wire.unpack_codes(src, bits, size, lane_bits=lane_bits, sum_of=sum_of,
-                        bias=bias)
+               bias: Optional[int] = None, axis_size: int = 0,
+               inner: int = 1) -> torch.Tensor:
+    """The ring hop's accumulate, in place: ``acc[r] += unpack(packed[src])``
+    for words (R, W) and acc (R, size) int32.  The rows stack row-major over
+    the cohort grid; src is the row of r's group whose index on an axis of
+    ``axis_size`` entries (default R), ``inner`` rows a step, is ``hop``
+    less, modulo ``axis_size``.  Returns acc."""
+    R = packed.shape[0]
+    K = int(axis_size) or R
+    span = K * int(inner)
+    r = torch.arange(R, device=packed.device)
+    src = ((r // span) * span + ((r // inner) % K - int(hop)) % K * inner
+           + r % inner)
+    acc += wire.unpack_codes(packed[src], bits, size, lane_bits=lane_bits,
+                             sum_of=sum_of, bias=bias)
     return acc
+
+
+def qmatmul_ref(x_q: torch.Tensor, w_q: torch.Tensor, sx: float,
+                sw: float) -> torch.Tensor:
+    """int8 (M, K) @ int8 (K, N) -> f32: the exact integer product, rounded
+    once to float32, times float32(float32(sx)·float32(sw)).  The product is
+    taken in float64, where every partial sum of int8 products is an exact
+    integer for K < 2^38 (PyTorch on CUDA has no int32 matrix product)."""
+    acc = x_q.to(torch.float64) @ w_q.to(torch.float64)
+    scale = np.float32(sx) * np.float32(sw)
+    return acc.to(torch.float32) * _scalar(float(scale), acc)

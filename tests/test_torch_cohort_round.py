@@ -175,27 +175,36 @@ def _cfg(C=4, I=2, batch=16, q=0.3, **quant):
 
 
 def test_rsag_two_axis_ring_and_auto_to_rsag_raise(monkeypatch):
-    """rsag and a two-level ring need ``pack_sums`` (not ported) and raise
-    rather than run another mode.  Under the cost model (the reference's,
-    equal to the port's by ``test_torch_pack.py``) no layout of the grid
-    below makes "auto" pick rsag, so the last case forces that pick."""
+    """rsag, a two-level ring and an "auto" that resolves to rsag used to
+    raise here until ``pack_sums`` was ported; now each builds and runs a
+    round, and nothing of the wire raises ``NotImplementedError``.  Under
+    the cost model (the reference's, equal to the port's by
+    ``test_torch_pack.py``) no layout of the grid below makes "auto" pick
+    rsag, so the "auto" case forces that pick."""
     layouts = ([(k,) for k in range(2, 257)] + [(2 ** e,) for e in range(9, 12)]
                + [(p, k) for p in range(2, 9) for k in range(2, 33)])
     assert not [(b, s) for b in (1, 2, 4, 8, 12, 16, 24) for s in layouts
                 if tagg.resolve_auto(QuantConfig(bits=b), s) == "rsag"]
-    model = build_model(_cfg())
-    with pytest.raises(NotImplementedError, match="B8"):
-        make_fl_round(model, _cfg(), (4,), collective="rsag", device="cpu")
-    with pytest.raises(NotImplementedError, match="B8"):
-        make_fl_round(model, _cfg(), (2, 5), collective="ring", device="cpu")
+    model, params, batch = _round_inputs(C=4, batch=16)
+
+    def runs(sizes, mode):
+        fn = make_fl_round(model, _cfg(), sizes, collective=mode, device="cpu")
+        new, m = fn(params, batch, torch.Generator().manual_seed(1))
+        assert new.shape == params.shape and bool(torch.isfinite(new).all())
+        return m["wire_bits_per_param"]
+
+    assert runs((4,), "rsag") == tagg.wire_bits_per_param(
+        "rsag", QuantConfig(), (4,))
+    assert runs((2, 2), "ring") == tagg.wire_bits_per_param(
+        "ring", QuantConfig(), (2, 2))
     monkeypatch.setattr(tagg, "resolve_auto", lambda qcfg, sizes: "rsag")
-    with pytest.raises(NotImplementedError, match="B8"):
-        make_fl_round(model, _cfg(), (4,), collective="auto", device="cpu")
+    assert runs((4,), "auto") == tagg.wire_bits_per_param(
+        "rsag", QuantConfig(), (4,))
     monkeypatch.undo()
     plan = tagg.make_wire_plan("rsag", QuantConfig(), ("data",), (2,))
-    with pytest.raises(NotImplementedError, match="B8"):
-        tagg.aggregate(plan, torch.zeros(2, 5), 0.5, torch.ones(2),
-                       torch.zeros(2, 5))
+    out = tagg.aggregate(plan, torch.zeros(2, 5), 0.5, torch.ones(2),
+                         torch.zeros(2, 5))
+    assert torch.equal(out, torch.zeros(5))
     # a ring with one non-trivial axis among trivial ones runs
     assert make_fl_round(model, _cfg(), (1, 4), collective="ring",
                          device="cpu") is not None

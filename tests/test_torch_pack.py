@@ -1,6 +1,6 @@
 """The port's packed wire format against the reference's.
 
-The plain versions of the four wire kernels (``repro_torch/kernels/ref.py``,
+The plain versions of the five wire kernels (``repro_torch/kernels/ref.py``,
 what a CPU tensor runs) are held bit-exact to the Pallas kernels of
 ``repro/kernels/pack.py`` in interpret mode, on the same numpy inputs and
 the reference's own rounding noise; ``pack_codes`` / ``unpack_codes`` and
@@ -35,8 +35,9 @@ def jx():
     from repro.core import aggregation as agg
     from repro.core import quantization as quant
     from repro.kernels import pack
+    from repro.kernels import ref as kref
     return types.SimpleNamespace(jax=jax, jnp=jnp, pack=pack, quant=quant,
-                                 agg=agg, QuantConfig=JQuantConfig)
+                                 agg=agg, kref=kref, QuantConfig=JQuantConfig)
 
 
 def _lanes(bits):
@@ -185,6 +186,68 @@ def test_repack_plain_bit_exact_with_pallas(jx, bits):
             np.testing.assert_array_equal(acc[r].numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("bits", BITS)
+def test_pack_sums_plain_bit_exact_with_pallas(jx, bits):
+    """Partial sums packed at lanes {bits, bits+2, 32} with the sum_of·G
+    bias (sums of 1 and, where the lane has room, of 3 codes) and with the
+    explicit lane-symmetric bias, at odd sizes and R in {1, 3} rows, each
+    row one call of the Pallas kernel."""
+    g = 2 ** (bits - 1)
+    rng = np.random.default_rng(30 + bits)
+    for lane, (n, R) in itertools.product(_lanes(bits), ((127, 1), (5003, 3))):
+        variants = [(1, None), (1, tq.lane_bias(lane))]
+        if lane >= bits + 2:
+            variants.append((3, None))
+        for sum_of, bias in variants:
+            codes = rng.integers(-g * sum_of, (g - 1) * sum_of + 1,
+                                 (R, n)).astype(np.int32)
+            got = ops.pack_sums(torch.from_numpy(codes), bits, lane_bits=lane,
+                                sum_of=sum_of, bias=bias)
+            assert got.dtype == torch.int32
+            assert got.shape == (R, tq.packed_words(n, bits, lane_bits=lane))
+            for r in range(R):
+                want = _pallas(jx, jx.pack.pack_sums, codes[r], bits,
+                               lane_bits=lane, sum_of=sum_of, bias=bias)
+                np.testing.assert_array_equal(
+                    _u32(got[r]), np.asarray(want),
+                    err_msg=f"lane={lane} n={n} sum_of={sum_of} bias={bias}")
+
+
+@pytest.mark.parametrize("grid", [(2, 3), (3, 2)], ids=str)
+def test_axis_repack_reads_the_row_one_axis_hop_back(jx, grid):
+    """On a (P, K) cohort grid stacked row-major (row p·K + d), a hop of h
+    along the outer axis (P entries, K rows a step) or the inner one (K
+    entries, one row a step) adds into row r the words of the row h steps
+    back on that axis; each row equals the reference's ``repack_ref``
+    applied to that source row."""
+    P, K = grid
+    R, n, bits = P * K, 1001, 8
+    rng = np.random.default_rng(P * 10 + K)
+    for lane, sum_of, bias in _wire_variants(bits)[:2] + [(10, 1, 512)]:
+        words = _words(rng, bits, lane, sum_of, bias, R, n)
+        acc0 = rng.integers(-1000, 1000, (R, n)).astype(np.int32)
+        for (axis, inner), hop in itertools.product(((P, K), (K, 1)),
+                                                    range(4)):
+            acc = torch.from_numpy(acc0.copy())
+            out = ops.repack(words, acc, bits, n, hop=hop, lane_bits=lane,
+                             sum_of=sum_of, bias=bias, axis_size=axis,
+                             inner=inner)
+            assert out is acc
+            for r in range(R):
+                p, d = divmod(r, K)
+                src = (((p - hop) % P) * K + d if inner == K
+                       else p * K + (d - hop) % K)
+                want = jx.kref.repack_ref(
+                    jx.jnp.asarray(_u32(words[src])), jx.jnp.asarray(acc0[r]),
+                    bits, n, lane_bits=lane, sum_of=sum_of, bias=bias)
+                np.testing.assert_array_equal(
+                    acc[r].numpy(), np.asarray(want),
+                    err_msg=f"axis={axis} inner={inner} hop={hop} row={r}")
+    with pytest.raises(ValueError, match="stack"):
+        ops.repack(words, acc, bits, n, hop=1, lane_bits=lane,
+                   axis_size=4, inner=1)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.reset_launch_counts()
     x = torch.linspace(-1.2, 1.2, 101).reshape(1, -1)
@@ -196,6 +259,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     w2, c2 = ops.quantize_pack_chunk(x, u, 8, num_chunks=1)
     assert torch.equal(w2[:, 0], words)
     ops.repack(words, c2[:, 0].clone(), 8, 101)
+    sums = ops.pack_sums(c2[:, 0].contiguous(), 8)
+    assert torch.equal(sums, words)
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
 
 
@@ -306,4 +371,21 @@ def test_cuda_pack_kernels_match_plain_versions():
                                    lane_bits=lane, bias=bias)
             assert torch.equal(ops.repack(words, acc, bits, n, hop=1,
                                           lane_bits=lane, bias=bias), want)
+            assert torch.equal(
+                ops.pack_sums(codes, bits, lane_bits=lane, bias=bias), words)
+        if R == 10:                      # the (2, 5) grid, along each axis
+            for axis, inner in ((2, 5), (5, 1)):
+                acc = codes.clone()
+                want = tref.repack_ref(words, codes.clone(), bits, n, hop=1,
+                                       lane_bits=lane, bias=bias,
+                                       axis_size=axis, inner=inner)
+                assert torch.equal(ops.repack(
+                    words, acc, bits, n, hop=1, lane_bits=lane, bias=bias,
+                    axis_size=axis, inner=inner), want)
+        sums = torch.randint(-3 * 2 ** (bits - 1), 3 * 2 ** (bits - 1), (R, n),
+                             generator=gen, device=dev, dtype=torch.int32)
+        for lane in (bits + 2, 32):
+            assert torch.equal(
+                ops.pack_sums(sums, bits, lane_bits=lane, sum_of=3),
+                tref.pack_sums_ref(sums, bits, lane_bits=lane, sum_of=3))
     torch.cuda.synchronize()
