@@ -39,7 +39,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
-SHORT_BOUND_MS = 5e-3         # below this bound a kernel is also timed back to back
+SHORT_BOUND_MS = 5e-3         # below this bound plain and library are also timed back to back
 ROUNDS = 5
 COHORT_ROUNDS = 3
 SHAPES = {"main": (10, 421_642), "ragged": (3, 5003)}
@@ -78,10 +78,19 @@ COHORT_WIRE_BITS = {(10,): {"paper": 32.0, "int": 16.0, "packed": 16.0,
 #: qmatmul's shapes (M, K, N): kernels_micro's, the QNN's fc1 at the
 #: cohort round's 960 images, the exactness case of tests/test_kernels.py
 QMATMUL_SHAPES = ((256, 512, 256), (960, 3136, 128), (8, 4096, 8))
+#: qmatmul's edge inputs (M, K, N, byte offset of x and w in their buffers,
+#: fill): K and N not multiples of 16 (byte staging), a single element,
+#: M < 16 on the 16-byte staging, contiguous slices whose data_ptr() is 1
+#: or 8 bytes past an aligned one (byte staging of a shape otherwise staged
+#: 16 bytes at a time), and the all -128 sum of 67,108,864 at K = 4096
+QMATMUL_EDGES = ((33, 4099, 17, 0, None), (1, 5, 1, 0, None),
+                 (12, 96, 48, 0, None), (100, 3136, 128, 1, None),
+                 (100, 3136, 128, 8, None), (8, 4096, 8, 0, -128))
 #: the one PyTorch call timed beside a kernel (library_ms), where one exists
 LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
                  "masked_aggregate": "w @ x / sum(w)",
-                 "qmatmul": "torch._int_mm (int32, no scaling)"}
+                 "qmatmul": "torch._int_mm (int32, no scaling), the faster of "
+                            "w row-major and w column-major"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -178,14 +187,17 @@ def wire_kernels_phase(torch, ops, tref, quant):
     bits {1,2,4,8} x clip {1, 0.3} x both roundings at lanes {bits,
     bits+ceil(log2 C), 32}; the un-bias by sum_of·G and by an explicit
     bias; quantize_pack_chunk at k in {1, 3, 4}; repack at hops 0, 1, C-1
-    and along each axis of the (2, 5) grid; pack_sums at every rsag hop
-    lane of 8 bits at C=10 (lanes 8-12, lane-symmetric bias), at lane 32
-    with the bias 2^31 and at the two-axis ring's level change (lane 9,
+    and along each axis of the (2, 5) grid, its cases between them
+    launching all ten codes-per-word specialisations, and nine consecutive
+    hops into one acc, the ring's in-place pattern; pack_sums at every rsag
+    hop lane of 8 bits at C=10 (lanes 8-12, lane-symmetric bias), at lane
+    32 with the bias 2^31 and at the two-axis ring's level change (lane 9,
     sums of 2)."""
     err = {k: 0.0 for k in ("quantize_pack", "unpack_dequantize",
                             "quantize_pack_chunk", "repack", "pack_sums")}
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = 0
+    repack_cpw = set()      # codes per word of the repack cases launched
 
     def same(name, got, want, what):
         nonlocal cases
@@ -233,6 +245,7 @@ def wire_kernels_phase(torch, ops, tref, quant):
                              ops.unpack_dequantize(words, bits, D, clip=clip, **kw),
                              tref.unpack_dequantize_ref(words, bits, D, clip=clip, **kw),
                              what + f" clip={clip}")
+                        repack_cpw.add(quant.codes_per_word(bits, lane_bits=lane))
                         for hop in (0, 1, C - 1):
                             acc = codes.clone()
                             got = ops.repack(words, acc, bits, D, hop=hop, **kw)
@@ -269,6 +282,7 @@ def wire_kernels_phase(torch, ops, tref, quant):
          tref.pack_sums_ref(sums, 8, lane_bits=9, sum_of=2),
          "two-axis ring level change")
     words = quant.pack_codes(sums, 8, lane_bits=9, sum_of=2)
+    repack_cpw.add(quant.codes_per_word(8, lane_bits=9))
     for axis, inner, hops in ((2, 5, (1,)), (5, 1, (1, 2, 3, 4))):
         for hop in hops:
             kw = dict(hop=hop, lane_bits=9, sum_of=2, axis_size=axis,
@@ -276,6 +290,20 @@ def wire_kernels_phase(torch, ops, tref, quant):
             same("repack", ops.repack(words, sums.clone(), 8, D, **kw),
                  tref.repack_ref(words, sums.clone(), 8, D, **kw),
                  f"(2, 5) grid axis={axis} inner={inner} hop={hop}")
+    codes = torch.randint(-g, g, (C, D), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    words = quant.pack_codes(codes, 8)
+    acc, want = codes.clone(), codes.clone()
+    for hop in range(1, C):                 # one ring's hops, in place
+        ops.repack(words, acc, 8, D, hop=hop)
+        tref.repack_ref(words, want, 8, D, hop=hop)
+    same("repack", acc, want, f"{C - 1} consecutive hops into one acc")
+    check(torch.equal(acc, codes.sum(0, dtype=torch.int32).expand(C, D)),
+          "the ring's hops must leave every row holding the sum")
+    print(f"repack launched codes-per-word specialisations "
+          f"{sorted(repack_cpw, reverse=True)}")
+    check(repack_cpw == {32 // lane for lane in range(1, 33)},
+          f"repack cases miss a codes-per-word count: {sorted(repack_cpw)}")
     print(f"wire kernels == plain (torch.equal) in {cases} cases at the main "
           f"(C=10, D=421,642), rsag hop (C=10, {chunk:,}) and ragged (C=3, "
           f"D=5,003) shapes")
@@ -284,30 +312,52 @@ def wire_kernels_phase(torch, ops, tref, quant):
 
 def qmatmul_phase(torch, ops, tref):
     """qmatmul against its plain version, ``torch.equal``, at
-    QMATMUL_SHAPES (the last all 127, the exact-accumulation case); then
+    QMATMUL_SHAPES (the last all 127, the exact-accumulation case) and at
+    QMATMUL_EDGES, which between them take every staging of x and w; then
     the entry point driven once per shape with the launch counts reset
     just before, which is the count the kernels line reports."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     inputs = []
     err = 0.0
-    for M, K, N in QMATMUL_SHAPES:
-        x = torch.randint(-128, 128, (M, K), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        if K == 4096:
-            x.fill_(127)
-            w.fill_(127)
-        inputs.append((x, w))
+
+    def operand(rows, cols, offset, fill):
+        buf = torch.randint(-128, 128, (rows * cols + offset,), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        if fill is not None:
+            buf.fill_(fill)
+        return buf[offset:].view(rows, cols)
+
+    def held(x, w, what):
+        nonlocal err
         got = ops.qmatmul(x, w, 0.01, 0.02)
         want = tref.qmatmul_ref(x, w, 0.01, 0.02)
         torch.cuda.synchronize()
         err = max(err, _max_diff(got, want))
-        check(torch.equal(got, want), f"qmatmul differs at {(M, K, N)}")
+        check(torch.equal(got, want), f"qmatmul differs at {what}")
+
+    for M, K, N in QMATMUL_SHAPES:
+        x, w = operand(M, K, 0, 127 if K == 4096 else None), \
+            operand(K, N, 0, 127 if K == 4096 else None)
+        inputs.append((x, w))
+        held(x, w, (M, K, N))
         if K == 4096:
             exact = ops.qmatmul(x, w, 1.0, 1.0)
             check(float(exact[0, 0]) == 127 * 127 * K,
                   f"qmatmul accumulation inexact: {float(exact[0, 0])}")
+    staged = set()
+    for M, K, N, offset, fill in QMATMUL_EDGES:
+        x, w = operand(M, K, offset, fill), operand(K, N, offset, fill)
+        geo = ops.qmatmul_plan(x, w)
+        staged |= {("x", geo.x_vec), ("w", geo.w_vec)}
+        held(x, w, (M, K, N, f"offset {offset}", f"fill {fill}"))
+        print(f"  qmatmul edge {(M, K, N)} offset {offset} fill {fill}: "
+              f"split {geo.split}, staging x {geo.x_vec} B, w {geo.w_vec} B")
+        if fill is not None:
+            exact = ops.qmatmul(x, w, 1.0, 1.0)
+            check(float(exact[0, 0]) == fill * fill * K,
+                  f"qmatmul accumulation inexact: {float(exact[0, 0])}")
+    check(staged == {(o, v) for o in "xw" for v in (16, 1)},
+          f"qmatmul edges staged only {sorted(staged)}")
     ops.reset_launch_counts()
     outs = [ops.qmatmul(x, w, 0.05, 0.1) for x, w in inputs]
     torch.cuda.synchronize()
@@ -316,9 +366,10 @@ def qmatmul_phase(torch, ops, tref):
           and sum(launches.values()) == len(QMATMUL_SHAPES),
           f"qmatmul entry point launches {launches}")
     check(all(bool(torch.isfinite(o).all()) for o in outs), "non-finite qmatmul")
-    print(f"qmatmul == plain (torch.equal) at {list(QMATMUL_SHAPES)}; "
-          f"K=4096 accumulation exact; entry point launches "
-          f"{launches['qmatmul']}")
+    print(f"qmatmul == plain (torch.equal) at {list(QMATMUL_SHAPES)} and at "
+          f"{len(QMATMUL_EDGES)} edge inputs (every staging of x and w); "
+          f"K=4096 accumulation exact at 127 and -128; entry point launches "
+          f"{launches['qmatmul']}, one a call")
     return err, launches["qmatmul"]
 
 
@@ -652,6 +703,54 @@ def time_ms(torch, fn, reps=50):
     return times[len(times) // 2]
 
 
+def time_queued_ms(torch, fn, reps=50):
+    """As ``time_ms``, but each launch waits behind a device sleep after the
+    flush, so that its span starts only once the host has queued ``fn``: a
+    slow host does not add its enqueue time to a short kernel.  The sleep
+    is lengthened, up to 10^8 cycles, while a start event had run before
+    its launch was queued.  Returns the median and the count of such late
+    launches at the last length; a median with late launches may still
+    hold host time."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB
+    for _ in range(5):
+        fn()
+    cycles = 10 ** 6
+    while True:
+        pairs, late = [], 0
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(cycles)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            late += int(s.query())
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        if not late or cycles >= 10 ** 8:
+            break
+        cycles *= 4
+    times = sorted(s.elapsed_time(e) for s, e in pairs)
+    return times[len(times) // 2], late
+
+
+def host_ms(torch, fn, reps=50):
+    """Median host time of one call of ``fn`` through the return of
+    ``torch.cuda.synchronize()``, L2 warm: what a caller that waits for the
+    result sees, the entry point's Python and its launch included."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def time_back_to_back_ms(torch, fn, reps=50):
     """Mean device time of ``reps`` launches of ``fn`` run back to back
     between two events, L2 not flushed between them.  For a kernel shorter
@@ -695,8 +794,14 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     input byte read once and each output byte written once; integer
     operations of the wire kernels are counted against the f32 rate, as
     the bytes bound every one of them, and qmatmul's against the int8
-    tensor-core rate.  A kernel whose bound is under SHORT_BOUND_MS is
-    also timed back to back (``ms_back_to_back``)."""
+    tensor-core rate.  Every kernel is also timed queued behind a device
+    sleep (``ms_queued``, with the count of launches still late) and back to
+    back (``ms_back_to_back``, the pattern of the ring's hops); where the
+    bound is under SHORT_BOUND_MS the plain version and the library call
+    are timed back to back too.  Where there is a library call, it is also
+    queued, and both it and the kernel's entry point are timed on the host
+    through a synchronize (``host_ms``).  ``torch._int_mm`` is timed with w
+    in both layouts; each ``library_*`` number is the faster."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -727,6 +832,8 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             torch.randint(-128, 128, (Kd, N), generator=gen, device="cuda",
                           dtype=torch.int8))
     (xq, wq), (xs, ws) = mm[960, 3136, 128], mm[256, 512, 256]
+    # column-major copies of w, the layout cuBLASLt's int8 kernels favour
+    wq_cm, ws_cm = wq.t().contiguous().t(), ws.t().contiguous().t()
     rows = {
         "stochastic_quantize_codes": (
             lambda: ops.stochastic_quantize_codes(x, u, 8),
@@ -735,11 +842,11 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
         "dequantize_codes": (
             lambda: ops.dequantize_codes(codes, 8),
             lambda: tref.dequantize_ref(codes, 8),
-            lambda: torch.mul(codes, inv_gain), 8.0 * n, 1.0 * n),
+            {"": lambda: torch.mul(codes, inv_gain)}, 8.0 * n, 1.0 * n),
         "masked_aggregate": (
             lambda: ops.masked_aggregate(x, w),
             lambda: tref.masked_aggregate_ref(x, w),
-            lambda: (w @ x) / torch.clamp(w.sum(), min=1e-12),
+            {"": lambda: (w @ x) / torch.clamp(w.sum(), min=1e-12)},
             4.0 * n + 4.0 * D + 4.0 * K, 2.0 * n),
         "quantize_pack": (
             lambda: ops.quantize_pack(x, u, 8, lane_bits=lane),
@@ -769,13 +876,15 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
         "qmatmul": (
             lambda: ops.qmatmul(xq, wq, 0.05, 0.1),
             lambda: tref.qmatmul_ref(xq, wq, 0.05, 0.1),
-            lambda: torch._int_mm(xq, wq),
+            {"w_row_major": lambda: torch._int_mm(xq, wq),
+             "w_col_major": lambda: torch._int_mm(xq, wq_cm)},
             960 * 3136 + 3136 * 128 + 4.0 * 960 * 128,
             2.0 * 960 * 3136 * 128, INT8_OPS_PER_S),
         "qmatmul@256x512x256": (
             lambda: ops.qmatmul(xs, ws, 0.05, 0.1),
             lambda: tref.qmatmul_ref(xs, ws, 0.05, 0.1),
-            lambda: torch._int_mm(xs, ws),
+            {"w_row_major": lambda: torch._int_mm(xs, ws),
+             "w_col_major": lambda: torch._int_mm(xs, ws_cm)},
             256 * 512 + 512 * 256 + 4.0 * 256 * 256,
             2.0 * 256 * 512 * 256, INT8_OPS_PER_S),
     }
@@ -784,21 +893,45 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     out = {}
     for name, (kernel, plain, library, nbytes, nops, *rate) in rows.items():
         b_ms, b_by = bound_ms(nbytes, nops, *rate)
+        layouts = library or {}     # the library call, by layout of its operands
+        lib_ms = {k: time_ms(torch, f) for k, f in layouts.items()}
         out[name] = {"ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
-                     "library_ms": time_ms(torch, library) if library else None,
+                     "library_ms": min(lib_ms.values()) if lib_ms else None,
                      "bound_ms": b_ms, "bound_by": b_by}
-        extra = {}
+        queued, late = time_queued_ms(torch, kernel)
+        extra = {"ms_queued": queued, "ms_queued_late": late,
+                 "ms_back_to_back": time_back_to_back_ms(torch, kernel)}
+        if layouts:
+            lib_queued = {k: time_queued_ms(torch, f) for k, f in layouts.items()}
+            lib_host = {k: host_ms(torch, f) for k, f in layouts.items()}
+            best = min(lib_queued, key=lambda k: lib_queued[k][0])
+            extra.update(library_ms_queued=lib_queued[best][0],
+                         library_ms_queued_late=lib_queued[best][1],
+                         host_ms=host_ms(torch, kernel),
+                         library_host_ms=min(lib_host.values()))
+            if len(layouts) > 1:
+                extra.update(library_ms_by_layout=lib_ms,
+                             library_ms_queued_by_layout={
+                                 k: v[0] for k, v in lib_queued.items()},
+                             library_host_ms_by_layout=lib_host)
         if b_ms < SHORT_BOUND_MS:
-            extra["ms_back_to_back"] = time_back_to_back_ms(torch, kernel)
             extra["plain_ms_back_to_back"] = time_back_to_back_ms(torch, plain)
+            if layouts:
+                b2b = {k: time_back_to_back_ms(torch, f) for k, f in layouts.items()}
+                extra["library_ms_back_to_back"] = min(b2b.values())
+                if len(b2b) > 1:
+                    extra["library_ms_back_to_back_by_layout"] = b2b
         print(json.dumps({"timing": name, "shape": shapes.get(name, [K, D]),
                           **out[name], **extra,
                           "ms_is": "median of 50 single launches, L2 flushed "
-                                   "before each",
-                          **({"ms_back_to_back_is": "mean of 50 launches "
-                              "queued behind a sleep and run back to back "
-                              "between two events, L2 warm"}
-                             if extra else {}),
+                                   "before each by writing 256 MB",
+                          "ms_queued_is": "the same, each launch queued behind "
+                                          "a device sleep after the flush",
+                          "ms_back_to_back_is": "mean of 50 launches queued "
+                                                "behind a sleep and run back to "
+                                                "back between two events, L2 warm",
+                          "host_ms_is": "median host time of one call through "
+                                        "a synchronize, L2 warm",
                           "library": LIBRARY_CALLS.get(name.split("@")[0]),
                           "card": smi}))
         out[name].update(extra)

@@ -43,7 +43,8 @@ SIGNATURES = {
                                   _u, _f, _i, _i, _c),
     "repro_repack": (_c, _c, _i, _ll, _ll, _i, _i, _i, _i, _u, _c),
     "repro_pack_sums": (_c, _c, _i, _ll, _ll, _i, _u, _c),
-    "repro_qmatmul": (_c, _c, _c, _i, _i, _i, _f, _c),
+    "repro_qmatmul": (_c, _c, _c, _i, _i, _i, _i, _f, _c),
+    "repro_qmatmul_plan": (_c, _c, _i, _i, _i, _i, _c),
 }
 
 _lock = threading.Lock()

@@ -38,6 +38,14 @@
 //   (r / (K*inner))*K*inner + (((r / inner) mod K - hop) mod K)*inner
 //   + r mod inner,
 // which is (r - hop) mod R for the one-axis ring (K = R, inner = 1).
+// A hop loads each acc value, adds and stores it back, and a thread that
+// did that plane by plane kept one 4-byte load in flight (the store
+// through acc keeps the next plane's load behind it): about 8 KB per SM,
+// where 3.35 TB/s needs some 15-20 KB (Little's law).  So repack is
+// specialised on cpw and a thread issues all its loads before its stores:
+// its word, then its cpw planes.  A thread owns one word: 2, 4 and 8 words
+// a thread were measured no faster at cpw 4.  Plane j starts at j*W ints
+// and W is odd at the main shape, so the loads stay 4 bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -158,27 +166,35 @@ __global__ void quantize_pack_chunk_kernel(
 
 // words: (R, W); acc: (R, size) int32, updated in place from the words of
 // the row ``hop`` steps back along an axis of ``axis`` entries, ``inner``
-// rows per step; 0 <= hop < axis.
-__global__ void repack_kernel(const uint32_t* __restrict__ words,
-                              int* __restrict__ acc, long long size,
-                              long long W, int hop, int axis, int inner,
-                              int lane, int cpw, uint32_t bias) {
-  const long long w = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+// rows per step; 0 <= hop < axis.  A thread owns one word; it loads the
+// word (read-only path) and its CPW planes, then adds and stores, and the
+// plane loop unrolls on CPW.
+template <int CPW>
+__global__ void __launch_bounds__(kThreads)
+    repack_kernel(const uint32_t* __restrict__ words, int* __restrict__ acc,
+                  long long size, long long W, int hop, int axis, int inner,
+                  int lane, uint32_t bias) {
+  const long long w = blockIdx.x * (long long)kThreads + threadIdx.x;
   if (w >= W) return;
   const int row = blockIdx.y;
   const int span = axis * inner;
   const int src = (row / span) * span +
                   (((row / inner) % axis - hop + axis) % axis) * inner +
                   row % inner;
-  const uint32_t word = words[(long long)src * W + w];
-  const uint32_t mask = lane_mask(lane);
+  const uint32_t word = __ldg(words + (long long)src * W + w);
   int* a = acc + (long long)row * size;
-  for (int j = 0; j < cpw; ++j) {
+  uint32_t val[CPW];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) {
     const long long i = j * W + w;
-    if (i < size) {
-      // modular: acc + lane - bias in uint32, no signed overflow
-      a[i] = (int)((uint32_t)a[i] + ((word >> (j * lane)) & mask) - bias);
-    }
+    val[j] = i < size ? (uint32_t)a[i] : 0u;
+  }
+  const uint32_t mask = lane_mask(lane);
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) {
+    const long long i = j * W + w;
+    // modular: acc + lane - bias in uint32, no signed overflow
+    if (i < size) a[i] = (int)(val[j] + ((word >> (j * lane)) & mask) - bias);
   }
 }
 
@@ -235,9 +251,24 @@ int repro_repack(const void* words, void* acc, int rows, long long size,
                  long long W, int hop, int axis, int inner, int lane,
                  unsigned int bias, void* stream) {
   if (rows > 0 && W > 0) {
-    repack_kernel<<<grid_for(W, rows), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (int*)acc, size, W, hop, axis, inner, lane,
-        32 / lane, (uint32_t)bias);
+    cudaStream_t st = (cudaStream_t)stream;
+    const uint32_t b = (uint32_t)bias;
+    // the ten codes-per-word counts of lanes 1..32
+    switch (lane >= 1 && lane <= 32 ? 32 / lane : 0) {
+#define REPRO_REPACK_CASE(C)                                               \
+  case C:                                                                  \
+    repack_kernel<C><<<grid_for(W, rows), kThreads, 0, st>>>(              \
+        (const uint32_t*)words, (int*)acc, size, W, hop, axis, inner, lane, \
+        b);                                                                \
+    break;
+      REPRO_REPACK_CASE(32) REPRO_REPACK_CASE(16) REPRO_REPACK_CASE(10)
+      REPRO_REPACK_CASE(8) REPRO_REPACK_CASE(6) REPRO_REPACK_CASE(5)
+      REPRO_REPACK_CASE(4) REPRO_REPACK_CASE(3) REPRO_REPACK_CASE(2)
+      REPRO_REPACK_CASE(1)
+#undef REPRO_REPACK_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

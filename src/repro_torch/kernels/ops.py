@@ -9,7 +9,8 @@ can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -310,6 +311,38 @@ def pack_sums(codes: torch.Tensor, bits: int, *, lane_bits: int = 0,
     return words
 
 
+class QmatmulPlan(NamedTuple):
+    tiles: int      # output tiles of 64 x 64
+    split: int      # blocks of one cluster that share a tile's K
+    x_vec: int      # staging of x in bytes: 16, else 1 (row stride or
+                    # pointer not a multiple of 16)
+    w_vec: int      # the same for w
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _qmatmul_operands(x_q: torch.Tensor, w_q: torch.Tensor) -> Tuple[int, int, int]:
+    """(M, K, N) of two checked CUDA operands."""
+    _check(x_q, torch.int8, x_q.device, "x_q")
+    _check(w_q, torch.int8, x_q.device, "w_q")
+    (M, K), N = x_q.shape, w_q.shape[1]
+    if max(M, N, K) >= 2 ** 31:
+        raise ValueError(f"qmatmul shape {(M, K, N)} is too large")
+    return M, K, N
+
+
+def qmatmul_plan(x_q: torch.Tensor, w_q: torch.Tensor) -> QmatmulPlan:
+    """The launch ``qmatmul`` makes for these CUDA operands, as the kernel's
+    C side picks it from the shapes, the pointers and the card's SM count."""
+    M, K, N = _qmatmul_operands(x_q, w_q)
+    plan = (ctypes.c_int * 4)()
+    build.library("qmatmul").repro_qmatmul_plan(
+        x_q.data_ptr(), w_q.data_ptr(), M, N, K, _sms(x_q.device), plan)
+    return QmatmulPlan(*plan)
+
+
 def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, sx: float,
             sw: float) -> torch.Tensor:
     """int8 x_q (M, K) @ int8 w_q (K, N) -> f32 (M, N): the exact int32
@@ -319,15 +352,12 @@ def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, sx: float,
                          f"{tuple(x_q.shape)} and {tuple(w_q.shape)}")
     if not _on_cuda(x_q, "x_q"):
         return ref.qmatmul_ref(x_q, w_q, sx, sw)
-    _check(x_q, torch.int8, x_q.device, "x_q")
-    _check(w_q, torch.int8, x_q.device, "w_q")
-    (M, K), N = x_q.shape, w_q.shape[1]
-    if max(M, N, K) >= 2 ** 31 or -(-M // 32) > 65535:
-        raise ValueError(f"qmatmul shape {(M, K, N)} is too large")
+    M, K, N = _qmatmul_operands(x_q, w_q)
     out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
     err = build.library("qmatmul").repro_qmatmul(
         x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), M, N, K,
-        float(np.float32(sx) * np.float32(sw)), _stream(x_q.device))
+        _sms(x_q.device), float(np.float32(sx) * np.float32(sw)),
+        _stream(x_q.device))
     _raise_on(err, "qmatmul")
     LAUNCHES["qmatmul"] += 1
     return out

@@ -248,6 +248,29 @@ def test_axis_repack_reads_the_row_one_axis_hop_back(jx, grid):
                    axis_size=4, inner=1)
 
 
+@pytest.mark.parametrize("lane", [1, 2, 3, 4, 5, 6, 8, 10, 16, 32])
+def test_consecutive_repack_hops_match_the_reference(jx, lane):
+    """The ring's in-place pattern, at one lane of each codes-per-word count
+    (32, 16, 10, 8, 6, 5, 4, 3, 2, 1 codes a word): hops 1..R-1 into one
+    acc, each row equal to the reference's ``repack_ref`` applied hop by
+    hop to that row; every row ends holding the sum over the rows."""
+    bits = min(lane, 8)
+    R, n = 4, 1001
+    rng = np.random.default_rng(lane)
+    words = _words(rng, bits, lane, 1, None, R, n)
+    codes = tq.unpack_codes(words, bits, n, lane_bits=lane)
+    acc = codes.clone()
+    want = [jx.jnp.asarray(codes[r].numpy()) for r in range(R)]
+    for hop in range(1, R):
+        ops.repack(words, acc, bits, n, hop=hop, lane_bits=lane)
+        for r in range(R):
+            want[r] = jx.kref.repack_ref(jx.jnp.asarray(_u32(words[(r - hop) % R])),
+                                         want[r], bits, n, lane_bits=lane)
+    for r in range(R):
+        np.testing.assert_array_equal(acc[r].numpy(), np.asarray(want[r]))
+    assert torch.equal(acc, codes.sum(0, dtype=torch.int32).expand(R, n))
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.reset_launch_counts()
     x = torch.linspace(-1.2, 1.2, 101).reshape(1, -1)
@@ -382,10 +405,28 @@ def test_cuda_pack_kernels_match_plain_versions():
                 assert torch.equal(ops.repack(
                     words, acc, bits, n, hop=1, lane_bits=lane, bias=bias,
                     axis_size=axis, inner=inner), want)
+        if R == 10:                      # the ring's hops, in place
+            words = tq.pack_codes(codes, bits)
+            acc, want = codes.clone(), codes.clone()
+            for hop in range(1, R):
+                ops.repack(words, acc, bits, n, hop=hop)
+                tref.repack_ref(words, want, bits, n, hop=hop)
+            assert torch.equal(acc, want)
         sums = torch.randint(-3 * 2 ** (bits - 1), 3 * 2 ** (bits - 1), (R, n),
                              generator=gen, device=dev, dtype=torch.int32)
         for lane in (bits + 2, 32):
             assert torch.equal(
                 ops.pack_sums(sums, bits, lane_bits=lane, sum_of=3),
                 tref.pack_sums_ref(sums, bits, lane_bits=lane, sum_of=3))
+    # every lane, so every codes-per-word specialisation of repack
+    for lane in range(1, 33):
+        bits = min(lane, 8)
+        codes = torch.randint(-2 ** (bits - 1), 2 ** (bits - 1), (3, 5003),
+                              generator=gen, device=dev, dtype=torch.int32)
+        words = tq.pack_codes(codes, bits, lane_bits=lane)
+        acc = codes.clone()
+        assert torch.equal(
+            ops.repack(words, acc, bits, 5003, hop=2, lane_bits=lane),
+            tref.repack_ref(words, codes.clone(), bits, 5003, hop=2,
+                            lane_bits=lane)), lane
     torch.cuda.synchronize()

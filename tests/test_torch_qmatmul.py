@@ -4,7 +4,8 @@ The plain version (``repro_torch.kernels.ref.qmatmul_ref``, what a CPU
 tensor runs) is held bit-exact to the Pallas ``qmatmul`` of
 ``repro/kernels/qmatmul.py`` in interpret mode on the same numpy inputs;
 the CUDA kernel is held to the plain version by the ``gpu`` test, which
-needs a card.
+needs a card.  ``SHAPES`` include the kernel's edge cases: K and N not
+multiples of 16 (byte-wise staging), M < 16, a single element.
 """
 import types
 
@@ -16,7 +17,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
 SHAPES = [(64, 200, 96), (128, 128, 128), (300, 257, 130), (1, 17, 1),
-          (512, 384, 256)]
+          (512, 384, 256), (33, 4099, 17), (12, 96, 48)]
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +88,21 @@ def test_cuda_qmatmul_matches_plain_version():
         got = ops.qmatmul(xd, wd, 0.01, 0.02)
         assert ops.LAUNCHES["qmatmul"] == before + 1
         assert torch.equal(got, tref.qmatmul_ref(xd, wd, 0.01, 0.02)), (M, K, N)
+    # contiguous slices 1 and 8 bytes past an aligned pointer: byte-wise
+    # staging of a shape that is otherwise staged 16 bytes at a time
+    M, K, N = 100, 3136, 128
+    for offset in (0, 1, 8):
+        xb = torch.randint(-128, 128, (M * K + offset,), dtype=torch.int8,
+                           device=dev)
+        wb = torch.randint(-128, 128, (K * N + offset,), dtype=torch.int8,
+                           device=dev)
+        xd, wd = xb[offset:].view(M, K), wb[offset:].view(K, N)
+        assert ops.qmatmul_plan(xd, wd)[2:] == ((16, 16) if offset == 0 else (1, 1))
+        assert torch.equal(ops.qmatmul(xd, wd, 0.01, 0.02),
+                           tref.qmatmul_ref(xd, wd, 0.01, 0.02)), offset
+    lo = torch.full((8, 4096), -128, dtype=torch.int8, device=dev)
+    got = ops.qmatmul(lo, lo.t().contiguous(), 1.0, 1.0)
+    assert bool((got == 128 * 128 * 4096).all())       # 67,108,864, exact
     torch.cuda.synchronize()
     with pytest.raises(TypeError):
         ops.qmatmul(xd.to(torch.int32), wd, 1.0, 1.0)
