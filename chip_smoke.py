@@ -39,7 +39,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
-SHORT_BOUND_MS = 5e-3         # below this bound plain and library are also timed back to back
+SHORT_BOUND_MS = 5e-3         # below this bound the plain version is also timed back to back
 ROUNDS = 5
 COHORT_ROUNDS = 3
 SHAPES = {"main": (10, 421_642), "ragged": (3, 5003)}
@@ -86,6 +86,11 @@ QMATMUL_SHAPES = ((256, 512, 256), (960, 3136, 128), (8, 4096, 8))
 QMATMUL_EDGES = ((33, 4099, 17, 0, None), (1, 5, 1, 0, None),
                  (12, 96, 48, 0, None), (100, 3136, 128, 1, None),
                  (100, 3136, 128, 8, None), (8, 4096, 8, 0, -128))
+#: the quantizer's flat sizes (every head and tail of its 16-byte path) and
+#: the byte offsets (x, u) of its views past a 16-byte boundary: equal
+#: offsets keep the 16-byte path, different ones take the scalar kernel
+QUANTIZER_SIZES = (1, 3, 4, 5, 7, 4099)
+QUANTIZER_OFFSETS = ((4, 4), (8, 8), (12, 12), (4, 8), (0, 12), (12, 4))
 #: the one PyTorch call timed beside a kernel (library_ms), where one exists
 LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
                  "masked_aggregate": "w @ x / sum(w)",
@@ -122,6 +127,13 @@ def build_phase(build):
                 print(f"  {src}: {line.strip()}")
 
 
+def _edge_values(torch, bits, clip):
+    """±clip, 0, half steps, 1.5 steps and 2·clip: the quantizer's edges."""
+    step = clip / 2 ** (bits - 1)
+    return torch.tensor([clip, -clip, 0.0, 0.5 * step, -0.5 * step,
+                         1.5 * step, 2 * clip], device="cuda")
+
+
 def kernels_phase(torch, ops, tref):
     """Each kernel against its plain version at the main and a ragged shape."""
     err = {k: 0.0 for k in ("stochastic_quantize_codes", "dequantize_codes",
@@ -130,17 +142,15 @@ def kernels_phase(torch, ops, tref):
     for label, (K, D) in SHAPES.items():
         x = (torch.rand((K, D), generator=gen, device="cuda") - 0.5) * 3
         u = torch.rand((K, D), generator=gen, device="cuda")
-        for bits in (1, 2, 4, 8):
+        for bits in (1, 2, 4, 8, 24):
             for clip in (1.0, 0.3):
-                step = clip / 2 ** (bits - 1)
-                edge = torch.tensor([clip, -clip, 0.0, 0.5 * step, -0.5 * step,
-                                     1.5 * step, 2 * clip], device="cuda")
-                x.view(-1)[:edge.numel()] = edge
+                x.view(-1)[:7] = _edge_values(torch, bits, clip)
                 for stochastic in (True, False):
-                    got = ops.stochastic_quantize_codes(x, u, bits, clip=clip,
+                    noise = u if stochastic else None
+                    got = ops.stochastic_quantize_codes(x, noise, bits, clip=clip,
                                                         stochastic=stochastic)
                     torch.cuda.synchronize()
-                    want = tref.stochastic_quantize_ref(x, u, bits, clip=clip,
+                    want = tref.stochastic_quantize_ref(x, noise, bits, clip=clip,
                                                         stochastic=stochastic)
                     err["stochastic_quantize_codes"] = max(
                         err["stochastic_quantize_codes"],
@@ -175,6 +185,87 @@ def kernels_phase(torch, ops, tref):
         print(f"kernels == plain at {label} shape (K={K}, D={D}): quantize "
               f"codes equal, dequantize equal, aggregate within rtol 1e-5 "
               f"atol 1e-6 (max abs err {err['masked_aggregate']:.3g})")
+    return err
+
+
+def quantizer_paths_phase(torch, ops, tref):
+    """The quantizer's two kernels against their plain versions,
+    ``torch.equal``, on each path their C side picks: flat sizes
+    QUANTIZER_SIZES from aligned pointers (every head and tail length),
+    and contiguous views QUANTIZER_OFFSETS bytes past a 16-byte boundary,
+    x and u at equal offsets (the 16-byte path behind a scalar head) and at
+    different ones (the scalar kernel), codes views for dequantize; bits
+    1, 8 and 24 at clip 1 and 0.3 with the edge values, both roundings
+    (nearest with no noise).  Prints the path of each case and checks it
+    is the one the offsets call for.  Returns the max abs error of each."""
+    err = {"stochastic_quantize_codes": 0.0, "dequantize_codes": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # a checkout from before the 16-byte path has no plan to report
+    plan_of = getattr(ops, "quantizer_plan", None)
+    cases = 0
+
+    def at_offset(values, offset):
+        """A contiguous copy of ``values`` ``offset`` bytes past a 16-byte
+        boundary: a view into a buffer 4 elements longer."""
+        buf = torch.empty(values.numel() + 4, dtype=values.dtype, device="cuda")
+        k = (offset - buf.data_ptr() % 16) % 16 // 4
+        out = buf[k:k + values.numel()].copy_(values)
+        check(out.data_ptr() % 16 == offset, f"no view at offset {offset}")
+        return out
+
+    def held(kind, got, want, plan, vector, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        err[kind] = max(err[kind], _max_diff(got, want))
+        check(torch.equal(got, want), f"{kind} differs: {what}")
+        if plan is not None:
+            check(plan.vector == vector, f"{kind} took the "
+                  f"{'16-byte' if plan.vector else 'scalar'} path: {what}")
+        cases += 1
+
+    def path(plan):
+        return "not reported" if plan is None else (
+            f"{'16-byte' if plan.vector else 'scalar'} "
+            f"{plan.head}/{plan.vectors}/{plan.tail}")
+
+    layouts = [(n, 0, 0) for n in QUANTIZER_SIZES]
+    layouts += [(n, ox, ou) for n in (5, 4099) for ox, ou in QUANTIZER_OFFSETS]
+    for n, ox, ou in layouts:
+        x = at_offset((torch.rand(n, generator=gen, device="cuda") - 0.5) * 3, ox)
+        u = at_offset(torch.rand(n, generator=gen, device="cuda"), ou)
+        plans = {}
+        for bits in (1, 8, 24):
+            for clip in (1.0, 0.3):
+                edge = _edge_values(torch, bits, clip)[:n]
+                x[:edge.numel()] = edge
+                for stochastic in (True, False):
+                    noise = u if stochastic else None
+                    got = ops.stochastic_quantize_codes(
+                        x, noise, bits, clip=clip, stochastic=stochastic)
+                    plan = plan_of(x, noise, got) if plan_of else None
+                    held("stochastic_quantize_codes", got,
+                         tref.stochastic_quantize_ref(x, noise, bits, clip=clip,
+                                                      stochastic=stochastic),
+                         plan, not stochastic or ox == ou,
+                         f"n={n} x+{ox} u+{ou} bits={bits} clip={clip} "
+                         f"stochastic={stochastic}")
+                    plans["stochastic" if stochastic else "nearest"] = plan
+        for bits in (1, 8, 24):
+            g = 2 ** (bits - 1)
+            codes = at_offset(torch.randint(-g, g, (n,), generator=gen,
+                                            device="cuda", dtype=torch.int32), ox)
+            for clip in (1.0, 0.3):
+                got = ops.dequantize_codes(codes, bits, clip=clip)
+                plans["dequantize"] = plan_of(codes, None, got) if plan_of else None
+                held("dequantize_codes", got,
+                     tref.dequantize_ref(codes, bits, clip=clip),
+                     plans["dequantize"], True,
+                     f"n={n} codes+{ox} bits={bits} clip={clip}")
+        print(f"  quantizer path (head/vectors/tail) n={n} x and codes +{ox} "
+              f"u +{ou}: " + ", ".join(f"{k} {path(p)}" for k, p in plans.items()))
+    print(f"quantizer kernels == plain (torch.equal) in {cases} cases: sizes "
+          f"{list(QUANTIZER_SIZES)}, views at byte offsets (x, u) "
+          f"{list(QUANTIZER_OFFSETS)}, bits 1/8/24, clip 1/0.3, both roundings")
     return err
 
 
@@ -797,11 +888,18 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     tensor-core rate.  Every kernel is also timed queued behind a device
     sleep (``ms_queued``, with the count of launches still late) and back to
     back (``ms_back_to_back``, the pattern of the ring's hops); where the
-    bound is under SHORT_BOUND_MS the plain version and the library call
-    are timed back to back too.  Where there is a library call, it is also
-    queued, and both it and the kernel's entry point are timed on the host
-    through a synchronize (``host_ms``).  ``torch._int_mm`` is timed with w
-    in both layouts; each ``library_*`` number is the faster."""
+    bound is under SHORT_BOUND_MS the plain version is timed back to back
+    too.  Every entry point is timed on the host
+    through a synchronize (``host_ms``); where there is a library call it
+    is also queued, run back to back and timed on the host.
+    ``torch._int_mm`` is timed with w in both layouts; each ``library_*``
+    number is the faster.  The row ``fake_quant_pair`` is the quantizer's
+    two kernels as a round runs them, quantize then dequantize of its
+    codes (no kernel of its own: the kernels line does not list it); its
+    bound keeps the codes in L2 and ``bound_ms_codes_through_hbm`` does
+    not.  Quantize is also timed beside ``torch.add(x, u)``, which moves
+    its 12 bytes an element without computing it (``traffic_yardstick_*``,
+    not a library call)."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -843,6 +941,12 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             lambda: ops.dequantize_codes(codes, 8),
             lambda: tref.dequantize_ref(codes, 8),
             {"": lambda: torch.mul(codes, inv_gain)}, 8.0 * n, 1.0 * n),
+        # what FakeQuantSTE.forward and the uplink run; the bound keeps the
+        # codes in L2 between the two launches
+        "fake_quant_pair": (
+            lambda: ops.dequantize_codes(ops.stochastic_quantize_codes(x, u, 8), 8),
+            lambda: tref.dequantize_ref(tref.stochastic_quantize_ref(x, u, 8), 8),
+            None, 12.0 * n, 9.0 * n),
         "masked_aggregate": (
             lambda: ops.masked_aggregate(x, w),
             lambda: tref.masked_aggregate_ref(x, w),
@@ -888,6 +992,9 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             256 * 512 + 512 * 256 + 4.0 * 256 * 256,
             2.0 * 256 * 512 * 256, INT8_OPS_PER_S),
     }
+    # same bytes as the kernel, not its function: no library_ms
+    yardsticks = {"stochastic_quantize_codes": ("torch.add(x, u)",
+                                                lambda: torch.add(x, u))}
     shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
               "qmatmul@256x512x256": [256, 512, 256]}
     out = {}
@@ -900,27 +1007,36 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
                      "bound_ms": b_ms, "bound_by": b_by}
         queued, late = time_queued_ms(torch, kernel)
         extra = {"ms_queued": queued, "ms_queued_late": late,
-                 "ms_back_to_back": time_back_to_back_ms(torch, kernel)}
+                 "ms_back_to_back": time_back_to_back_ms(torch, kernel),
+                 "host_ms": host_ms(torch, kernel)}
+        if name == "fake_quant_pair":
+            extra["bound_ms_codes_through_hbm"] = 20.0 * n / HBM_BYTES_PER_S * 1e3
+        if name in yardsticks:
+            what, fn = yardsticks[name]
+            y_queued, y_late = time_queued_ms(torch, fn)
+            extra.update(traffic_yardstick=what,
+                         traffic_yardstick_ms=time_ms(torch, fn),
+                         traffic_yardstick_ms_queued=y_queued,
+                         traffic_yardstick_ms_queued_late=y_late,
+                         traffic_yardstick_ms_back_to_back=
+                         time_back_to_back_ms(torch, fn))
         if layouts:
             lib_queued = {k: time_queued_ms(torch, f) for k, f in layouts.items()}
             lib_host = {k: host_ms(torch, f) for k, f in layouts.items()}
+            b2b = {k: time_back_to_back_ms(torch, f) for k, f in layouts.items()}
             best = min(lib_queued, key=lambda k: lib_queued[k][0])
             extra.update(library_ms_queued=lib_queued[best][0],
                          library_ms_queued_late=lib_queued[best][1],
-                         host_ms=host_ms(torch, kernel),
+                         library_ms_back_to_back=min(b2b.values()),
                          library_host_ms=min(lib_host.values()))
             if len(layouts) > 1:
                 extra.update(library_ms_by_layout=lib_ms,
                              library_ms_queued_by_layout={
                                  k: v[0] for k, v in lib_queued.items()},
+                             library_ms_back_to_back_by_layout=b2b,
                              library_host_ms_by_layout=lib_host)
         if b_ms < SHORT_BOUND_MS:
             extra["plain_ms_back_to_back"] = time_back_to_back_ms(torch, plain)
-            if layouts:
-                b2b = {k: time_back_to_back_ms(torch, f) for k, f in layouts.items()}
-                extra["library_ms_back_to_back"] = min(b2b.values())
-                if len(b2b) > 1:
-                    extra["library_ms_back_to_back_by_layout"] = b2b
         print(json.dumps({"timing": name, "shape": shapes.get(name, [K, D]),
                           **out[name], **extra,
                           "ms_is": "median of 50 single launches, L2 flushed "
@@ -957,6 +1073,8 @@ def main() -> int:
     name, count, smi = device_phase(torch)
     build_phase(build)
     err = kernels_phase(torch, ops, tref)
+    for k, v in quantizer_paths_phase(torch, ops, tref).items():
+        err[k] = max(err[k], v)
     err.update(wire_kernels_phase(torch, ops, tref, quant))
     err["qmatmul"], qmatmul_launches = qmatmul_phase(torch, ops, tref)
     launches, sim, params = main_path_phase(torch, ops, get_config, build_model,

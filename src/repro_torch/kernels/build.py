@@ -35,6 +35,7 @@ _u = ctypes.c_uint
 SIGNATURES = {
     "repro_quantize_codes": (_c, _c, _c, _ll, _f, _i, _i, _c),
     "repro_dequantize_codes": (_c, _c, _ll, _f, _c),
+    "repro_quantizer_plan": (_c, _c, _c, _ll, _c),
     "repro_masked_aggregate_f32": (_c, _c, _c, _i, _ll, _f, _c),
     "repro_masked_aggregate_i32": (_c, _c, _c, _i, _ll, _f, _c),
     "repro_quantize_pack": (_c, _c, _c, _i, _ll, _ll, _i, _f, _i, _i, _c),
@@ -65,10 +66,16 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, flags: Tuple[str, ...] = NVCC_FLAGS) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc_proc(name: str, flags: Tuple[str, ...], tmp: Path) -> subprocess.Popen:
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
 
 
 def _load(path: Path) -> ctypes.CDLL:
@@ -93,10 +100,7 @@ def build_all() -> Dict[str, str]:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, out)
+            procs[name] = (_nvcc_proc(name, NVCC_FLAGS, tmp), tmp, out)
         failed = []
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
@@ -118,3 +122,25 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all()
     return _libs[name]
+
+
+def variant(name: str, *defines: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with extra ``-D`` macros, for measurements
+    that compare a kernel with a variant of itself (``tools/l2_probe.py``);
+    the port's own calls go through ``library``."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    key = " ".join((name,) + defines)
+    with _lock:
+        if key not in _libs:
+            out = _lib_path(name, flags)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = _nvcc_proc(name, flags, tmp)
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for csrc/{name}.cu with "
+                                       f"{defines} (exit {proc.returncode}):\n{log}")
+                os.replace(tmp, out)
+            _libs[key] = _load(out)
+        return _libs[key]

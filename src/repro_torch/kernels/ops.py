@@ -90,12 +90,48 @@ def _check_noise(x: torch.Tensor, u: Optional[torch.Tensor],
         raise ValueError("stochastic quantization needs u of x's shape")
 
 
+def _empty_at_offset_of(like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised tensor of ``like``'s shape (4-byte ``dtype``) that
+    starts the same number of bytes past a 16-byte boundary as ``like``:
+    a view into a buffer 1-3 elements longer where that is not 0.  The
+    quantizer's kernels take their 16-byte path only where every pointer
+    shares one offset, so a view of x that is not aligned keeps it."""
+    k = like.data_ptr() % 16 // 4
+    if k == 0:
+        return torch.empty(like.shape, dtype=dtype, device=like.device)
+    buf = torch.empty(like.numel() + k, dtype=dtype, device=like.device)
+    return buf[k:].view(like.shape)
+
+
+class QuantizerPlan(NamedTuple):
+    vector: bool    # the 16-byte path: every pointer at one offset past a
+                    # 16-byte boundary; else one scalar loop
+    head: int       # elements before the first boundary, one a thread
+    vectors: int    # 16-byte vectors of 4 elements
+    tail: int       # elements after the last vector, one a thread
+
+
+def quantizer_plan(src: torch.Tensor, noise: Optional[torch.Tensor],
+                   out: torch.Tensor) -> QuantizerPlan:
+    """The path the quantizer's kernels take for these CUDA tensors of one
+    size, as their C side picks it from the pointers:
+    ``stochastic_quantize_codes`` reads x and u and writes codes,
+    ``dequantize_codes`` reads codes (``noise`` None) and writes out;
+    nearest rounding reads no noise either."""
+    counts = (ctypes.c_longlong * 3)()
+    vector = build.library("quantize").repro_quantizer_plan(
+        src.data_ptr(), None if noise is None else noise.data_ptr(),
+        out.data_ptr(), src.numel(), counts)
+    return QuantizerPlan(bool(vector), *counts)
+
+
 def stochastic_quantize_codes(x: torch.Tensor, u: Optional[torch.Tensor],
                               bits: int, *, clip: float = 1.0,
                               stochastic: bool = True) -> torch.Tensor:
     """f32 ``x`` and noise ``u`` (same shape) -> int32 codes in [-G, G-1].
 
     ``u`` is read only when ``stochastic``; nearest rounding may pass None.
+    On the card the codes start at x's offset past a 16-byte boundary.
     """
     _check_bits(bits)
     _check_noise(x, u, stochastic)
@@ -105,7 +141,7 @@ def stochastic_quantize_codes(x: torch.Tensor, u: Optional[torch.Tensor],
     _check(x, torch.float32, x.device, "x")
     if stochastic:
         _check(u, torch.float32, x.device, "u")
-    codes = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    codes = _empty_at_offset_of(x, torch.int32)
     err = build.library("quantize").repro_quantize_codes(
         x.data_ptr(), u.data_ptr() if stochastic else None, codes.data_ptr(),
         x.numel(), float(np.float32(clip)), bits, int(stochastic),
@@ -117,12 +153,13 @@ def stochastic_quantize_codes(x: torch.Tensor, u: Optional[torch.Tensor],
 
 def dequantize_codes(codes: torch.Tensor, bits: int, *,
                      clip: float = 1.0) -> torch.Tensor:
-    """int32 codes -> f32 ``codes · float32(clip/G)``."""
+    """int32 codes -> f32 ``codes · float32(clip/G)``; on the card the
+    output starts at the codes' offset past a 16-byte boundary."""
     _check_bits(bits)
     if not _on_cuda(codes, "codes"):
         return ref.dequantize_ref(codes, bits, clip=clip)
     _check(codes, torch.int32, codes.device, "codes")
-    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    out = _empty_at_offset_of(codes, torch.float32)
     err = build.library("quantize").repro_dequantize_codes(
         codes.data_ptr(), out.data_ptr(), codes.numel(), _inv_gain(bits, clip),
         _stream(codes.device))

@@ -119,6 +119,92 @@ def test_aggregate_all_zero_weights_gives_zero(jx):
     np.testing.assert_array_equal(got, 0.0)
 
 
+def _quantize_np(x, u, bits, clip, stochastic, reciprocal):
+    """The quantizer in numpy, x scaled by ``x / clip`` (rounded once) or,
+    with ``reciprocal``, by ``x * float32(1/clip)``."""
+    g = np.float32(2 ** (bits - 1))
+    xs = x * np.float32(1 / np.float32(clip)) if reciprocal else x / np.float32(clip)
+    xq = np.clip(xs, -1, 1).astype(np.float32) * g
+    return np.clip(np.floor(xq + u) if stochastic else np.round(xq),
+                   -g, g - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.3])
+def test_quantizer_plain_against_pallas_at_24_bits(jx, clip):
+    """At 24 bits a step is one ulp of x/clip.  The port divides by the
+    clip (rounded once); the Pallas kernel, jitted with a static clip,
+    gets x·float32(1/clip) from XLA.  So the two are bit-exact at clip 1
+    and, at other clips, differ by one code exactly where the division
+    and the reciprocal multiply round apart (ROADMAP C)."""
+    x, u = _quant_inputs(4099, clip, 24, seed=24)
+    for stochastic in (True, False):
+        want = np.asarray(jx.quantize(jx.jnp.asarray(x), jx.jnp.asarray(u), 24,
+                                      clip=clip, stochastic=stochastic,
+                                      interpret=True))
+        got = ops.stochastic_quantize_codes(
+            torch.from_numpy(x), torch.from_numpy(u) if stochastic else None,
+            24, clip=clip, stochastic=stochastic).numpy()
+        np.testing.assert_array_equal(got, _quantize_np(x, u, 24, clip, stochastic,
+                                                        reciprocal=False))
+        np.testing.assert_array_equal(want, _quantize_np(x, u, 24, clip, stochastic,
+                                                         reciprocal=True))
+        if clip == 1.0:
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert np.abs(got.astype(np.int64) - want).max() <= 1
+        deq = np.asarray(jx.dequantize(jx.jnp.asarray(want), 24, clip=clip,
+                                       interpret=True))
+        np.testing.assert_array_equal(
+            ops.dequantize_codes(torch.tensor(want), 24, clip=clip).numpy(),
+            deq)
+
+
+def _at_offset(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``values`` starting ``offset`` bytes past a
+    16-byte boundary (a view into a buffer 4 elements longer)."""
+    buf = torch.empty(values.numel() + 4, dtype=values.dtype,
+                      device=values.device)
+    k = (offset - buf.data_ptr() % 16) % 16 // 4
+    out = buf[k:k + values.numel()].copy_(values)
+    assert out.data_ptr() % 16 == offset and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+def test_output_starts_at_its_inputs_offset(offset, dtype):
+    like = _at_offset(torch.arange(15, dtype=torch.float32), offset).view(3, 5)
+    out = ops._empty_at_offset_of(like, dtype)
+    assert out.shape == like.shape and out.dtype == dtype
+    assert out.is_contiguous()
+    assert out.data_ptr() % 16 == offset
+
+
+#: byte offsets (x, u) of views past a 16-byte boundary: equal offsets keep
+#: the kernels' 16-byte path, different ones take the scalar kernel
+OFFSETS = [(0, 0), (4, 4), (8, 8), (12, 12), (4, 8), (0, 12), (12, 4)]
+
+
+@pytest.mark.parametrize("ox,ou", OFFSETS)
+def test_cpu_views_at_offsets_take_the_plain_versions(ox, ou):
+    rng = np.random.default_rng(ox * 16 + ou)
+    xs = torch.from_numpy(rng.uniform(-1.5, 1.5, 4099).astype(np.float32))
+    us = torch.from_numpy(rng.uniform(0.0, 1.0, 4099).astype(np.float32))
+    x, u = _at_offset(xs, ox), _at_offset(us, ou)
+    ops.reset_launch_counts()
+    for bits in (1, 8, 24):
+        for noise in (u, None):
+            got = ops.stochastic_quantize_codes(x, noise, bits, clip=0.3,
+                                                stochastic=noise is not None)
+            want = tref.stochastic_quantize_ref(
+                xs, None if noise is None else us, bits, clip=0.3,
+                stochastic=noise is not None)
+            assert torch.equal(got, want)
+            assert torch.equal(ops.dequantize_codes(_at_offset(got, ou), bits),
+                               tref.dequantize_ref(want, bits))
+    assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.reset_launch_counts()
     x = torch.linspace(-1.2, 1.2, 101)
@@ -154,14 +240,15 @@ def test_cuda_kernels_match_plain_versions():
     for K, D in ((10, 421_642), (3, 5003), (1, 7)):
         x = (torch.rand((K, D), generator=gen, device=dev) - 0.5) * 3
         u = torch.rand((K, D), generator=gen, device=dev)
-        for bits in BITS:
+        for bits in BITS + [24]:
             for clip in (1.0, 0.3):
                 for stochastic in (True, False):
+                    noise = u if stochastic else None
                     before = ops.LAUNCHES["stochastic_quantize_codes"]
-                    got = ops.stochastic_quantize_codes(x, u, bits, clip=clip,
+                    got = ops.stochastic_quantize_codes(x, noise, bits, clip=clip,
                                                         stochastic=stochastic)
                     assert ops.LAUNCHES["stochastic_quantize_codes"] == before + 1
-                    want = tref.stochastic_quantize_ref(x, u, bits, clip=clip,
+                    want = tref.stochastic_quantize_ref(x, noise, bits, clip=clip,
                                                         stochastic=stochastic)
                     assert torch.equal(got, want), (K, D, bits, clip, stochastic)
                     deq = ops.dequantize_codes(got, bits, clip=clip)
@@ -175,3 +262,42 @@ def test_cuda_kernels_match_plain_versions():
                 torch.testing.assert_close(got, tref.masked_aggregate_ref(upd, wts),
                                            rtol=1e-5, atol=atol)
         torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_quantizer_paths_match_plain_versions():
+    """Each path the quantizer's kernels take: flat sizes from aligned
+    pointers (every head and tail length of the 16-byte path), views at
+    equal offsets (16-byte path behind a scalar head) and at different
+    ones (the scalar kernel), codes views for dequantize; bits 1, 8, 24,
+    both roundings (nearest with no noise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    layouts = [(n, 0, 0) for n in (1, 3, 4, 5, 7, 4099)]
+    layouts += [(n, ox, ou) for n in (5, 4099) for ox, ou in OFFSETS]
+    for n, ox, ou in layouts:
+        x = _at_offset((torch.rand(n, generator=gen, device=dev) - 0.5) * 3, ox)
+        u = _at_offset(torch.rand(n, generator=gen, device=dev), ou)
+        for bits in (1, 8, 24):
+            for clip in (1.0, 0.3):
+                step = clip / 2 ** (bits - 1)
+                edge = torch.tensor([clip, -clip, 0.0, 0.5 * step, -0.5 * step,
+                                     1.5 * step, 2 * clip], device=dev)[:n]
+                x[:edge.numel()] = edge
+                for noise in (u, None):
+                    stochastic = noise is not None
+                    got = ops.stochastic_quantize_codes(x, noise, bits, clip=clip,
+                                                        stochastic=stochastic)
+                    plan = ops.quantizer_plan(x, noise, got)
+                    assert plan.vector == (not stochastic or ox == ou), (n, ox, ou)
+                    assert plan.head + 4 * plan.vectors + plan.tail == n
+                    want = tref.stochastic_quantize_ref(x, noise, bits, clip=clip,
+                                                        stochastic=stochastic)
+                    assert torch.equal(got, want), (n, ox, ou, bits, clip, stochastic)
+                    codes = _at_offset(got, ox)
+                    deq = ops.dequantize_codes(codes, bits, clip=clip)
+                    assert ops.quantizer_plan(codes, None, deq).vector
+                    assert torch.equal(deq, tref.dequantize_ref(codes, bits, clip=clip))
+    torch.cuda.synchronize()

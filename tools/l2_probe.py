@@ -1,14 +1,31 @@
-"""How the L2 flush before a timed launch moves a one-pass kernel's time.
+"""How the L2 flush before a timed launch moves a one-pass kernel's time,
+and whether the quantizer's L2 cache hints pay.
 
 ``chip_smoke.py`` times a single launch after writing 256 MB, which leaves
 L2 full of dirty lines that are written back while the kernel runs.  This
-probe times one ``repack`` ring hop at the ring's shape (10 rows of
-105,411 words into 10 x 421,642 int32, lane 8) and a ``copy_`` of the same
-33.7 MB of acc, each as the median of 50 single launches between two CUDA
-events after each of two flushes: writing 256 MB (chip_smoke's ``ms``) and
-reading them (L2 left clean).  It prints one JSON line per case with the
-card's name and power limit.
+probe times each case as the median of 50 single launches between two
+CUDA events after each of two flushes, writing 256 MB (chip_smoke's
+``ms``) and reading them (L2 left clean), and as the mean of 50 launches
+back to back (chip_smoke's ``ms_back_to_back``).  The cases, at the main
+paths' shapes:
 
+* one ``repack`` ring hop (10 rows of 105,411 words into 10 x 421,642
+  int32, lane 8) and a ``copy_`` of the same 33.7 MB of acc;
+* the quantizer at (10, 421,642), 8 bits: ``stochastic_quantize_codes``,
+  ``dequantize_codes``, the two as a round runs them (quantize, then
+  dequantize of its codes), and ``torch.add(x, u)``, which moves
+  quantize's 12 bytes an element.  The three quantizer cases run twice
+  through the kernels' C entry points: built as the port builds them
+  (with their L2 cache hints) and built with -DREPRO_PLAIN_CACHE_POLICY
+  (plain loads and stores).
+* the residue of the codes' ``evict_last`` lines: ``torch.add(x, u)``
+  timed after the write flush before any hinted launch, after 50 hinted
+  quantize launches into one buffer, after one dequantize of that buffer
+  (its ``evict_first`` reads) and after the buffer is overwritten by
+  ``zero_``.  Lines that outlive the flush leave fewer dirty lines for
+  the timed launch to write back, so a faster add marks them.
+
+It prints one JSON line per case with the card's name and power limit.
 Run from the repository root on a machine with a CUDA card:
 
     python3 tools/l2_probe.py
@@ -20,7 +37,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 
 def single_ms(torch, fn, flush, reps=50):
@@ -39,13 +58,42 @@ def single_ms(torch, fn, flush, reps=50):
     return times[len(times) // 2]
 
 
+def quantizer_cases(torch, lib, x, u, bits=8):
+    """quantize, dequantize and the pair through ``lib``'s C entry points
+    (the wrappers' arguments, on the current stream)."""
+    n, inv_gain = x.numel(), 1.0 / 2 ** (bits - 1)
+
+    def quantize():
+        codes = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        err = lib.repro_quantize_codes(x.data_ptr(), u.data_ptr(),
+                                       codes.data_ptr(), n, 1.0, bits, 1,
+                                       torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return codes
+
+    def dequantize(codes):
+        out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+        err = lib.repro_dequantize_codes(codes.data_ptr(), out.data_ptr(), n,
+                                         inv_gain,
+                                         torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return out
+
+    codes = quantize()
+    return {"stochastic_quantize_codes": quantize,
+            "dequantize_codes": lambda: dequantize(codes),
+            "fake_quant_pair": lambda: dequantize(quantize())}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("l2_probe: no CUDA device; it needs a card")
+    from chip_smoke import time_back_to_back_ms
     from repro_torch.core import quantization as quant
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ref as tref
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -56,14 +104,44 @@ def main() -> int:
                           dtype=torch.int32)
     words = quant.pack_codes(codes, 8)
     acc, other = codes.clone(), codes.clone()
+    x = (torch.rand((C, D), generator=gen, device="cuda") - 0.5) * 0.02
+    u = torch.rand((C, D), generator=gen, device="cuda")
     buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB
     flushes = {"write": buf.zero_, "read": buf.sum}
+    add_ms = lambda: single_ms(torch, lambda: torch.add(x, u), flushes["write"])
+    residue = {"before": add_ms()}
+    kept = ops.stochastic_quantize_codes(x, u, 8)
+    lib = build.library("quantize")
+    for _ in range(50):
+        lib.repro_quantize_codes(x.data_ptr(), u.data_ptr(), kept.data_ptr(),
+                                 kept.numel(), 1.0, 8, 1,
+                                 torch.cuda.current_stream().cuda_stream)
+    residue["after_quantize"] = add_ms()
+    ops.dequantize_codes(kept, 8)
+    residue["after_dequantize_read"] = add_ms()
+    kept.zero_()
+    residue["after_zero_"] = add_ms()
+    print(json.dumps({"probe": "evict_last_residue",
+                      "add_x_u_ms_write_flush": residue, "card": card}))
     cases = {"repack_hop": lambda: ops.repack(words, acc, 8, D, hop=1),
-             "copy_33_7MB": lambda: acc.copy_(other)}
+             "copy_33_7MB": lambda: acc.copy_(other),
+             "add_x_u": lambda: torch.add(x, u)}
+    libs = {"l2_hints": build.library("quantize"),
+            "plain_policy": build.variant("quantize", "REPRO_PLAIN_CACHE_POLICY")}
+    for policy, lib in libs.items():
+        for name, fn in quantizer_cases(torch, lib, x, u).items():
+            cases[f"{name}@{policy}"] = fn
+    pair = cases["fake_quant_pair@plain_policy"]()
+    torch.cuda.synchronize()
+    assert torch.equal(pair, cases["fake_quant_pair@l2_hints"]())
+    assert torch.equal(pair, tref.dequantize_ref(
+        tref.stochastic_quantize_ref(x, u, 8), 8))
     for name, fn in cases.items():
         print(json.dumps({"probe": name, **{
             f"ms_{k}_flush": single_ms(torch, fn, f) for k, f in flushes.items()},
+            "ms_back_to_back": time_back_to_back_ms(torch, fn),
             "ms_is": "median of 50 single launches after the flush",
+            "ms_back_to_back_is": "mean of 50 launches back to back, L2 warm",
             "card": card}))
     return 0
 
