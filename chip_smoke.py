@@ -91,6 +91,16 @@ QMATMUL_EDGES = ((33, 4099, 17, 0, None), (1, 5, 1, 0, None),
 #: offsets keep the 16-byte path, different ones take the scalar kernel
 QUANTIZER_SIZES = (1, 3, 4, 5, 7, 4099)
 QUANTIZER_OFFSETS = ((4, 4), (8, 8), (12, 12), (4, 8), (0, 12), (12, 4))
+#: quantize_pack and quantize_pack_chunk's (bits, lane) cases: each of the
+#: ten codes-per-word counts of lanes 1-32 at the widest bits that fit (at
+#: most 8), the packed psum's lane 12, and 16 and 24 bits at lanes 16-32,
+#: where a step is a few ulp of the scaled value (ROADMAP C1)
+WIRE_QUANT_CASES = tuple((min(lane, 8), lane) for lane in
+                         (32, 16, 10, 8, 6, 5, 4, 3, 2, 1)) + (
+    (8, 12), (16, 16), (16, 24), (16, 32), (24, 24), (24, 28), (24, 32))
+#: words a thread of those kernels owns, by codes per word (pack.cu kWords)
+WIRE_QUANT_WORDS = {32: 1, 16: 1, 10: 1, 8: 1, 6: 2, 5: 2, 4: 2, 3: 3, 2: 4,
+                    1: 8}
 #: the one PyTorch call timed beside a kernel (library_ms), where one exists
 LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
                  "masked_aggregate": "w @ x / sum(w)",
@@ -204,15 +214,6 @@ def quantizer_paths_phase(torch, ops, tref):
     plan_of = getattr(ops, "quantizer_plan", None)
     cases = 0
 
-    def at_offset(values, offset):
-        """A contiguous copy of ``values`` ``offset`` bytes past a 16-byte
-        boundary: a view into a buffer 4 elements longer."""
-        buf = torch.empty(values.numel() + 4, dtype=values.dtype, device="cuda")
-        k = (offset - buf.data_ptr() % 16) % 16 // 4
-        out = buf[k:k + values.numel()].copy_(values)
-        check(out.data_ptr() % 16 == offset, f"no view at offset {offset}")
-        return out
-
     def held(kind, got, want, plan, vector, what):
         nonlocal cases
         torch.cuda.synchronize()
@@ -231,8 +232,8 @@ def quantizer_paths_phase(torch, ops, tref):
     layouts = [(n, 0, 0) for n in QUANTIZER_SIZES]
     layouts += [(n, ox, ou) for n in (5, 4099) for ox, ou in QUANTIZER_OFFSETS]
     for n, ox, ou in layouts:
-        x = at_offset((torch.rand(n, generator=gen, device="cuda") - 0.5) * 3, ox)
-        u = at_offset(torch.rand(n, generator=gen, device="cuda"), ou)
+        x = at_offset(torch, (torch.rand(n, generator=gen, device="cuda") - 0.5) * 3, ox)
+        u = at_offset(torch, torch.rand(n, generator=gen, device="cuda"), ou)
         plans = {}
         for bits in (1, 8, 24):
             for clip in (1.0, 0.3):
@@ -252,8 +253,8 @@ def quantizer_paths_phase(torch, ops, tref):
                     plans["stochastic" if stochastic else "nearest"] = plan
         for bits in (1, 8, 24):
             g = 2 ** (bits - 1)
-            codes = at_offset(torch.randint(-g, g, (n,), generator=gen,
-                                            device="cuda", dtype=torch.int32), ox)
+            codes = at_offset(torch, torch.randint(-g, g, (n,), generator=gen,
+                                                   device="cuda", dtype=torch.int32), ox)
             for clip in (1.0, 0.3):
                 got = ops.dequantize_codes(codes, bits, clip=clip)
                 plans["dequantize"] = plan_of(codes, None, got) if plan_of else None
@@ -266,6 +267,104 @@ def quantizer_paths_phase(torch, ops, tref):
     print(f"quantizer kernels == plain (torch.equal) in {cases} cases: sizes "
           f"{list(QUANTIZER_SIZES)}, views at byte offsets (x, u) "
           f"{list(QUANTIZER_OFFSETS)}, bits 1/8/24, clip 1/0.3, both roundings")
+    return err
+
+
+def at_offset(torch, values, offset):
+    """A contiguous copy of ``values`` ``offset`` bytes past a 16-byte
+    boundary: a view into a buffer 4 elements longer."""
+    buf = torch.empty(values.numel() + 4, dtype=values.dtype, device="cuda")
+    k = (offset - buf.data_ptr() % 16) % 16 // 4
+    out = buf[k:k + values.numel()].copy_(values.reshape(-1))
+    check(out.data_ptr() % 16 == offset, f"no view at offset {offset}")
+    return out.view(values.shape)
+
+
+def wire_quantizer_paths_phase(torch, ops, tref):
+    """quantize_pack and quantize_pack_chunk (k = 1 and 3) against their
+    plain versions, ``torch.equal``, at WIRE_QUANT_CASES (every
+    codes-per-word specialisation), clips 1, 0.3 and 2.5, both roundings,
+    on 1 and 10 rows of W = 4,099 words (odd, n not a multiple of cpw) and
+    4,100 (even, n a multiple), x and u views at byte offsets 0, 4, 8 and
+    12 past a 16-byte boundary (equal and different), led by the edge
+    values.  Checks each launch's ``ops.pack_plan`` (specialisation, words
+    a thread, 4-byte loads, tiles, one wave) and prints it at the main
+    shapes.  Returns the max abs error of each kernel."""
+    err = {"quantize_pack": 0.0, "quantize_pack_chunk": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    offsets = ((0, 0), (4, 4), (8, 8), (12, 12), (4, 12), (8, 0))
+    cases, cpws = 0, set()
+    # a checkout from before the redesign has no plan to report
+    plan_of = getattr(ops, "pack_plan", None)
+
+    def held(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        err[name] = max(err[name], _max_diff(got, want))
+        check(torch.equal(got, want), f"{name} differs: {what}")
+        cases += 1
+
+    def planned(x, bits, lane, stochastic, k, what):
+        if plan_of is None:
+            return None
+        plan = plan_of(x, bits, lane_bits=lane, stochastic=stochastic,
+                       num_chunks=k)
+        cpw, segments = 32 // lane, max(k, 1)
+        words = WIRE_QUANT_WORDS[cpw]
+        C = -(-x.shape[1] // segments)
+        W = -(-C // cpw)
+        tiles = x.shape[0] * segments * -(-W // (256 * words))
+        check(plan.cpw == cpw and plan.words == words and plan.load_bytes == 4
+              and plan.tiles == tiles and 1 <= plan.blocks <= tiles,
+              f"pack plan {plan} for {what}")
+        cpws.add(plan.cpw)
+        return plan
+
+    i = 0
+    for bits, lane in WIRE_QUANT_CASES:
+        cpw = 32 // lane
+        for rows, W in ((1, 4099), (10, 4099), (1, 4100), (10, 4100)):
+            n = cpw * W - (W % 2 and cpw > 1)
+            ox, ou = offsets[i % len(offsets)]
+            i += 1
+            x = at_offset(torch, (torch.rand((rows, n), generator=gen,
+                                             device="cuda") - 0.5) * 3, ox)
+            u = at_offset(torch, torch.rand((rows, n), generator=gen,
+                                            device="cuda"), ou)
+            for clip in (1.0, 0.3, 2.5):
+                edge = _edge_values(torch, bits, clip)[:n]
+                x[0, :edge.numel()] = edge
+                x[-1, -edge.numel():] = edge
+                for stochastic in (True, False):
+                    noise = u if stochastic else None
+                    what = (f"bits={bits} lane={lane} rows={rows} n={n} "
+                            f"x+{ox} u+{ou} clip={clip} stochastic={stochastic}")
+                    kw = dict(clip=clip, lane_bits=lane, stochastic=stochastic)
+                    planned(x, bits, lane, stochastic, 0, what)
+                    held("quantize_pack", ops.quantize_pack(x, noise, bits, **kw),
+                         tref.quantize_pack_ref(x, noise, bits, **kw), what)
+                    for k in (1, 3):
+                        planned(x, bits, lane, stochastic, k, what + f" k={k}")
+                        got = ops.quantize_pack_chunk(x, noise, bits,
+                                                      num_chunks=k, **kw)
+                        want = tref.quantize_pack_chunk_ref(x, noise, bits,
+                                                            num_chunks=k, **kw)
+                        held("quantize_pack_chunk", got[0], want[0], what + f" k={k}")
+                        held("quantize_pack_chunk", got[1], want[1], what + f" k={k}")
+    check(plan_of is None or cpws == set(WIRE_QUANT_WORDS),
+          f"cases miss a specialisation: {cpws}")
+    C, D = SHAPES["main"]
+    x = torch.empty((C, D), device="cuda")
+    for label, lane, k in (("quantize_pack", 12, 0), ("quantize_pack_chunk", 8, 1)):
+        p = planned(x, 8, lane, True, k, f"{label} main shape")
+        print(f"  {label} at the main shape (lane {lane}): " + (
+            "plan not reported" if p is None else
+            f"cpw {p.cpw}, {p.words} words a thread, {p.load_bytes}-byte "
+            f"loads, {p.tiles} tiles over {p.blocks} blocks"))
+    print(f"wire quantizers == plain (torch.equal) in {cases} cases: "
+          f"codes per word {sorted(cpws, reverse=True)}, bits 1-24, clips "
+          f"1/0.3/2.5, both roundings, 1 and 10 rows, W odd and even, views "
+          f"at byte offsets {list(offsets)}")
     return err
 
 
@@ -895,11 +994,14 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     ``torch._int_mm`` is timed with w in both layouts; each ``library_*``
     number is the faster.  The row ``fake_quant_pair`` is the quantizer's
     two kernels as a round runs them, quantize then dequantize of its
-    codes (no kernel of its own: the kernels line does not list it); its
-    bound keeps the codes in L2 and ``bound_ms_codes_through_hbm`` does
-    not.  Quantize is also timed beside ``torch.add(x, u)``, which moves
-    its 12 bytes an element without computing it (``traffic_yardstick_*``,
-    not a library call)."""
+    codes, and ``chunk_repack_pair`` the ring's front and first hop,
+    quantize_pack_chunk then one repack of its words into its codes in
+    place (no kernel of their own: the kernels line does not list them);
+    their bounds keep the handed-over outputs in L2 and
+    ``bound_ms_codes_through_hbm`` does not.  Quantize, quantize_pack and
+    quantize_pack_chunk are also timed beside ``torch.add(x, u)``, which
+    moves quantize's 12 bytes an element without computing anything
+    (``traffic_yardstick_*``, not a library call)."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -932,6 +1034,16 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     (xq, wq), (xs, ws) = mm[960, 3136, 128], mm[256, 512, 256]
     # column-major copies of w, the layout cuBLASLt's int8 kernels favour
     wq_cm, ws_cm = wq.t().contiguous().t(), ws.t().contiguous().t()
+
+    def chunk_then_hop(m):
+        """quantize_pack_chunk (k = 1) then one repack hop of its words
+        into its codes, through ``ops`` or the plain versions ``tref``."""
+        if m is ops:
+            words, codes = ops.quantize_pack_chunk(x, u, 8, num_chunks=1)
+            return ops.repack(words.view(K, Wn), codes.view(K, D), 8, D, hop=1)
+        words, codes = tref.quantize_pack_chunk_ref(x, u, 8, num_chunks=1)
+        return tref.repack_ref(words.view(K, Wn), codes.view(K, D), 8, D, hop=1)
+
     rows = {
         "stochastic_quantize_codes": (
             lambda: ops.stochastic_quantize_codes(x, u, 8),
@@ -965,6 +1077,12 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             lambda: ops.quantize_pack_chunk(x, u, 8, num_chunks=1),
             lambda: tref.quantize_pack_chunk_ref(x, u, 8, num_chunks=1), None,
             8.0 * n + 4.0 * K * Wn + 4.0 * n, 8.0 * n),
+        # the ring's front and its first hop: the hop reads the words and
+        # updates the codes in place; the bound keeps both in L2
+        "chunk_repack_pair": (
+            lambda: chunk_then_hop(ops),
+            lambda: chunk_then_hop(tref), None,
+            8.0 * n + 4.0 * K * Wn + 4.0 * n, 9.0 * n),
         "repack": (
             lambda: ops.repack(ring_words, acc, 8, D, hop=1),
             lambda: tref.repack_ref(ring_words, acc, 8, D, hop=1), None,
@@ -993,8 +1111,9 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             2.0 * 256 * 512 * 256, INT8_OPS_PER_S),
     }
     # same bytes as the kernel, not its function: no library_ms
-    yardsticks = {"stochastic_quantize_codes": ("torch.add(x, u)",
-                                                lambda: torch.add(x, u))}
+    yardsticks = {k: ("torch.add(x, u)", lambda: torch.add(x, u))
+                  for k in ("stochastic_quantize_codes", "quantize_pack",
+                            "quantize_pack_chunk")}
     shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
               "qmatmul@256x512x256": [256, 512, 256]}
     out = {}
@@ -1011,6 +1130,9 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
                  "host_ms": host_ms(torch, kernel)}
         if name == "fake_quant_pair":
             extra["bound_ms_codes_through_hbm"] = 20.0 * n / HBM_BYTES_PER_S * 1e3
+        if name == "chunk_repack_pair":
+            extra["bound_ms_codes_through_hbm"] = (
+                20.0 * n + 8.0 * K * Wn) / HBM_BYTES_PER_S * 1e3
         if name in yardsticks:
             what, fn = yardsticks[name]
             y_queued, y_late = time_queued_ms(torch, fn)
@@ -1076,6 +1198,8 @@ def main() -> int:
     for k, v in quantizer_paths_phase(torch, ops, tref).items():
         err[k] = max(err[k], v)
     err.update(wire_kernels_phase(torch, ops, tref, quant))
+    for k, v in wire_quantizer_paths_phase(torch, ops, tref).items():
+        err[k] = max(err[k], v)
     err["qmatmul"], qmatmul_launches = qmatmul_phase(torch, ops, tref)
     launches, sim, params = main_path_phase(torch, ops, get_config, build_model,
                                             make_federated_digits, FLSimulator,

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), compiled for
 ``sm_90a`` with ``-fmad=false`` — the quantizer must round exactly as the
 reference does.  Libraries land in ``<repo>/build/kernels/`` under a name
-that carries a hash of the source and the flags, so an edited source never
-loads a stale library.  All sources compile in parallel, one ``nvcc`` each.
+that carries a hash of the source, the shared headers ``csrc/*.cuh`` and
+the flags, so an edited source never loads a stale library.  All sources
+compile in parallel, one ``nvcc`` each.
 Nothing is built at import: the first CUDA call builds.
 """
 from __future__ import annotations
@@ -33,15 +34,17 @@ _i = ctypes.c_int
 _u = ctypes.c_uint
 #: C signature of every exported function (all return cudaError_t as int)
 SIGNATURES = {
-    "repro_quantize_codes": (_c, _c, _c, _ll, _f, _i, _i, _c),
+    "repro_quantize_codes": (_c, _c, _c, _ll, _f, _f, _i, _i, _c),
     "repro_dequantize_codes": (_c, _c, _ll, _f, _c),
     "repro_quantizer_plan": (_c, _c, _c, _ll, _c),
     "repro_masked_aggregate_f32": (_c, _c, _c, _i, _ll, _f, _c),
     "repro_masked_aggregate_i32": (_c, _c, _c, _i, _ll, _f, _c),
-    "repro_quantize_pack": (_c, _c, _c, _i, _ll, _ll, _i, _f, _i, _i, _c),
+    "repro_quantize_pack": (_c, _c, _c, _i, _ll, _ll, _i, _f, _f, _i, _i,
+                            _c),
+    "repro_quantize_pack_plan": (_i, _i, _ll, _ll, _i, _c),
     "repro_unpack_dequantize": (_c, _c, _i, _ll, _ll, _i, _u, _f, _c),
     "repro_quantize_pack_chunk": (_c, _c, _c, _c, _i, _ll, _i, _ll, _ll, _i,
-                                  _u, _f, _i, _i, _c),
+                                  _u, _f, _f, _i, _i, _c),
     "repro_repack": (_c, _c, _i, _ll, _ll, _i, _i, _i, _i, _u, _c),
     "repro_pack_sums": (_c, _c, _i, _ll, _ll, _i, _u, _c),
     "repro_qmatmul": (_c, _c, _c, _i, _i, _i, _i, _f, _c),
@@ -68,6 +71,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str, flags: Tuple[str, ...] = NVCC_FLAGS) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -18,17 +18,39 @@
 // of 421,642 partial sums to lane 9) moves 22.5 MB, about 6.7 us; at an
 // rsag hop (10 rows of 42,165) it moves about 2.3 MB and is launch-bound.
 //
-// Design: one thread per output word per row, the row in blockIdx.y.  The
-// thread reads its cpw planes at j*W + w, so neighbouring threads touch
-// neighbouring addresses in every plane and every load is coalesced; the
-// word is built in a register and stored once (pack_word, shared by
-// quantize_pack and pack_sums: the lanes are added modulo 2^32, as the
-// reference sums its shifted planes).  The quantizer is the step
-// of csrc/quantize.cu (__fdiv_rn / __fmul_rn / __fadd_rn, rintf, built
-// with -fmad=false), so the codes equal the quantize kernel's bit for bit.
-// Biases are uint32 and every bias and un-bias is a modular uint32 add, so
-// the lane-symmetric bias 2^31 at lane 32 is exact.  A lane of 32 bits
-// gets its mask without the undefined shift 1u << 32.
+// Design of pack_sums and unpack_dequantize: one thread per output word
+// per row, the row in blockIdx.y.  The thread reads its cpw planes at
+// j*W + w, so neighbouring threads touch neighbouring addresses in every
+// plane and every load is coalesced; the word is built in a register and
+// stored once (pack_word: the lanes are added modulo 2^32, as the
+// reference sums its shifted planes).  Biases are uint32 and every bias
+// and un-bias is a modular uint32 add, so the lane-symmetric bias 2^31 at
+// lane 32 is exact.  A lane of 32 bits gets its mask without the
+// undefined shift 1u << 32.
+//
+// quantize_pack and quantize_pack_chunk read 8 bytes an element and do
+// the quantizer's step (quantizer.cuh, the reference's multiply, so the
+// codes equal the quantize kernel's bit for bit).  A thread that built
+// one word plane by plane kept about one pair of 4-byte loads in flight,
+// where 3.35 TB/s needs some 15-20 KB an SM (Little's law).  So both are
+// specialised on cpw, and a thread owns kWords(cpw) words kThreads apart
+// (neighbouring threads, neighbouring words: every load coalesced) and
+// issues all its loads, every plane of x and u for every word, before any
+// arithmetic: at least 16 loads in flight a thread (8 or 32 were no
+// faster on the H100 at the main shapes).  The loads are
+// 4 bytes: plane j starts at j*W floats and the words' row stride is W,
+// both odd at the main shapes, so a 16-byte path would need a scalar head
+// for every plane of every row.  x and u are read streaming (each once,
+// quantizer.cuh).  quantize_pack_chunk's codes become the ring's acc,
+// which the next repack reads and writes in place, so they are stored
+// with the quantizer pair's L2::evict_last policy (st_keep), as the pair
+// hands its codes over.  -DREPRO_PLAIN_CACHE_POLICY builds plain loads and
+// stores (tools/l2_probe.py times both builds).
+// Blocks walk tiles of kThreads*kWords(cpw) words of one row (chunk) over
+// one wave of resident blocks (SM count times blocks an SM, read once per
+// device; a grid covering the tiles was faster for quantize_pack but
+// slower back to back for the chunk);
+// repro_quantize_pack_plan reports the geometry.
 //
 // The ring's repack reads the words of the row ``hop`` steps back along
 // one axis of the cohort grid and adds them into row r of acc in place:
@@ -49,16 +71,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "quantizer.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int quantize_one(float x, float u, float clip,
-                                            float gain, int stochastic) {
-  float xs = fminf(fmaxf(__fdiv_rn(x, clip), -1.0f), 1.0f);
-  float xq = __fmul_rn(xs, gain);
-  float r = stochastic ? floorf(__fadd_rn(xq, u)) : rintf(xq);
-  return (int)fminf(fmaxf(r, -gain), gain - 1.0f);
+// Words a thread of quantize_pack(_chunk) owns: enough that its loads of
+// x and u number at least 16 (2 * cpw * kWords; half that without noise).
+__host__ __device__ constexpr int kWords(int cpw) {
+  return cpw >= 8 ? 1 : (8 + cpw - 1) / cpw;
 }
 
 __host__ __device__ __forceinline__ uint32_t lane_mask(int lane) {
@@ -80,23 +104,64 @@ __device__ __forceinline__ uint32_t pack_word(CodeAt code_at, long long w,
   return word;
 }
 
-// x, u: (R, n); words: (R, W).  Bias +G.
-__global__ void quantize_pack_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ u,
-                                     uint32_t* __restrict__ words, long long n,
-                                     long long W, int lane, int cpw,
-                                     float clip, float gain, int stochastic) {
-  const long long w = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  const long long row = blockIdx.y;
-  const float* xr = x + row * n;
-  const float* ur = u + row * n;
-  words[row * W + w] = pack_word(
-      [&](long long i) {
-        return quantize_one(xr[i], stochastic ? ur[i] : 0.0f, clip, gain,
-                            stochastic);
-      },
-      w, W, n, lane, cpw, (uint32_t)gain);
+// The tiles of quantize_pack(_chunk): `segments` runs of W words (a row,
+// or a row's chunk), each cut into tiles of kThreads*kWords(CPW) words.
+struct Tiles {
+  long long per_segment;
+  long long total;
+};
+
+template <int CPW>
+__host__ __device__ Tiles tiles_of(long long segments, long long W) {
+  const long long per = (W + kThreads * kWords(CPW) - 1) /
+                        (kThreads * kWords(CPW));
+  return {per, per * segments};
+}
+
+// x, u: (R, n); words: (R, W).  Bias +G.  Each tile: its thread's words
+// w = base + k*kThreads (k < kWords), every plane of x and u of each
+// loaded before the first code is computed.  u is read only when
+// kStochastic (null otherwise).
+template <int CPW, bool kStochastic>
+__global__ void __launch_bounds__(kThreads)
+    quantize_pack_kernel(const float* __restrict__ x,
+                         const float* __restrict__ u,
+                         uint32_t* __restrict__ words, long long n,
+                         long long W, int lane, QuantStep q, Tiles tiles) {
+  constexpr int kW = kWords(CPW);
+  const uint32_t bias = (uint32_t)q.gain;
+  for (long long t = blockIdx.x; t < tiles.total; t += gridDim.x) {
+    const long long row = t / tiles.per_segment;
+    const long long base = (t - row * tiles.per_segment) * (kThreads * kW) +
+                           threadIdx.x;
+    const float* xr = x + row * n;
+    const float* ur = kStochastic ? u + row * n : nullptr;
+    float xv[kW][CPW], uv[kW][CPW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const long long w = base + k * kThreads;
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        const long long i = j * W + w;
+        const bool in = w < W && i < n;
+        xv[k][j] = in ? ld_stream(xr + i) : 0.f;
+        uv[k][j] = kStochastic && in ? ld_stream(ur + i) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const long long w = base + k * kThreads;
+      if (w >= W) break;
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        if (j * W + w < n)
+          word += ((uint32_t)quantize_one<kStochastic>(xv[k][j], uv[k][j], q) +
+                   bias) << (j * lane);
+      }
+      words[row * W + w] = word;
+    }
+  }
 }
 
 // codes: (R, n) int32 partial sums; words: (R, W).  The bias is added
@@ -135,33 +200,60 @@ __global__ void unpack_dequantize_kernel(const uint32_t* __restrict__ words,
 }
 
 // x, u: (R, n); words: (R, k, Wc); codes: (R, k, C), C = ceil(n/k).
-// blockIdx.y = row * k + chunk.  The chunk tail (n..k*C) is the real zero
-// code, biased on the wire; word padding past C stays raw 0.
-__global__ void quantize_pack_chunk_kernel(
-    const float* __restrict__ x, const float* __restrict__ u,
-    uint32_t* __restrict__ words, int* __restrict__ codes, long long n,
-    int k, long long C, long long Wc, int lane, int cpw, uint32_t bias,
-    float clip, float gain, int stochastic) {
-  const long long w = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (w >= Wc) return;
-  const long long rc = blockIdx.y;          // row * k + chunk
-  const long long row = rc / k, chunk = rc % k;
-  const float* xr = x + row * n;
-  const float* ur = u + row * n;
-  int* cr = codes + rc * C;
-  uint32_t word = 0;
-  for (int j = 0; j < cpw; ++j) {
-    const long long e = j * Wc + w;         // position in the chunk
-    if (e < C) {
-      const long long i = chunk * C + e;    // position in the row
-      int code = i < n ? quantize_one(xr[i], stochastic ? ur[i] : 0.0f, clip,
-                                      gain, stochastic)
-                       : 0;
-      cr[e] = code;
-      word |= ((uint32_t)code + bias) << (j * lane);
+// Segment rc = row * k + chunk.  The chunk tail (n..k*C) is the real zero
+// code, biased on the wire; word padding past C stays raw 0.  The tiles
+// and the loads are quantize_pack's.
+template <int CPW, bool kStochastic>
+__global__ void __launch_bounds__(kThreads)
+    quantize_pack_chunk_kernel(const float* __restrict__ x,
+                               const float* __restrict__ u,
+                               uint32_t* __restrict__ words,
+                               int* __restrict__ codes, long long n, int k,
+                               long long C, long long Wc, int lane,
+                               uint32_t bias, QuantStep q, Tiles tiles) {
+  constexpr int kW = kWords(CPW);
+  const uint64_t keep = keep_policy();
+  for (long long t = blockIdx.x; t < tiles.total; t += gridDim.x) {
+    const long long rc = t / tiles.per_segment;      // row * k + chunk
+    const long long base = (t - rc * tiles.per_segment) * (kThreads * kW) +
+                           threadIdx.x;
+    const long long row = rc / k, start = (rc % k) * C;
+    // the chunk's positions e < C that hold values: i = start + e < n
+    const long long filled = n - start < C ? n - start : C;
+    const float* xr = x + row * n + start;
+    const float* ur = kStochastic ? u + row * n + start : nullptr;
+    int* cr = codes + rc * C;
+    float xv[kW][CPW], uv[kW][CPW];
+#pragma unroll
+    for (int kk = 0; kk < kW; ++kk) {
+      const long long w = base + kk * kThreads;
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        const long long e = j * Wc + w;             // position in the chunk
+        const bool in = w < Wc && e < filled;
+        xv[kk][j] = in ? ld_stream(xr + e) : 0.f;
+        uv[kk][j] = kStochastic && in ? ld_stream(ur + e) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kW; ++kk) {
+      const long long w = base + kk * kThreads;
+      if (w >= Wc) break;
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        const long long e = j * Wc + w;
+        if (e < C) {
+          const int code =
+              e < filled ? quantize_one<kStochastic>(xv[kk][j], uv[kk][j], q)
+                         : 0;
+          st_keep(cr + e, code, keep);
+          word |= ((uint32_t)code + bias) << (j * lane);
+        }
+      }
+      words[rc * Wc + w] = word;
     }
   }
-  words[rc * Wc + w] = word;
 }
 
 // words: (R, W); acc: (R, size) int32, updated in place from the words of
@@ -202,22 +294,115 @@ dim3 grid_for(long long words, long long rows) {
   return dim3((unsigned)((words + kThreads - 1) / kThreads), (unsigned)rows);
 }
 
+// Calls f(std::integral_constant<int, cpw>) for the codes per word of
+// `lane`, one of the ten counts of lanes 1..32; false for another lane.
+template <typename F>
+bool with_cpw(int lane, F&& f) {
+  switch (lane >= 1 && lane <= 32 ? 32 / lane : 0) {
+#define REPRO_CPW_CASE(C)                 \
+  case C:                                 \
+    f(std::integral_constant<int, C>{}); \
+    return true;
+    REPRO_CPW_CASE(32) REPRO_CPW_CASE(16) REPRO_CPW_CASE(10)
+    REPRO_CPW_CASE(8) REPRO_CPW_CASE(6) REPRO_CPW_CASE(5)
+    REPRO_CPW_CASE(4) REPRO_CPW_CASE(3) REPRO_CPW_CASE(2)
+    REPRO_CPW_CASE(1)
+#undef REPRO_CPW_CASE
+    default:
+      return false;
+  }
+}
+
+// One wave of quantize_pack(_chunk)_kernel<CPW, kStochastic>, capped by
+// its tiles (its resident blocks read once per device).
+template <int CPW, bool kStochastic, bool kChunk>
+int wave_blocks(long long tiles) {
+  static int cache[kMaxDevices];
+  const void* kernel =
+      kChunk ? (const void*)quantize_pack_chunk_kernel<CPW, kStochastic>
+             : (const void*)quantize_pack_kernel<CPW, kStochastic>;
+  return one_wave(kernel, kThreads, cache, tiles);
+}
+
+template <int CPW>
+int wave_blocks(bool chunk, bool stochastic, long long tiles) {
+  if (chunk)
+    return stochastic ? wave_blocks<CPW, true, true>(tiles)
+                      : wave_blocks<CPW, false, true>(tiles);
+  return stochastic ? wave_blocks<CPW, true, false>(tiles)
+                    : wave_blocks<CPW, false, false>(tiles);
+}
+
+template <int CPW, bool kStochastic>
+void launch_quantize_pack(const float* x, const float* u, uint32_t* words,
+                          int rows, long long n, long long W, int lane,
+                          QuantStep q, cudaStream_t st) {
+  const Tiles t = tiles_of<CPW>(rows, W);
+  quantize_pack_kernel<CPW, kStochastic>
+      <<<wave_blocks<CPW, kStochastic, false>(t.total), kThreads, 0, st>>>(
+          x, u, words, n, W, lane, q, t);
+}
+
+template <int CPW, bool kStochastic>
+void launch_quantize_pack_chunk(const float* x, const float* u,
+                                uint32_t* words, int* codes, int rows,
+                                long long n, int k, long long C, long long Wc,
+                                int lane, uint32_t bias, QuantStep q,
+                                cudaStream_t st) {
+  const Tiles t = tiles_of<CPW>((long long)rows * k, Wc);
+  quantize_pack_chunk_kernel<CPW, kStochastic>
+      <<<wave_blocks<CPW, kStochastic, true>(t.total), kThreads, 0, st>>>(
+          x, u, words, codes, n, k, C, Wc, lane, bias, q, t);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each returns cudaGetLastError(); u may be null when stochastic == 0.
+// Each returns cudaGetLastError(), or cudaErrorInvalidValue for a lane
+// outside 1..32.  The quantizing ones take bound = float32(clip) and
+// scale = float32(2^(bits-1) / clip), each rounded once by the caller
+// from the double clip; u may be null when stochastic == 0.
 
 int repro_quantize_pack(const void* x, const void* u, void* words, int rows,
-                        long long n, long long W, int lane, float clip,
-                        int bits, int stochastic, void* stream) {
+                        long long n, long long W, int lane, float bound,
+                        float scale, int bits, int stochastic, void* stream) {
   if (rows > 0 && W > 0) {
-    quantize_pack_kernel<<<grid_for(W, rows), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)u, (uint32_t*)words, n, W, lane,
-        32 / lane, clip, (float)(1 << (bits - 1)), stochastic);
+    const QuantStep q{bound, scale, (float)(1 << (bits - 1))};
+    const float* xf = (const float*)x;
+    const float* uf = (const float*)u;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (!with_cpw(lane, [&](auto c) {
+          constexpr int CPW = decltype(c)::value;
+          if (stochastic)
+            launch_quantize_pack<CPW, true>(xf, uf, (uint32_t*)words, rows, n,
+                                            W, lane, q, st);
+          else
+            launch_quantize_pack<CPW, false>(xf, nullptr, (uint32_t*)words,
+                                             rows, n, W, lane, q, st);
+        }))
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The launch quantize_pack (chunk == 0) or quantize_pack_chunk (chunk ==
+// 1) makes for `segments` runs of W words (rows, or rows times chunks) at
+// `lane`: out = {codes per word of the specialisation, words a thread,
+// bytes a load, tiles, blocks}.  Returns 0, or cudaErrorInvalidValue for
+// a lane outside 1..32.
+int repro_quantize_pack_plan(int chunk, int stochastic, long long segments,
+                             long long W, int lane, long long* out) {
+  const bool ok = with_cpw(lane, [&](auto c) {
+    constexpr int CPW = decltype(c)::value;
+    const Tiles t = tiles_of<CPW>(segments, W);
+    out[0] = CPW;
+    out[1] = kWords(CPW);
+    out[2] = 4;
+    out[3] = t.total;
+    out[4] = t.total > 0 ? wave_blocks<CPW>(chunk, stochastic, t.total) : 0;
+  });
+  return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
 int repro_unpack_dequantize(const void* words, void* out, int rows,
@@ -235,14 +420,25 @@ int repro_unpack_dequantize(const void* words, void* out, int rows,
 int repro_quantize_pack_chunk(const void* x, const void* u, void* words,
                               void* codes, int rows, long long n, int k,
                               long long C, long long Wc, int lane,
-                              unsigned int bias, float clip, int bits,
-                              int stochastic, void* stream) {
+                              unsigned int bias, float bound, float scale,
+                              int bits, int stochastic, void* stream) {
   if (rows > 0 && Wc > 0) {
-    quantize_pack_chunk_kernel<<<grid_for(Wc, (long long)rows * k), kThreads,
-                                 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)u, (uint32_t*)words, (int*)codes, n, k,
-        C, Wc, lane, 32 / lane, (uint32_t)bias, clip,
-        (float)(1 << (bits - 1)), stochastic);
+    const QuantStep q{bound, scale, (float)(1 << (bits - 1))};
+    const float* xf = (const float*)x;
+    const float* uf = (const float*)u;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (!with_cpw(lane, [&](auto c) {
+          constexpr int CPW = decltype(c)::value;
+          if (stochastic)
+            launch_quantize_pack_chunk<CPW, true>(
+                xf, uf, (uint32_t*)words, (int*)codes, rows, n, k, C, Wc, lane,
+                (uint32_t)bias, q, st);
+          else
+            launch_quantize_pack_chunk<CPW, false>(
+                xf, nullptr, (uint32_t*)words, (int*)codes, rows, n, k, C, Wc,
+                lane, (uint32_t)bias, q, st);
+        }))
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -253,22 +449,13 @@ int repro_repack(const void* words, void* acc, int rows, long long size,
   if (rows > 0 && W > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const uint32_t b = (uint32_t)bias;
-    // the ten codes-per-word counts of lanes 1..32
-    switch (lane >= 1 && lane <= 32 ? 32 / lane : 0) {
-#define REPRO_REPACK_CASE(C)                                               \
-  case C:                                                                  \
-    repack_kernel<C><<<grid_for(W, rows), kThreads, 0, st>>>(              \
-        (const uint32_t*)words, (int*)acc, size, W, hop, axis, inner, lane, \
-        b);                                                                \
-    break;
-      REPRO_REPACK_CASE(32) REPRO_REPACK_CASE(16) REPRO_REPACK_CASE(10)
-      REPRO_REPACK_CASE(8) REPRO_REPACK_CASE(6) REPRO_REPACK_CASE(5)
-      REPRO_REPACK_CASE(4) REPRO_REPACK_CASE(3) REPRO_REPACK_CASE(2)
-      REPRO_REPACK_CASE(1)
-#undef REPRO_REPACK_CASE
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    if (!with_cpw(lane, [&](auto c) {
+          constexpr int CPW = decltype(c)::value;
+          repack_kernel<CPW><<<grid_for(W, rows), kThreads, 0, st>>>(
+              (const uint32_t*)words, (int*)acc, size, W, hop, axis, inner,
+              lane, b);
+        }))
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

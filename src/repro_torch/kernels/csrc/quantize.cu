@@ -21,7 +21,9 @@
 //   instead of 8.  In exploratory variants on the H100, two to eight
 //   vectors a step loaded together were no faster, and the vector
 //   quantize ran faster after an L2 flush held to 40 registers (six
-//   blocks an SM, kMinBlocks) than at its unbounded 48.
+//   blocks an SM, kMinBlocks) than at its unbounded 48.  With the
+//   reference's multiply in place of a division it needs 36, so seven
+//   blocks fit; capped at six it ran no faster.
 // * The vector path needs every pointer of the call at one offset past a
 //   16-byte boundary.  A scalar head runs up to the boundary and a scalar
 //   tail after the last whole vector, in the same launch (the first
@@ -41,95 +43,27 @@
 //   Built with -DREPRO_PLAIN_CACHE_POLICY the kernels use plain loads and
 //   stores instead (tools/l2_probe.py times both).
 //
-// The codes must equal the JAX kernel bit for bit, so every rounding step
-// is explicit: __fdiv_rn / __fmul_rn / __fadd_rn, rintf (half to even,
-// like jnp.round), and the library is built with -fmad=false so no
-// multiply-add is contracted.
+// The codes must equal the reference's bit for bit: the step is the
+// reference's multiply, in quantizer.cuh with the cache policies.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quantizer.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 6;      // resident blocks an SM: <= 40 registers
-constexpr int kMaxDevices = 64;
 enum Slot { kQuantVecStoch, kQuantVecNear, kQuantScalarStoch,
             kQuantScalarNear, kDequantVec, kDequantScalar, kSlots };
 
-// ---- cache policy ---------------------------------------------------------
-
-#ifdef REPRO_PLAIN_CACHE_POLICY
-__device__ __forceinline__ uint64_t keep_policy() { return 0; }
-__device__ __forceinline__ uint64_t last_use_policy() { return 0; }
-__device__ __forceinline__ float4 ld_stream(const float4* p) { return *p; }
-__device__ __forceinline__ float ld_stream(const float* p) { return *p; }
-__device__ __forceinline__ void st_keep(int4* p, int4 v, uint64_t) { *p = v; }
-__device__ __forceinline__ void st_keep(int* p, int v, uint64_t) { *p = v; }
-__device__ __forceinline__ int4 ld_last_use(const int4* p, uint64_t) {
-  return *p;
-}
-__device__ __forceinline__ int ld_last_use(const int* p, uint64_t) {
-  return *p;
-}
-#else
-__device__ __forceinline__ uint64_t keep_policy() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ uint64_t last_use_policy() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ float4 ld_stream(const float4* p) {
-  return __ldcs(p);
-}
-__device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
-__device__ __forceinline__ void st_keep(int4* p, int4 v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.v4.s32 [%0], {%1, %2, %3, %4}, %5;"
-               :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(pol)
-               : "memory");
-}
-__device__ __forceinline__ void st_keep(int* p, int v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.s32 [%0], %1, %2;"
-               :: "l"(p), "r"(v), "l"(pol) : "memory");
-}
-__device__ __forceinline__ int4 ld_last_use(const int4* p, uint64_t pol) {
-  int4 v;
-  asm volatile("ld.global.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p), "l"(pol));
-  return v;
-}
-__device__ __forceinline__ int ld_last_use(const int* p, uint64_t pol) {
-  int v;
-  asm volatile("ld.global.L2::cache_hint.s32 %0, [%1], %2;"
-               : "=r"(v) : "l"(p), "l"(pol));
-  return v;
-}
-#endif
-
-// ---- arithmetic -----------------------------------------------------------
-
 template <bool kStochastic>
-__device__ __forceinline__ int quantize_one(float x, float u, float clip,
-                                            float gain) {
-  float xs = fminf(fmaxf(__fdiv_rn(x, clip), -1.0f), 1.0f);
-  float xq = __fmul_rn(xs, gain);
-  float r = kStochastic ? floorf(__fadd_rn(xq, u)) : rintf(xq);
-  return (int)fminf(fmaxf(r, -gain), gain - 1.0f);
-}
-
-template <bool kStochastic>
-__device__ __forceinline__ int4 quantize4(float4 x, float4 u, float clip,
-                                          float gain) {
-  return make_int4(quantize_one<kStochastic>(x.x, u.x, clip, gain),
-                   quantize_one<kStochastic>(x.y, u.y, clip, gain),
-                   quantize_one<kStochastic>(x.z, u.z, clip, gain),
-                   quantize_one<kStochastic>(x.w, u.w, clip, gain));
+__device__ __forceinline__ int4 quantize4(float4 x, float4 u,
+                                          const QuantStep& q) {
+  return make_int4(quantize_one<kStochastic>(x.x, u.x, q),
+                   quantize_one<kStochastic>(x.y, u.y, q),
+                   quantize_one<kStochastic>(x.z, u.z, q),
+                   quantize_one<kStochastic>(x.w, u.w, q));
 }
 
 __device__ __forceinline__ float dequantize_one(int c, float inv_gain) {
@@ -146,7 +80,7 @@ template <bool kStochastic>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 quantize_vec_kernel(const float* __restrict__ x, const float* __restrict__ u,
                     int* __restrict__ codes, long long n, long long head,
-                    long long nvec, float clip, float gain) {
+                    long long nvec, QuantStep q) {
   const uint64_t keep = keep_policy();
   const long long t = blockIdx.x * (long long)kThreads + threadIdx.x;
   const long long stride = (long long)gridDim.x * kThreads;
@@ -166,7 +100,7 @@ quantize_vec_kernel(const float* __restrict__ x, const float* __restrict__ u,
       xb = ld_stream(xv + i + stride);
       if (kStochastic) ub = ld_stream(uv + i + stride);
     }
-    st_keep(cv + i, quantize4<kStochastic>(xa, ua, clip, gain), keep);
+    st_keep(cv + i, quantize4<kStochastic>(xa, ua, q), keep);
     xa = xb;
     ua = ub;
   }
@@ -175,7 +109,7 @@ quantize_vec_kernel(const float* __restrict__ x, const float* __restrict__ u,
     const long long i = t < head ? t : t + 4 * nvec;
     const float ui = kStochastic ? ld_stream(u + i) : 0.f;
     st_keep(codes + i,
-            quantize_one<kStochastic>(ld_stream(x + i), ui, clip, gain), keep);
+            quantize_one<kStochastic>(ld_stream(x + i), ui, q), keep);
   }
 }
 
@@ -183,13 +117,13 @@ template <bool kStochastic>
 __global__ void __launch_bounds__(kThreads)
 quantize_scalar_kernel(const float* __restrict__ x,
                        const float* __restrict__ u, int* __restrict__ codes,
-                       long long n, float clip, float gain) {
+                       long long n, QuantStep q) {
   const uint64_t keep = keep_policy();
   for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
        i += (long long)gridDim.x * kThreads) {
     const float ui = kStochastic ? ld_stream(u + i) : 0.f;
     st_keep(codes + i,
-            quantize_one<kStochastic>(ld_stream(x + i), ui, clip, gain), keep);
+            quantize_one<kStochastic>(ld_stream(x + i), ui, q), keep);
   }
 }
 
@@ -249,37 +183,17 @@ Plan plan(const void* a, const void* b, const void* c, long long n) {
   return {true, head, (n - head) / 4};
 }
 
-// Blocks of kThreads resident on the whole card at once for this kernel:
-// SM count times blocks per SM, read once per device and kernel.
-int wave(const void* kernel, Slot slot) {
-  static int cache[kMaxDevices][kSlots];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
-    return 1;
-  int& blocks = cache[dev][slot];
-  if (blocks == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0) !=
-            cudaSuccess)
-      return 1;
-    blocks = sms * per_sm > 0 ? sms * per_sm : 1;
-  }
-  return blocks;
-}
-
-// Blocks for `items` thread-steps of work, at most one wave.
+// Blocks for `items` thread-steps of work, at most one wave of this
+// kernel (its resident blocks read once per device and slot).
 int grid(const void* kernel, Slot slot, long long items) {
-  long long b = (items + kThreads - 1) / kThreads;
-  const int w = wave(kernel, slot);
-  return (int)(b < 1 ? 1 : b < w ? b : w);
+  static int cache[kSlots][kMaxDevices];
+  return one_wave(kernel, kThreads, cache[slot],
+                  (items + kThreads - 1) / kThreads);
 }
 
 template <bool kStochastic>
 void launch_quantize(const float* x, const float* u, int* codes, long long n,
-                     float clip, float gain, cudaStream_t st) {
+                     QuantStep q, cudaStream_t st) {
   const Plan p = plan(x, kStochastic ? u : nullptr, codes, n);
   if (p.vector) {
     const void* k = (const void*)quantize_vec_kernel<kStochastic>;
@@ -287,13 +201,13 @@ void launch_quantize(const float* x, const float* u, int* codes, long long n,
     const int g = grid(k, kStochastic ? kQuantVecStoch : kQuantVecNear,
                        p.nvec > edge ? p.nvec : edge);
     quantize_vec_kernel<kStochastic><<<g, kThreads, 0, st>>>(
-        x, u, codes, n, p.head, p.nvec, clip, gain);
+        x, u, codes, n, p.head, p.nvec, q);
   } else {
     const void* k = (const void*)quantize_scalar_kernel<kStochastic>;
     const int g = grid(k, kStochastic ? kQuantScalarStoch : kQuantScalarNear,
                        n);
     quantize_scalar_kernel<kStochastic><<<g, kThreads, 0, st>>>(
-        x, u, codes, n, clip, gain);
+        x, u, codes, n, q);
   }
 }
 
@@ -314,19 +228,20 @@ int repro_quantizer_plan(const void* a, const void* b, const void* c,
   return p.vector ? 1 : 0;
 }
 
-// u may be null when stochastic == 0.  Returns cudaGetLastError().
+// bound = float32(clip) and scale = float32(2^(bits-1) / clip), each
+// rounded once by the caller from the double clip; u may be null when
+// stochastic == 0.  Returns cudaGetLastError().
 int repro_quantize_codes(const void* x, const void* u, void* codes,
-                         long long n, float clip, int bits, int stochastic,
-                         void* stream) {
+                         long long n, float bound, float scale, int bits,
+                         int stochastic, void* stream) {
   if (n > 0) {
-    const float gain = (float)(1 << (bits - 1));
+    const QuantStep q{bound, scale, (float)(1 << (bits - 1))};
     cudaStream_t st = (cudaStream_t)stream;
     if (stochastic)
       launch_quantize<true>((const float*)x, (const float*)u, (int*)codes, n,
-                            clip, gain, st);
+                            q, st);
     else
-      launch_quantize<false>((const float*)x, nullptr, (int*)codes, n, clip,
-                             gain, st);
+      launch_quantize<false>((const float*)x, nullptr, (int*)codes, n, q, st);
   }
   return (int)cudaGetLastError();
 }

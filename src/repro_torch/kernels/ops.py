@@ -144,7 +144,7 @@ def stochastic_quantize_codes(x: torch.Tensor, u: Optional[torch.Tensor],
     codes = _empty_at_offset_of(x, torch.int32)
     err = build.library("quantize").repro_quantize_codes(
         x.data_ptr(), u.data_ptr() if stochastic else None, codes.data_ptr(),
-        x.numel(), float(np.float32(clip)), bits, int(stochastic),
+        x.numel(), *ref.quant_step(bits, clip), bits, int(stochastic),
         _stream(x.device))
     _raise_on(err, "stochastic_quantize_codes")
     LAUNCHES["stochastic_quantize_codes"] += 1
@@ -196,6 +196,32 @@ def masked_aggregate(updates: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+class PackPlan(NamedTuple):
+    cpw: int        # codes per word: the kernel's specialisation
+    words: int      # words a thread owns, all their loads issued first
+    load_bytes: int  # bytes a load of x or u
+    tiles: int      # tiles of 256 * words words, each within one row (chunk)
+    blocks: int     # blocks launched: one wave of resident blocks, capped
+                    # by the tiles
+
+
+def pack_plan(x: torch.Tensor, bits: int, *, lane_bits: int = 0,
+              stochastic: bool = True, num_chunks: int = 0) -> PackPlan:
+    """The launch ``quantize_pack`` (``num_chunks`` 0) or
+    ``quantize_pack_chunk`` makes for a CUDA x (R, n), as the kernels' C
+    side picks it from the lane and the card's SM count."""
+    lane, _, _ = _wire_args(bits, lane_bits, 1, None)
+    _check_rows(x)
+    R, n = x.shape
+    k = max(int(num_chunks), 1)
+    W = wire.packed_words(-(-n // k), bits, lane_bits=lane)
+    out = (ctypes.c_longlong * 5)()
+    err = build.library("pack").repro_quantize_pack_plan(
+        int(num_chunks > 0), int(stochastic), R * k, W, lane, out)
+    _raise_on(err, "pack_plan")
+    return PackPlan(*out)
+
+
 def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor], bits: int, *,
                   clip: float = 1.0, lane_bits: int = 0,
                   stochastic: bool = True) -> torch.Tensor:
@@ -216,7 +242,7 @@ def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor], bits: int, *,
     words = torch.empty((R, W), dtype=torch.int32, device=x.device)
     err = build.library("pack").repro_quantize_pack(
         x.data_ptr(), u.data_ptr() if stochastic else None, words.data_ptr(),
-        R, n, W, lane, float(np.float32(clip)), bits, int(stochastic),
+        R, n, W, lane, *ref.quant_step(bits, clip), bits, int(stochastic),
         _stream(x.device))
     _raise_on(err, "quantize_pack")
     LAUNCHES["quantize_pack"] += 1
@@ -281,7 +307,7 @@ def quantize_pack_chunk(x: torch.Tensor, u: Optional[torch.Tensor], bits: int,
     codes = torch.empty((R, k, C), dtype=torch.int32, device=x.device)
     err = build.library("pack").repro_quantize_pack_chunk(
         x.data_ptr(), u.data_ptr() if stochastic else None, words.data_ptr(),
-        codes.data_ptr(), R, n, k, C, Wc, lane, b, float(np.float32(clip)),
+        codes.data_ptr(), R, n, k, C, Wc, lane, b, *ref.quant_step(bits, clip),
         bits, int(stochastic), _stream(x.device))
     _raise_on(err, "quantize_pack_chunk")
     LAUNCHES["quantize_pack_chunk"] += 1

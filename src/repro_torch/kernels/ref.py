@@ -10,9 +10,10 @@ The wire versions take a leading row (cohort) dimension: each row is one
 call of the reference's kernel.  Their words are int32 tensors holding
 the uint32 bit pattern (see ``core/quantization.py``).
 
-Divisors and multipliers are 0-dim tensors on the input's device, never
-Python scalars: on CUDA, PyTorch turns ``tensor / python_float`` into a
-multiply by the reciprocal, which would round differently from the kernel.
+Divisors, multipliers and clamp bounds are 0-dim tensors on the input's
+device, never Python scalars: on CUDA, PyTorch turns
+``tensor / python_float`` into a multiply by the reciprocal, which would
+round differently from the kernel.
 They are made once per value and device, so a call holds no host-to-device
 copy.
 """
@@ -37,15 +38,26 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return _scalar_on(float(value), like.device)
 
 
+def quant_step(bits: int, clip: float) -> Tuple[float, float]:
+    """The quantizer's bound float32(clip) and scale float32(2^(bits-1)/clip),
+    each rounded once from the Python double ``clip``, as the reference's
+    weak-typed scalars are (``repro/kernels/ref.py``)."""
+    clip = float(clip)
+    return float(np.float32(clip)), float(np.float32(2.0 ** (bits - 1) / clip))
+
+
 def stochastic_quantize_ref(x: torch.Tensor, u: torch.Tensor | None,
                             bits: int, *, clip: float = 1.0,
                             stochastic: bool = True) -> torch.Tensor:
     """Integer codes in [-G, G-1], G = 2^(bits-1); u ~ U[0,1) same shape.
 
-    clip(x/clip, -1, 1)·G, then floor(· + u) or round half-to-even.
+    clip(x, -bound, bound)·scale (``quant_step``), then floor(· + u) or
+    round half-to-even: the reference's multiply.
     """
     g = int(2 ** (bits - 1))
-    xq = torch.clamp(x.float() / _scalar(clip, x), -1.0, 1.0) * _scalar(g, x)
+    bound, scale = quant_step(bits, clip)
+    xq = torch.clamp(x.float(), _scalar(-bound, x),
+                     _scalar(bound, x)) * _scalar(scale, x)
     codes = torch.floor(xq + u) if stochastic else torch.round(xq)
     return torch.clamp(codes, -g, g - 1).to(torch.int32)
 

@@ -119,39 +119,38 @@ def test_aggregate_all_zero_weights_gives_zero(jx):
     np.testing.assert_array_equal(got, 0.0)
 
 
-def _quantize_np(x, u, bits, clip, stochastic, reciprocal):
-    """The quantizer in numpy, x scaled by ``x / clip`` (rounded once) or,
-    with ``reciprocal``, by ``x * float32(1/clip)``."""
+def _quantize_np(x, u, bits, clip, stochastic):
+    """The quantizer in numpy, as the reference multiplies: x clipped to
+    ±float32(clip), times float32(G/clip)."""
     g = np.float32(2 ** (bits - 1))
-    xs = x * np.float32(1 / np.float32(clip)) if reciprocal else x / np.float32(clip)
-    xq = np.clip(xs, -1, 1).astype(np.float32) * g
+    c = np.float32(clip)
+    xq = np.clip(x, -c, c) * np.float32(2 ** (bits - 1) / clip)
     return np.clip(np.floor(xq + u) if stochastic else np.round(xq),
                    -g, g - 1).astype(np.int32)
 
 
 @pytest.mark.parametrize("clip", [1.0, 0.3])
 def test_quantizer_plain_against_pallas_at_24_bits(jx, clip):
-    """At 24 bits a step is one ulp of x/clip.  The port divides by the
-    clip (rounded once); the Pallas kernel, jitted with a static clip,
-    gets x·float32(1/clip) from XLA.  So the two are bit-exact at clip 1
-    and, at other clips, differ by one code exactly where the division
-    and the reciprocal multiply round apart (ROADMAP C)."""
+    """At 24 bits a step is one ulp of x·G/clip, so the scale step's
+    rounding shows.  The port multiplies by float32(G/clip), as the
+    reference's oracle does; the Pallas kernel, jitted with a static clip,
+    gets x·float32(1/clip) from XLA, which the power of two G makes the
+    same product.  All three are bit-exact at every clip."""
     x, u = _quant_inputs(4099, clip, 24, seed=24)
     for stochastic in (True, False):
         want = np.asarray(jx.quantize(jx.jnp.asarray(x), jx.jnp.asarray(u), 24,
                                       clip=clip, stochastic=stochastic,
                                       interpret=True))
+        oracle = np.asarray(jx.ref.stochastic_quantize_ref(
+            jx.jnp.asarray(x), jx.jnp.asarray(u), 24, clip=clip,
+            stochastic=stochastic))
         got = ops.stochastic_quantize_codes(
             torch.from_numpy(x), torch.from_numpy(u) if stochastic else None,
             24, clip=clip, stochastic=stochastic).numpy()
-        np.testing.assert_array_equal(got, _quantize_np(x, u, 24, clip, stochastic,
-                                                        reciprocal=False))
-        np.testing.assert_array_equal(want, _quantize_np(x, u, 24, clip, stochastic,
-                                                         reciprocal=True))
-        if clip == 1.0:
-            np.testing.assert_array_equal(got, want)
-        else:
-            assert np.abs(got.astype(np.int64) - want).max() <= 1
+        np.testing.assert_array_equal(got, _quantize_np(x, u, 24, clip,
+                                                        stochastic))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, oracle)
         deq = np.asarray(jx.dequantize(jx.jnp.asarray(want), 24, clip=clip,
                                        interpret=True))
         np.testing.assert_array_equal(

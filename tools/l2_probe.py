@@ -1,5 +1,5 @@
 """How the L2 flush before a timed launch moves a one-pass kernel's time,
-and whether the quantizer's L2 cache hints pay.
+and whether the quantizers' L2 cache hints pay.
 
 ``chip_smoke.py`` times a single launch after writing 256 MB, which leaves
 L2 full of dirty lines that are written back while the kernel runs.  This
@@ -18,6 +18,11 @@ paths' shapes:
   through the kernels' C entry points: built as the port builds them
   (with their L2 cache hints) and built with -DREPRO_PLAIN_CACHE_POLICY
   (plain loads and stores).
+* ``quantize_pack_chunk`` at the ring's front (10 x 421,642, lane 8, one
+  chunk) and the pair the ring runs, the chunk then one ``repack`` hop
+  of its words into its codes in place, through ``pack.cu``'s C entry
+  points built as the port builds it (x and u loaded streaming, codes
+  stored ``evict_last``) and with -DREPRO_PLAIN_CACHE_POLICY.
 * the residue of the codes' ``evict_last`` lines: ``torch.add(x, u)``
   timed after the write flush before any hinted launch, after 50 hinted
   quantize launches into one buffer, after one dequantize of that buffer
@@ -58,7 +63,7 @@ def single_ms(torch, fn, flush, reps=50):
     return times[len(times) // 2]
 
 
-def quantizer_cases(torch, lib, x, u, bits=8):
+def quantizer_cases(torch, tref, lib, x, u, bits=8):
     """quantize, dequantize and the pair through ``lib``'s C entry points
     (the wrappers' arguments, on the current stream)."""
     n, inv_gain = x.numel(), 1.0 / 2 ** (bits - 1)
@@ -66,7 +71,8 @@ def quantizer_cases(torch, lib, x, u, bits=8):
     def quantize():
         codes = torch.empty(x.shape, dtype=torch.int32, device=x.device)
         err = lib.repro_quantize_codes(x.data_ptr(), u.data_ptr(),
-                                       codes.data_ptr(), n, 1.0, bits, 1,
+                                       codes.data_ptr(), n,
+                                       *tref.quant_step(bits, 1.0), bits, 1,
                                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
         return codes
@@ -83,6 +89,33 @@ def quantizer_cases(torch, lib, x, u, bits=8):
     return {"stochastic_quantize_codes": quantize,
             "dequantize_codes": lambda: dequantize(codes),
             "fake_quant_pair": lambda: dequantize(quantize())}
+
+
+def ring_front_cases(torch, tref, lib, x, u, bits=8):
+    """quantize_pack_chunk (one chunk, native lane) and the chunk then one
+    repack hop through ``lib``'s C entry points."""
+    (K, D), g = x.shape, 2 ** (bits - 1)
+    Wc = -(-D // (32 // bits))
+
+    def chunk():
+        words = torch.empty((K, Wc), dtype=torch.int32, device=x.device)
+        codes = torch.empty((K, D), dtype=torch.int32, device=x.device)
+        err = lib.repro_quantize_pack_chunk(
+            x.data_ptr(), u.data_ptr(), words.data_ptr(), codes.data_ptr(), K,
+            D, 1, D, Wc, bits, g, *tref.quant_step(bits, 1.0), bits, 1,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return words, codes
+
+    def pair():
+        words, codes = chunk()
+        err = lib.repro_repack(words.data_ptr(), codes.data_ptr(), K, D, Wc, 1,
+                               K, 1, bits, g,
+                               torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return codes
+
+    return {"quantize_pack_chunk": chunk, "chunk_repack_pair": pair}
 
 
 def main() -> int:
@@ -114,7 +147,7 @@ def main() -> int:
     lib = build.library("quantize")
     for _ in range(50):
         lib.repro_quantize_codes(x.data_ptr(), u.data_ptr(), kept.data_ptr(),
-                                 kept.numel(), 1.0, 8, 1,
+                                 kept.numel(), *tref.quant_step(8, 1.0), 8, 1,
                                  torch.cuda.current_stream().cuda_stream)
     residue["after_quantize"] = add_ms()
     ops.dequantize_codes(kept, 8)
@@ -128,14 +161,25 @@ def main() -> int:
              "add_x_u": lambda: torch.add(x, u)}
     libs = {"l2_hints": build.library("quantize"),
             "plain_policy": build.variant("quantize", "REPRO_PLAIN_CACHE_POLICY")}
+    pack_libs = {"l2_hints": build.library("pack"),
+                 "plain_policy": build.variant("pack", "REPRO_PLAIN_CACHE_POLICY")}
     for policy, lib in libs.items():
-        for name, fn in quantizer_cases(torch, lib, x, u).items():
+        for name, fn in quantizer_cases(torch, tref, lib, x, u).items():
+            cases[f"{name}@{policy}"] = fn
+    for policy, lib in pack_libs.items():
+        for name, fn in ring_front_cases(torch, tref, lib, x, u).items():
             cases[f"{name}@{policy}"] = fn
     pair = cases["fake_quant_pair@plain_policy"]()
     torch.cuda.synchronize()
     assert torch.equal(pair, cases["fake_quant_pair@l2_hints"]())
     assert torch.equal(pair, tref.dequantize_ref(
         tref.stochastic_quantize_ref(x, u, 8), 8))
+    hop = cases["chunk_repack_pair@plain_policy"]()
+    torch.cuda.synchronize()
+    assert torch.equal(hop, cases["chunk_repack_pair@l2_hints"]())
+    front, acc0 = tref.quantize_pack_chunk_ref(x, u, 8, num_chunks=1)
+    assert torch.equal(hop, tref.repack_ref(front.view(C, -1), acc0.view(C, D),
+                                            8, D, hop=1))
     for name, fn in cases.items():
         print(json.dumps({"probe": name, **{
             f"ms_{k}_flush": single_ms(torch, fn, f) for k, f in flushes.items()},
