@@ -101,6 +101,10 @@ WIRE_QUANT_CASES = tuple((min(lane, 8), lane) for lane in
 #: words a thread of those kernels owns, by codes per word (pack.cu kWords)
 WIRE_QUANT_WORDS = {32: 1, 16: 1, 10: 1, 8: 1, 6: 2, 5: 2, 4: 2, 3: 3, 2: 4,
                     1: 8}
+#: words a thread of pack_sums and of unpack_dequantize owns, by codes per
+#: word (pack.cu kSumWords, kUnpackWords)
+SUM_WORDS = {32: 1, 16: 1, 10: 2, 8: 2, 6: 3, 5: 4, 4: 4, 3: 6, 2: 8, 1: 16}
+UNPACK_WORDS = {32: 1, 16: 1, 10: 1, 8: 1, 6: 2, 5: 2, 4: 2, 3: 3, 2: 4, 1: 8}
 #: the one PyTorch call timed beside a kernel (library_ms), where one exists
 LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
                  "masked_aggregate": "w @ x / sum(w)",
@@ -387,7 +391,26 @@ def wire_kernels_phase(torch, ops, tref, quant):
                             "quantize_pack_chunk", "repack", "pack_sums")}
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = 0
-    repack_cpw = set()      # codes per word of the repack cases launched
+    # codes per word of the cases launched, by kernel
+    cpws = {k: set() for k in ("unpack_dequantize", "repack", "pack_sums")}
+    # a checkout from before the redesign has no plan to report
+    plans = {k: getattr(ops, f"{k}_plan", None)
+             for k in ("pack_sums", "unpack_dequantize")}
+
+    def planned(kind, t, lane, rows, W):
+        """Checks the launch plan of ``kind`` for ``t`` (rows of W words at
+        ``lane``, 8 or fewer bits) and records its specialisation."""
+        cpw = 32 // lane
+        cpws[kind].add(cpw)
+        if plans[kind] is None:
+            return None
+        p = plans[kind](t, min(lane, 8), lane_bits=lane)
+        words = (SUM_WORDS if kind == "pack_sums" else UNPACK_WORDS)[cpw]
+        tiles = rows * -(-W // (256 * words))
+        check(p.cpw == cpw and p.words == words and p.load_bytes == 4
+              and p.tiles == tiles and 1 <= p.blocks <= tiles,
+              f"{kind} plan {p} at lane {lane}, {rows} rows of {W} words")
+        return p
 
     def same(name, got, want, what):
         nonlocal cases
@@ -431,11 +454,14 @@ def wire_kernels_phase(torch, ops, tref, quant):
                                                  sum_of=sum_of, bias=bias)
                         kw = dict(lane_bits=lane, sum_of=sum_of, bias=bias)
                         what = f"{label} bits={bits} lane={lane} sum_of={sum_of} bias={bias}"
+                        planned("unpack_dequantize", words, lane, C,
+                                words.shape[1])
+                        planned("pack_sums", codes, lane, C, words.shape[1])
+                        cpws["repack"].add(32 // lane)
                         same("unpack_dequantize",
                              ops.unpack_dequantize(words, bits, D, clip=clip, **kw),
                              tref.unpack_dequantize_ref(words, bits, D, clip=clip, **kw),
                              what + f" clip={clip}")
-                        repack_cpw.add(quant.codes_per_word(bits, lane_bits=lane))
                         for hop in (0, 1, C - 1):
                             acc = codes.clone()
                             got = ops.repack(words, acc, bits, D, hop=hop, **kw)
@@ -459,6 +485,7 @@ def wire_kernels_phase(torch, ops, tref, quant):
         sums = torch.randint(-g * m, (g - 1) * m + 1, (C, chunk),
                              generator=gen, device="cuda", dtype=torch.int32)
         kw = dict(lane_bits=lane, bias=quant.lane_bias(lane))
+        planned("pack_sums", sums, lane, C, quant.packed_words(chunk, 8, lane_bits=lane))
         same("pack_sums", ops.pack_sums(sums, 8, **kw),
              tref.pack_sums_ref(sums, 8, **kw), f"rsag hop shape lane={lane}")
     sums = torch.randint(-2 ** 30, 2 ** 30, (C, chunk), generator=gen,
@@ -472,7 +499,7 @@ def wire_kernels_phase(torch, ops, tref, quant):
          tref.pack_sums_ref(sums, 8, lane_bits=9, sum_of=2),
          "two-axis ring level change")
     words = quant.pack_codes(sums, 8, lane_bits=9, sum_of=2)
-    repack_cpw.add(quant.codes_per_word(8, lane_bits=9))
+    cpws["repack"].add(quant.codes_per_word(8, lane_bits=9))
     for axis, inner, hops in ((2, 5, (1,)), (5, 1, (1, 2, 3, 4))):
         for hop in hops:
             kw = dict(hop=hop, lane_bits=9, sum_of=2, axis_size=axis,
@@ -490,10 +517,26 @@ def wire_kernels_phase(torch, ops, tref, quant):
     same("repack", acc, want, f"{C - 1} consecutive hops into one acc")
     check(torch.equal(acc, codes.sum(0, dtype=torch.int32).expand(C, D)),
           "the ring's hops must leave every row holding the sum")
-    print(f"repack launched codes-per-word specialisations "
-          f"{sorted(repack_cpw, reverse=True)}")
-    check(repack_cpw == {32 // lane for lane in range(1, 33)},
-          f"repack cases miss a codes-per-word count: {sorted(repack_cpw)}")
+    for kind, seen in cpws.items():
+        print(f"{kind} launched codes-per-word specialisations "
+              f"{sorted(seen, reverse=True)}")
+        check(seen == set(SUM_WORDS),
+              f"{kind} cases miss a codes-per-word count: {sorted(seen)}")
+    W9, Wp, Wh = (quant.packed_words(D, 8, lane_bits=9),
+                  quant.packed_words(D, 8, lane_bits=12),
+                  quant.packed_words(chunk, 8, lane_bits=12))
+    for kind, what, t, lane, rows, W in (
+            ("pack_sums", "the level change", sums, 9, C, W9),
+            ("pack_sums", "an rsag hop", sums[:, :chunk], 12, C, Wh),
+            ("unpack_dequantize", "the packed psum",
+             torch.empty(Wp, dtype=torch.int32, device="cuda"), 12, 1, Wp),
+            ("unpack_dequantize", "rsag's last store",
+             torch.empty((C, Wh), dtype=torch.int32, device="cuda"), 12, C, Wh)):
+        p = planned(kind, t, lane, rows, W)
+        print(f"  {kind} at {what} (lane {lane}, {rows} rows of {W:,} words): "
+              + ("plan not reported" if p is None else
+                 f"cpw {p.cpw}, {p.words} words a thread, {p.load_bytes}-byte "
+                 f"loads, {p.tiles} tiles over {p.blocks} blocks"))
     print(f"wire kernels == plain (torch.equal) in {cases} cases at the main "
           f"(C=10, D=421,642), rsag hop (C=10, {chunk:,}) and ragged (C=3, "
           f"D=5,003) shapes")
@@ -782,7 +825,7 @@ def cohort_round_phase(torch, ops, get_config, build_model, digit_dataset,
           f"rsag (both front-ends) and auto after each of {R} rounds at "
           f"(10,) and at (2, 5), and between the layouts; launches and wire "
           f"bits as predicted")
-    for sizes, mode in (((C,), "packed"), ((2, 5), "rsag")):
+    for sizes, mode in (((C,), "packed"), ((C,), "rsag"), ((2, 5), "rsag")):
         round_fn = make_fl_round(model, cfg, sizes, collective=mode)
         g = torch.Generator(device="cuda").manual_seed(3)
         profile_phase(torch, f"make_fl_round {mode} {sizes}",
@@ -973,6 +1016,54 @@ def bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def copy_yardstick(torch, nbytes):
+    """``dst.copy_(src)`` of int32 tensors of nbytes / 8 elements each: a
+    pass that reads and writes about ``nbytes`` without computing anything
+    (another function than the kernel's, and another split of reads and
+    writes).  Returns (label, call, bytes moved)."""
+    src = torch.zeros(int(nbytes) // 8, dtype=torch.int32, device="cuda")
+    dst = torch.empty_like(src)
+    return (f"dst.copy_(src), int32 of {src.numel():,} elements",
+            lambda: dst.copy_(src), 8.0 * src.numel())
+
+
+def launch_blocks(ops, kind, tensor, lane, rows, W):
+    """(blocks a launch of ``kind`` makes, as its plan reports them, and
+    the blocks of the earlier design, one block per 256 words a row) for
+    8-bit codes at ``lane``; a checkout without the plan reports the
+    latter twice."""
+    old = rows * -(-W // 256)
+    plan_of = getattr(ops, f"{kind}_plan", None)
+    return (plan_of(tensor, 8, lane_bits=lane).blocks if plan_of else old), old
+
+
+def launch_floor_phase(torch, ops, grids, smi):
+    """``ops.null_kernel``, an empty kernel launched through the wire
+    kernels' ctypes path, at each grid of ``grids`` blocks of 256 threads,
+    in the timing phase's four columns.  No kernel of the port: the kernels
+    line does not list it.  Returns {blocks: times}, empty for a checkout
+    without the kernel."""
+    null = getattr(ops, "null_kernel", None)
+    floor = {}
+    if null is None:
+        print("launch_floor: not reported (no null kernel in this checkout)")
+        return floor
+    dev = torch.device("cuda")
+    for blocks in grids:
+        fn = lambda b=blocks: null(b, dev)
+        queued, late = time_queued_ms(torch, fn)
+        floor[blocks] = {"ms": time_ms(torch, fn), "ms_queued": queued,
+                         "ms_queued_late": late,
+                         "ms_back_to_back": time_back_to_back_ms(torch, fn),
+                         "host_ms": host_ms(torch, fn)}
+        print(json.dumps({"timing": "launch_floor", "blocks": blocks,
+                          "threads": 256, **floor[blocks],
+                          "is": "an empty kernel through the wire kernels' "
+                                "ctypes path, not a kernel of the port",
+                          "card": smi}))
+    return floor
+
+
 def timing_phase(torch, ops, tref, quant, agg, smi):
     """Every kernel at the shape the main paths give it (8 bits, C=K=10,
     D=421,642): the packed psum's lane 12 for quantize_pack and
@@ -980,7 +1071,8 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     (k=1) and one repack hop, the two-axis ring's level change for
     pack_sums (lane 9, sums of 2), qmatmul at the QNN's fc1 over 960
     images.  Extra rows time pack_sums at an rsag hop (C=10 chunks of
-    42,165, lane 12) and qmatmul at (256, 512, 256).  Bounds count each
+    42,165, lane 12), unpack_dequantize at rsag's last store (the same
+    chunks' words into f32) and qmatmul at (256, 512, 256).  Bounds count each
     input byte read once and each output byte written once; integer
     operations of the wire kernels are counted against the f32 rate, as
     the bytes bound every one of them, and qmatmul's against the int8
@@ -1001,7 +1093,14 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     ``bound_ms_codes_through_hbm`` does not.  Quantize, quantize_pack and
     quantize_pack_chunk are also timed beside ``torch.add(x, u)``, which
     moves quantize's 12 bytes an element without computing anything
-    (``traffic_yardstick_*``, not a library call)."""
+    (``traffic_yardstick_*``, not a library call), and pack_sums and
+    unpack_dequantize beside a ``copy_`` of about their bytes.  The rows
+    ``rsag_hop_pair`` (pack_sums at the hop shape, then one repack hop of
+    its words) and ``rsag_tail_pair`` (the last pack_sums, then
+    unpack_dequantize into f32) are rsag's chains.  An empty kernel
+    (``launch_floor``) is timed at 1 block and at every grid these
+    launches make, now and in the earlier design of one block per 256
+    words, and each of their rows carries the floor at its own grid."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1024,6 +1123,8 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
                              device="cuda", dtype=torch.int32)
     W12c = quant.packed_words(chunk, 8, lane_bits=12)
     bias12 = quant.lane_bias(12)
+    hop_words = ops.pack_sums(hop_sums, 8, lane_bits=12, bias=bias12)
+    hop_acc = hop_sums.clone()
     mm = {}
     for M, Kd, N in QMATMUL_SHAPES[:2]:
         mm[M, Kd, N] = (
@@ -1043,6 +1144,22 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             return ops.repack(words.view(K, Wn), codes.view(K, D), 8, D, hop=1)
         words, codes = tref.quantize_pack_chunk_ref(x, u, 8, num_chunks=1)
         return tref.repack_ref(words.view(K, Wn), codes.view(K, D), 8, D, hop=1)
+
+    def sums_then(m, second):
+        """rsag's pack_sums at the hop shape, then ``second`` of its words:
+        one repack hop into an accumulator in place ("repack"), or the
+        last store into f32 ("unpack"), through ``ops`` or the plain
+        versions ``tref``."""
+        kw = dict(lane_bits=12, bias=bias12)
+        if m is ops:
+            words = ops.pack_sums(hop_sums, 8, **kw)
+            if second == "repack":
+                return ops.repack(words, hop_acc, 8, chunk, hop=1, **kw)
+            return ops.unpack_dequantize(words, 8, chunk, **kw)
+        words = tref.pack_sums_ref(hop_sums, 8, **kw)
+        if second == "repack":
+            return tref.repack_ref(words, hop_acc, 8, chunk, hop=1, **kw)
+        return tref.unpack_dequantize_ref(words, 8, chunk, **kw)
 
     rows = {
         "stochastic_quantize_codes": (
@@ -1095,6 +1212,20 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             lambda: ops.pack_sums(hop_sums, 8, lane_bits=12, bias=bias12),
             lambda: tref.pack_sums_ref(hop_sums, 8, lane_bits=12, bias=bias12),
             None, 4.0 * K * chunk + 4.0 * K * W12c, 2.0 * K * chunk),
+        # rsag's last store at (10,): the final pack_sums' words into f32
+        "unpack_dequantize@rsag": (
+            lambda: ops.unpack_dequantize(hop_words, 8, chunk, lane_bits=12,
+                                          bias=bias12),
+            lambda: tref.unpack_dequantize_ref(hop_words, 8, chunk,
+                                               lane_bits=12, bias=bias12),
+            None, 4.0 * K * W12c + 4.0 * K * chunk, 4.0 * K * chunk),
+        # an rsag hop and rsag's tail; the bounds keep the words in L2
+        "rsag_hop_pair": (
+            lambda: sums_then(ops, "repack"), lambda: sums_then(tref, "repack"),
+            None, 12.0 * K * chunk + 4.0 * K * W12c, 6.0 * K * chunk),
+        "rsag_tail_pair": (
+            lambda: sums_then(ops, "unpack"), lambda: sums_then(tref, "unpack"),
+            None, 8.0 * K * chunk + 4.0 * K * W12c, 6.0 * K * chunk),
         "qmatmul": (
             lambda: ops.qmatmul(xq, wq, 0.05, 0.1),
             lambda: tref.qmatmul_ref(xq, wq, 0.05, 0.1),
@@ -1110,12 +1241,33 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             256 * 512 + 512 * 256 + 4.0 * 256 * 256,
             2.0 * 256 * 512 * 256, INT8_OPS_PER_S),
     }
-    # same bytes as the kernel, not its function: no library_ms
-    yardsticks = {k: ("torch.add(x, u)", lambda: torch.add(x, u))
+    # about the bytes the kernel moves, not its function: no library_ms
+    yardsticks = {k: ("torch.add(x, u)", lambda: torch.add(x, u), 12.0 * n)
                   for k in ("stochastic_quantize_codes", "quantize_pack",
                             "quantize_pack_chunk")}
+    for k in ("unpack_dequantize", "pack_sums", "pack_sums@rsag_hop",
+              "unpack_dequantize@rsag"):
+        yardsticks[k] = copy_yardstick(torch, rows[k][3])
     shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
-              "qmatmul@256x512x256": [256, 512, 256]}
+              "qmatmul@256x512x256": [256, 512, 256],
+              "unpack_dequantize@rsag": [K, chunk], "rsag_hop_pair": [K, chunk],
+              "rsag_tail_pair": [K, chunk]}
+    # blocks each launch of pack_sums and unpack_dequantize makes, now and
+    # at one block per 256 words a row; a pair adds its second launch
+    grids = {"unpack_dequantize": launch_blocks(ops, "unpack_dequantize",
+                                                summed, 12, 1, W),
+             "pack_sums": launch_blocks(ops, "pack_sums", sums2, 9, K, W9),
+             "pack_sums@rsag_hop": launch_blocks(ops, "pack_sums", hop_sums,
+                                                 12, K, W12c),
+             "unpack_dequantize@rsag": launch_blocks(
+                 ops, "unpack_dequantize", hop_words, 12, K, W12c)}
+    pair_grids = {"rsag_hop_pair": (grids["pack_sums@rsag_hop"][0],
+                                    K * -(-W12c // 256)),          # repack's
+                  "rsag_tail_pair": (grids["pack_sums@rsag_hop"][0],
+                                     grids["unpack_dequantize@rsag"][0])}
+    floor = launch_floor_phase(torch, ops, sorted(
+        {1} | {b for g in grids.values() for b in g}
+        | {b for g in pair_grids.values() for b in g}), smi)
     out = {}
     for name, (kernel, plain, library, nbytes, nops, *rate) in rows.items():
         b_ms, b_by = bound_ms(nbytes, nops, *rate)
@@ -1133,10 +1285,18 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
         if name == "chunk_repack_pair":
             extra["bound_ms_codes_through_hbm"] = (
                 20.0 * n + 8.0 * K * Wn) / HBM_BYTES_PER_S * 1e3
+        launched = (grids[name][:1] if name in grids
+                    else pair_grids.get(name, ()))
+        if launched:
+            extra["blocks"] = list(launched)
+        if launched and floor:
+            extra.update({f"launch_floor_{k}": sum(floor[b][k] for b in launched)
+                          for k in ("ms_queued", "ms_back_to_back")})
         if name in yardsticks:
-            what, fn = yardsticks[name]
+            what, fn, y_bytes = yardsticks[name]
             y_queued, y_late = time_queued_ms(torch, fn)
-            extra.update(traffic_yardstick=what,
+            extra.update(bytes=nbytes, traffic_yardstick=what,
+                         traffic_yardstick_bytes=y_bytes,
                          traffic_yardstick_ms=time_ms(torch, fn),
                          traffic_yardstick_ms_queued=y_queued,
                          traffic_yardstick_ms_queued_late=y_late,
@@ -1157,7 +1317,7 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
                                  k: v[0] for k, v in lib_queued.items()},
                              library_ms_back_to_back_by_layout=b2b,
                              library_host_ms_by_layout=lib_host)
-        if b_ms < SHORT_BOUND_MS:
+        if b_ms < SHORT_BOUND_MS and not name.endswith("_pair"):
             extra["plain_ms_back_to_back"] = time_back_to_back_ms(torch, plain)
         print(json.dumps({"timing": name, "shape": shapes.get(name, [K, D]),
                           **out[name], **extra,

@@ -41,12 +41,13 @@ SIGNATURES = {
     "repro_masked_aggregate_i32": (_c, _c, _c, _i, _ll, _f, _c),
     "repro_quantize_pack": (_c, _c, _c, _i, _ll, _ll, _i, _f, _f, _i, _i,
                             _c),
-    "repro_quantize_pack_plan": (_i, _i, _ll, _ll, _i, _c),
+    "repro_pack_plan": (_i, _i, _ll, _ll, _i, _c),
     "repro_unpack_dequantize": (_c, _c, _i, _ll, _ll, _i, _u, _f, _c),
     "repro_quantize_pack_chunk": (_c, _c, _c, _c, _i, _ll, _i, _ll, _ll, _i,
                                   _u, _f, _f, _i, _i, _c),
     "repro_repack": (_c, _c, _i, _ll, _ll, _i, _i, _i, _i, _u, _c),
     "repro_pack_sums": (_c, _c, _i, _ll, _ll, _i, _u, _c),
+    "repro_null_kernel": (_i, _c),
     "repro_qmatmul": (_c, _c, _c, _i, _i, _i, _i, _f, _c),
     "repro_qmatmul_plan": (_c, _c, _i, _i, _i, _i, _c),
 }

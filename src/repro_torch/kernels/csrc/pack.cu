@@ -13,20 +13,41 @@
 // operations per code.  At the cohort round's main shape (10 rows of
 // 421,642 codes, 8 bits) quantize_pack (lane 12) moves 42.2 MB,
 // quantize_pack_chunk (lane 8) 54.8 MB and a repack hop 38.0 MB, about 13,
-// 16 and 11 us at 3.35 TB/s; unpack_dequantize moves 2.5 MB and is bound
-// by its launch.  pack_sums at the two-axis ring's level change (10 rows
-// of 421,642 partial sums to lane 9) moves 22.5 MB, about 6.7 us; at an
-// rsag hop (10 rows of 42,165) it moves about 2.3 MB and is launch-bound.
+// 16 and 11 us at 3.35 TB/s.  pack_sums at the two-axis ring's level
+// change (10 rows of 421,642 partial sums to lane 9) moves 22.5 MB, about
+// 6.7 us.  pack_sums at an rsag hop (10 rows of 42,165 sums, lane 12) and
+// unpack_dequantize at rsag's last store and the packed psum move about
+// 2.5 MB each, 0.76 us: there the launch and one round trip to memory
+// bound them.  An empty kernel (null_kernel) of 256 threads a block costs,
+// back to back on an H100 SXM at 700 W, about 1.9-2.1 us plus 0.6 ns a
+// block (2.4-2.6 us at 830 blocks, 5.2-5.4 us at 5,500); these kernels
+// sat about 0.7-1.0 us above it at their grids, a single 2.5 MB launch
+// after a flush of L2 about 2 us above it.
 //
-// Design of pack_sums and unpack_dequantize: one thread per output word
-// per row, the row in blockIdx.y.  The thread reads its cpw planes at
-// j*W + w, so neighbouring threads touch neighbouring addresses in every
-// plane and every load is coalesced; the word is built in a register and
-// stored once (pack_word: the lanes are added modulo 2^32, as the
-// reference sums its shifted planes).  Biases are uint32 and every bias
-// and un-bias is a modular uint32 add, so the lane-symmetric bias 2^31 at
-// lane 32 is exact.  A lane of 32 bits gets its mask without the
-// undefined shift 1u << 32.
+// Design of pack_sums and unpack_dequantize: specialised on cpw (with_cpw),
+// so the shifts, masks and plane loops are compile-time and unroll.  A
+// thread owns words kThreads apart (neighbouring threads on neighbouring
+// words, so every plane's loads and stores are coalesced): pack_sums
+// kSumWords(cpw), all cpw*kSumWords loads (at least 16; 18 at cpw 3)
+// issued before the first shift; unpack_dequantize kUnpackWords(cpw), all
+// loaded before its cpw*kUnpackWords stores (at least 8), plane by plane.
+// Loads are 4 bytes: plane j starts at j*W and W is odd at these shapes.
+// Biases are uint32 and every bias and un-bias is a modular uint32 add
+// (the lanes are added modulo 2^32, as the reference sums its shifted
+// planes), so the lane-symmetric bias 2^31 at lane 32 is exact; a lane of
+// 32 bits gets its mask without the undefined shift 1u << 32.  Blocks
+// walk tiles of kThreads words a thread over at most one wave of resident
+// blocks, so the grid follows the work and the launch pays the floor's
+// 0.6 ns a block for few blocks: 528 (63 registers, four an SM) for the
+// level change's 920 tiles, 110, 206 and 210 at the 2.5 MB shapes.  Both
+// are launched as programmatic dependents of the kernel before them
+// (launch_dependent; repack, pack_sums and unpack_dequantize let their
+// dependents start at once), which overlaps a launch with the end of the
+// kernel before: on the H100, rsag's hop (pack_sums, repack) and tail
+// (pack_sums, unpack_dequantize) ran 0.9 and 1.6-1.7 us faster back to
+// back.  unpack_dequantize's f32 is read next (the apply step, rsag's
+// gather), so it is stored evict_last (st_keep), never streaming; plain
+// stores timed within 0.3 us of it either way (tools/l2_probe.py).
 //
 // quantize_pack and quantize_pack_chunk read 8 bytes an element and do
 // the quantizer's step (quantizer.cuh, the reference's multiply, so the
@@ -85,37 +106,50 @@ __host__ __device__ constexpr int kWords(int cpw) {
   return cpw >= 8 ? 1 : (8 + cpw - 1) / cpw;
 }
 
+// Words a thread of pack_sums owns: at least 16 loads of partial sums
+// (cpw * kSumWords); 18 at cpw 3.
+__host__ __device__ constexpr int kSumWords(int cpw) {
+  return cpw >= 16 ? 1 : (16 + cpw - 1) / cpw;
+}
+
+// Words a thread of unpack_dequantize owns: at least 8 stores
+// (cpw * kUnpackWords).
+__host__ __device__ constexpr int kUnpackWords(int cpw) {
+  return cpw >= 8 ? 1 : (8 + cpw - 1) / cpw;
+}
+
 __host__ __device__ __forceinline__ uint32_t lane_mask(int lane) {
   return lane >= 32 ? 0xffffffffu : ((1u << lane) - 1u);
 }
 
-// One word w of a planar row of n codes: sum over the cpw planes of
-// (code(j*W + w) + bias) << j*lane, modulo 2^32; padding lanes stay 0.
-template <typename CodeAt>
-__device__ __forceinline__ uint32_t pack_word(CodeAt code_at, long long w,
-                                              long long W, long long n,
-                                              int lane, int cpw,
-                                              uint32_t bias) {
-  uint32_t word = 0;
-  for (int j = 0; j < cpw; ++j) {
-    const long long i = j * W + w;
-    if (i < n) word += ((uint32_t)code_at(i) + bias) << (j * lane);
-  }
-  return word;
-}
-
-// The tiles of quantize_pack(_chunk): `segments` runs of W words (a row,
-// or a row's chunk), each cut into tiles of kThreads*kWords(CPW) words.
+// The tiles of a kernel that walks `segments` runs of W words (a row, or
+// a row's chunk), each cut into tiles of `tile` words: kThreads times the
+// words a thread owns.
 struct Tiles {
   long long per_segment;
   long long total;
 };
 
-template <int CPW>
-__host__ __device__ Tiles tiles_of(long long segments, long long W) {
-  const long long per = (W + kThreads * kWords(CPW) - 1) /
-                        (kThreads * kWords(CPW));
+__host__ __device__ inline Tiles tiles_of(long long segments, long long W,
+                                          int tile) {
+  const long long per = (W + tile - 1) / tile;
   return {per, per * segments};
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched as a
+// dependent (launch_dependent) may start while the kernel before it on the
+// stream still runs.  Before its first load or store it waits here until
+// that kernel has finished and its writes are visible, so the stream's
+// order holds for memory (the caching allocator's reuse included).  A
+// no-op in a launch without the attribute.
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Lets the next kernel on the stream, if launched as a dependent, start
+// its launch now rather than when this one ends.
+__device__ __forceinline__ void allow_dependent_grid() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // x, u: (R, n); words: (R, W).  Bias +G.  Each tile: its thread's words
@@ -165,36 +199,84 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // codes: (R, n) int32 partial sums; words: (R, W).  The bias is added
-// modulo 2^32, so lane 32 with the bias 2^31 is exact.
-__global__ void pack_sums_kernel(const int* __restrict__ codes,
-                                 uint32_t* __restrict__ words, long long n,
-                                 long long W, int lane, int cpw,
-                                 uint32_t bias) {
-  const long long w = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  const long long row = blockIdx.y;
-  const int* cr = codes + row * n;
-  words[row * W + w] = pack_word([&](long long i) { return cr[i]; }, w, W, n,
-                                 lane, cpw, bias);
+// modulo 2^32, so lane 32 with the bias 2^31 is exact.  Each tile: its
+// thread's words w = base + k*kThreads (k < kSumWords), every plane of each
+// loaded before the first shift.
+template <int CPW>
+__global__ void __launch_bounds__(kThreads)
+    pack_sums_kernel(const int* __restrict__ codes,
+                     uint32_t* __restrict__ words, long long n, long long W,
+                     int lane, uint32_t bias, Tiles tiles) {
+  constexpr int kW = kSumWords(CPW);
+  wait_for_prior_grid();
+  allow_dependent_grid();
+  for (long long t = blockIdx.x; t < tiles.total; t += gridDim.x) {
+    const long long row = t / tiles.per_segment;
+    const long long base = (t - row * tiles.per_segment) * (kThreads * kW) +
+                           threadIdx.x;
+    const int* cr = codes + row * n;
+    uint32_t v[kW][CPW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const long long w = base + k * kThreads;
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        const long long i = j * W + w;
+        v[k][j] = w < W && i < n ? (uint32_t)cr[i] : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const long long w = base + k * kThreads;
+      if (w >= W) break;
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < CPW; ++j)
+        if (j * W + w < n) word += (v[k][j] + bias) << (j * lane);
+      words[row * W + w] = word;
+    }
+  }
 }
 
-// words: (R, W); out: (R, size) f32.
-__global__ void unpack_dequantize_kernel(const uint32_t* __restrict__ words,
-                                         float* __restrict__ out,
-                                         long long size, long long W, int lane,
-                                         int cpw, uint32_t bias,
-                                         float inv_gain) {
-  const long long w = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  const long long row = blockIdx.y;
-  const uint32_t word = words[row * W + w];
+// words: (R, W); out: (R, size) f32, read next (the apply step, rsag's
+// gather), so stored evict_last (st_keep).  Each tile: its thread's words
+// w = base + k*kThreads (k < kUnpackWords), all loaded before the first
+// store; then plane by plane, each plane's run of stores coalesced.
+template <int CPW>
+__global__ void __launch_bounds__(kThreads)
+    unpack_dequantize_kernel(const uint32_t* __restrict__ words,
+                             float* __restrict__ out, long long size,
+                             long long W, int lane, uint32_t bias,
+                             float inv_gain, Tiles tiles) {
+  constexpr int kW = kUnpackWords(CPW);
   const uint32_t mask = lane_mask(lane);
-  float* o = out + row * size;
-  for (int j = 0; j < cpw; ++j) {
-    const long long i = j * W + w;
-    if (i < size) {
-      int v = (int)(((word >> (j * lane)) & mask) - bias);
-      o[i] = __fmul_rn((float)v, inv_gain);
+  const uint64_t keep = keep_policy();
+  wait_for_prior_grid();
+  allow_dependent_grid();
+  for (long long t = blockIdx.x; t < tiles.total; t += gridDim.x) {
+    const long long row = t / tiles.per_segment;
+    const long long base = (t - row * tiles.per_segment) * (kThreads * kW) +
+                           threadIdx.x;
+    const uint32_t* wr = words + row * W;
+    int* o = (int*)(out + row * size);
+    uint32_t v[kW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const long long w = base + k * kThreads;
+      v[k] = w < W ? __ldg(wr + w) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const long long w = base + k * kThreads;
+      if (w >= W) break;
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        const long long i = j * W + w;
+        if (i < size) {
+          const int c = (int)(((v[k] >> (j * lane)) & mask) - bias);
+          st_keep(o + i, __float_as_int(__fmul_rn((float)c, inv_gain)), keep);
+        }
+      }
     }
   }
 }
@@ -266,6 +348,7 @@ __global__ void __launch_bounds__(kThreads)
     repack_kernel(const uint32_t* __restrict__ words, int* __restrict__ acc,
                   long long size, long long W, int hop, int axis, int inner,
                   int lane, uint32_t bias) {
+  allow_dependent_grid();
   const long long w = blockIdx.x * (long long)kThreads + threadIdx.x;
   if (w >= W) return;
   const int row = blockIdx.y;
@@ -289,6 +372,10 @@ __global__ void __launch_bounds__(kThreads)
     if (i < size) a[i] = (int)(val[j] + ((word >> (j * lane)) & mask) - bias);
   }
 }
+
+// An empty kernel: the launch floor chip_smoke.py times beside the wire
+// kernels at their grids.  No round calls it.
+__global__ void null_kernel() {}
 
 dim3 grid_for(long long words, long long rows) {
   return dim3((unsigned)((words + kThreads - 1) / kThreads), (unsigned)rows);
@@ -333,11 +420,42 @@ int wave_blocks(bool chunk, bool stochastic, long long tiles) {
                     : wave_blocks<CPW, false, false>(tiles);
 }
 
+template <int CPW>
+int pack_sums_blocks(long long tiles) {
+  static int cache[kMaxDevices];
+  return one_wave((const void*)pack_sums_kernel<CPW>, kThreads, cache, tiles);
+}
+
+template <int CPW>
+int unpack_blocks(long long tiles) {
+  static int cache[kMaxDevices];
+  return one_wave((const void*)unpack_dequantize_kernel<CPW>, kThreads, cache,
+                  tiles);
+}
+
+// Launches `blocks` blocks of kThreads of kernel(args...) on `st` as a
+// programmatic dependent of the kernel before it; the kernel calls
+// wait_for_prior_grid before it touches memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), int blocks,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, ((Params)args)...);
+}
+
 template <int CPW, bool kStochastic>
 void launch_quantize_pack(const float* x, const float* u, uint32_t* words,
                           int rows, long long n, long long W, int lane,
                           QuantStep q, cudaStream_t st) {
-  const Tiles t = tiles_of<CPW>(rows, W);
+  const Tiles t = tiles_of(rows, W, kThreads * kWords(CPW));
   quantize_pack_kernel<CPW, kStochastic>
       <<<wave_blocks<CPW, kStochastic, false>(t.total), kThreads, 0, st>>>(
           x, u, words, n, W, lane, q, t);
@@ -349,7 +467,7 @@ void launch_quantize_pack_chunk(const float* x, const float* u,
                                 long long n, int k, long long C, long long Wc,
                                 int lane, uint32_t bias, QuantStep q,
                                 cudaStream_t st) {
-  const Tiles t = tiles_of<CPW>((long long)rows * k, Wc);
+  const Tiles t = tiles_of((long long)rows * k, Wc, kThreads * kWords(CPW));
   quantize_pack_chunk_kernel<CPW, kStochastic>
       <<<wave_blocks<CPW, kStochastic, true>(t.total), kThreads, 0, st>>>(
           x, u, words, codes, n, k, C, Wc, lane, bias, q, t);
@@ -386,21 +504,28 @@ int repro_quantize_pack(const void* x, const void* u, void* words, int rows,
   return (int)cudaGetLastError();
 }
 
-// The launch quantize_pack (chunk == 0) or quantize_pack_chunk (chunk ==
-// 1) makes for `segments` runs of W words (rows, or rows times chunks) at
-// `lane`: out = {codes per word of the specialisation, words a thread,
-// bytes a load, tiles, blocks}.  Returns 0, or cudaErrorInvalidValue for
-// a lane outside 1..32.
-int repro_quantize_pack_plan(int chunk, int stochastic, long long segments,
-                             long long W, int lane, long long* out) {
+// The launch that `kernel` makes for `segments` runs of W words (rows, or
+// rows times chunks) at `lane`: 0 quantize_pack, 1 quantize_pack_chunk,
+// 2 pack_sums, 3 unpack_dequantize.  out = {codes per word of the
+// specialisation, words a thread, bytes a load, tiles, blocks}.  Returns
+// 0, or cudaErrorInvalidValue for another kernel or a lane outside 1..32.
+int repro_pack_plan(int kernel, int stochastic, long long segments,
+                    long long W, int lane, long long* out) {
+  if (kernel < 0 || kernel > 3) return (int)cudaErrorInvalidValue;
   const bool ok = with_cpw(lane, [&](auto c) {
     constexpr int CPW = decltype(c)::value;
-    const Tiles t = tiles_of<CPW>(segments, W);
+    const int words = kernel == 2   ? kSumWords(CPW)
+                      : kernel == 3 ? kUnpackWords(CPW)
+                                    : kWords(CPW);
+    const Tiles t = tiles_of(segments, W, kThreads * words);
     out[0] = CPW;
-    out[1] = kWords(CPW);
+    out[1] = words;
     out[2] = 4;
     out[3] = t.total;
-    out[4] = t.total > 0 ? wave_blocks<CPW>(chunk, stochastic, t.total) : 0;
+    out[4] = t.total < 1      ? 0
+             : kernel == 2 ? pack_sums_blocks<CPW>(t.total)
+             : kernel == 3 ? unpack_blocks<CPW>(t.total)
+                           : wave_blocks<CPW>(kernel == 1, stochastic, t.total);
   });
   return ok ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -408,13 +533,18 @@ int repro_quantize_pack_plan(int chunk, int stochastic, long long segments,
 int repro_unpack_dequantize(const void* words, void* out, int rows,
                             long long size, long long W, int lane,
                             unsigned int bias, float inv_gain, void* stream) {
-  if (rows > 0 && W > 0) {
-    unpack_dequantize_kernel<<<grid_for(W, rows), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (float*)out, size, W, lane, 32 / lane,
-        (uint32_t)bias, inv_gain);
-  }
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  if (rows > 0 && W > 0 && !with_cpw(lane, [&](auto c) {
+        constexpr int CPW = decltype(c)::value;
+        const Tiles t = tiles_of(rows, W, kThreads * kUnpackWords(CPW));
+        err = launch_dependent(unpack_dequantize_kernel<CPW>,
+                               unpack_blocks<CPW>(t.total),
+                               (cudaStream_t)stream, (const uint32_t*)words,
+                               (float*)out, size, W, lane, (uint32_t)bias,
+                               inv_gain, t);
+      }))
+    return (int)cudaErrorInvalidValue;
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int repro_quantize_pack_chunk(const void* x, const void* u, void* words,
@@ -462,12 +592,22 @@ int repro_repack(const void* words, void* acc, int rows, long long size,
 
 int repro_pack_sums(const void* codes, void* words, int rows, long long n,
                     long long W, int lane, unsigned int bias, void* stream) {
-  if (rows > 0 && W > 0) {
-    pack_sums_kernel<<<grid_for(W, rows), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        (const int*)codes, (uint32_t*)words, n, W, lane, 32 / lane,
-        (uint32_t)bias);
-  }
+  cudaError_t err = cudaSuccess;
+  if (rows > 0 && W > 0 && !with_cpw(lane, [&](auto c) {
+        constexpr int CPW = decltype(c)::value;
+        const Tiles t = tiles_of(rows, W, kThreads * kSumWords(CPW));
+        err = launch_dependent(pack_sums_kernel<CPW>,
+                               pack_sums_blocks<CPW>(t.total),
+                               (cudaStream_t)stream, (const int*)codes,
+                               (uint32_t*)words, n, W, lane, (uint32_t)bias, t);
+      }))
+    return (int)cudaErrorInvalidValue;
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// `blocks` blocks of kThreads threads of null_kernel on `stream`.
+int repro_null_kernel(int blocks, void* stream) {
+  null_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

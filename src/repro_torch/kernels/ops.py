@@ -199,10 +199,24 @@ def masked_aggregate(updates: torch.Tensor, weights: torch.Tensor,
 class PackPlan(NamedTuple):
     cpw: int        # codes per word: the kernel's specialisation
     words: int      # words a thread owns, all their loads issued first
-    load_bytes: int  # bytes a load of x or u
+    load_bytes: int  # bytes a load of the kernel's input
     tiles: int      # tiles of 256 * words words, each within one row (chunk)
     blocks: int     # blocks launched: one wave of resident blocks, capped
                     # by the tiles
+
+
+#: the kernels ``repro_pack_plan`` reports on, by its code
+_PLANNED = {"quantize_pack": 0, "quantize_pack_chunk": 1, "pack_sums": 2,
+            "unpack_dequantize": 3}
+
+
+def _plan(kernel: str, stochastic: bool, segments: int, W: int,
+          lane: int) -> PackPlan:
+    out = (ctypes.c_longlong * 5)()
+    err = build.library("pack").repro_pack_plan(
+        _PLANNED[kernel], int(stochastic), segments, W, lane, out)
+    _raise_on(err, f"{kernel} plan")
+    return PackPlan(*out)
 
 
 def pack_plan(x: torch.Tensor, bits: int, *, lane_bits: int = 0,
@@ -215,11 +229,27 @@ def pack_plan(x: torch.Tensor, bits: int, *, lane_bits: int = 0,
     R, n = x.shape
     k = max(int(num_chunks), 1)
     W = wire.packed_words(-(-n // k), bits, lane_bits=lane)
-    out = (ctypes.c_longlong * 5)()
-    err = build.library("pack").repro_quantize_pack_plan(
-        int(num_chunks > 0), int(stochastic), R * k, W, lane, out)
-    _raise_on(err, "pack_plan")
-    return PackPlan(*out)
+    return _plan("quantize_pack_chunk" if num_chunks > 0 else "quantize_pack",
+                 stochastic, R * k, W, lane)
+
+
+def pack_sums_plan(codes: torch.Tensor, bits: int, *,
+                   lane_bits: int = 0) -> PackPlan:
+    """The launch ``pack_sums`` makes for CUDA partial sums (R, n)."""
+    lane, _, _ = _wire_args(bits, lane_bits, 1, None)
+    _check_rows(codes)
+    R, n = codes.shape
+    return _plan("pack_sums", False, R,
+                 wire.packed_words(n, bits, lane_bits=lane), lane)
+
+
+def unpack_dequantize_plan(packed: torch.Tensor, bits: int, *,
+                           lane_bits: int = 0) -> PackPlan:
+    """The launch ``unpack_dequantize`` makes for CUDA words (R, W) or
+    (W,)."""
+    lane, _, _ = _wire_args(bits, lane_bits, 1, None)
+    p2 = packed.reshape(-1, packed.shape[-1])
+    return _plan("unpack_dequantize", False, p2.shape[0], p2.shape[1], lane)
 
 
 def quantize_pack(x: torch.Tensor, u: Optional[torch.Tensor], bits: int, *,
@@ -372,6 +402,17 @@ def pack_sums(codes: torch.Tensor, bits: int, *, lane_bits: int = 0,
     _raise_on(err, "pack_sums")
     LAUNCHES["pack_sums"] += 1
     return words
+
+
+def null_kernel(blocks: int, device: torch.device) -> None:
+    """An empty kernel of ``blocks`` blocks of 256 threads on ``device``'s
+    current stream, launched through the wire kernels' ctypes path: the
+    launch floor ``chip_smoke.py`` times beside them.  No round calls it,
+    and ``LAUNCHES`` does not count it."""
+    if device.type != "cuda":
+        raise ValueError(f"null_kernel runs only on the card, not {device}")
+    err = build.library("pack").repro_null_kernel(int(blocks), _stream(device))
+    _raise_on(err, "null_kernel")
 
 
 class QmatmulPlan(NamedTuple):

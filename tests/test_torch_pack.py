@@ -418,7 +418,8 @@ def test_cuda_pack_kernels_match_plain_versions():
             assert torch.equal(
                 ops.pack_sums(sums, bits, lane_bits=lane, sum_of=3),
                 tref.pack_sums_ref(sums, bits, lane_bits=lane, sum_of=3))
-    # every lane, so every codes-per-word specialisation of repack
+    # every lane, so every codes-per-word specialisation of repack,
+    # pack_sums and unpack_dequantize
     for lane in range(1, 33):
         bits = min(lane, 8)
         codes = torch.randint(-2 ** (bits - 1), 2 ** (bits - 1), (3, 5003),
@@ -429,4 +430,51 @@ def test_cuda_pack_kernels_match_plain_versions():
             ops.repack(words, acc, bits, 5003, hop=2, lane_bits=lane),
             tref.repack_ref(words, codes.clone(), bits, 5003, hop=2,
                             lane_bits=lane)), lane
+        assert torch.equal(ops.pack_sums(codes, bits, lane_bits=lane),
+                           words), lane
+        assert torch.equal(
+            ops.unpack_dequantize(words, bits, 5003, clip=0.3, lane_bits=lane),
+            tref.unpack_dequantize_ref(words, bits, 5003, clip=0.3,
+                                       lane_bits=lane)), lane
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_pack_sums_and_unpack_at_tile_edges():
+    """pack_sums and unpack_dequantize on 1 and 10 rows of W words one
+    below, at and one above a tile of their launch plan (256 threads times
+    the words a thread owns), with n = cpw·W and the least n of W words; and at lane 32
+    with the lane-symmetric bias 2^31."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for lane, rows in itertools.product((9, 12, 5, 32), (1, 10)):
+        bits, cpw = min(lane, 8), 32 // lane
+        bias = tq.lane_bias(lane)
+        lo, hi = (-2 ** 30, 2 ** 30) if lane == 32 else (
+            -2 ** (lane - 1), 2 ** (lane - 1))
+        probe = torch.zeros((rows, cpw), dtype=torch.int32, device=dev)
+        for kind in ("pack_sums", "unpack_dequantize"):
+            plan = (ops.pack_sums_plan(probe, bits, lane_bits=lane)
+                    if kind == "pack_sums" else
+                    ops.unpack_dequantize_plan(probe, bits, lane_bits=lane))
+            assert plan.cpw == cpw and plan.tiles == rows
+            tile = 256 * plan.words
+            for W in (tile - 1, tile, tile + 1):
+                for n in {cpw * W, cpw * (W - 1) + 1}:
+                    sums = torch.randint(lo, hi, (rows, n), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                    words = ops.pack_sums(sums, bits, lane_bits=lane,
+                                          bias=bias)
+                    want = tref.pack_sums_ref(sums, bits, lane_bits=lane,
+                                              bias=bias)
+                    assert words.shape == (rows, W)
+                    assert torch.equal(words, want), (kind, lane, rows, n)
+                    assert torch.equal(
+                        ops.unpack_dequantize(words, bits, n, lane_bits=lane,
+                                              bias=bias),
+                        tref.unpack_dequantize_ref(want, bits, n,
+                                                   lane_bits=lane, bias=bias)
+                    ), (kind, lane, rows, n)
     torch.cuda.synchronize()

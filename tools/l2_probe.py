@@ -23,6 +23,15 @@ paths' shapes:
   of its words into its codes in place, through ``pack.cu``'s C entry
   points built as the port builds it (x and u loaded streaming, codes
   stored ``evict_last``) and with -DREPRO_PLAIN_CACHE_POLICY.
+* rsag's kernels at (10,), 8 bits, lane 12: ``pack_sums`` at a hop (10
+  rows of 42,165 partial sums), the hop's chain (``pack_sums``, then one
+  ``repack`` hop of its words) and the tail's (``pack_sums``, then
+  ``unpack_dequantize`` into f32), and ``unpack_dequantize`` at rsag's
+  last store and at the packed psum's (one row of 210,821 summed words),
+  and ``pack_sums`` at the two-axis ring's level change (10 x 421,642
+  sums of 2, lane 9), through ``pack.cu``'s C entry points built as the
+  port builds it (the f32 stored ``evict_last``) and with
+  -DREPRO_PLAIN_CACHE_POLICY (stored plainly).
 * the residue of the codes' ``evict_last`` lines: ``torch.add(x, u)``
   timed after the write flush before any hinted launch, after 50 hinted
   quantize launches into one buffer, after one dequantize of that buffer
@@ -118,12 +127,62 @@ def ring_front_cases(torch, tref, lib, x, u, bits=8):
     return {"quantize_pack_chunk": chunk, "chunk_repack_pair": pair}
 
 
+def rsag_cases(torch, lib, hop_sums, summed, sums2, D, bits=8, lane=12):
+    """rsag's pack_sums, its two chains and unpack_dequantize at rsag's and
+    the packed psum's shapes, and pack_sums at the two-axis ring's level
+    change (``sums2``, lane 9), through ``lib``'s C entry points."""
+    (C, chunk), g = hop_sums.shape, 2 ** (bits - 1)
+    bias, cpw = 2 ** (lane - 1), 32 // lane
+    Wh, Wp = -(-chunk // cpw), summed.numel()
+    acc = hop_sums.clone()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def sums():
+        words = torch.empty((C, Wh), dtype=torch.int32, device=hop_sums.device)
+        err = lib.repro_pack_sums(hop_sums.data_ptr(), words.data_ptr(), C,
+                                  chunk, Wh, lane, bias, stream())
+        assert err == 0, err
+        return words
+
+    def unpack(words, rows, size, b):
+        out = torch.empty((rows, size), dtype=torch.float32,
+                          device=words.device)
+        err = lib.repro_unpack_dequantize(words.data_ptr(), out.data_ptr(),
+                                          rows, size, words.shape[-1], lane,
+                                          b, 1.0 / g, stream())
+        assert err == 0, err
+        return out
+
+    def hop():
+        words = sums()
+        err = lib.repro_repack(words.data_ptr(), acc.data_ptr(), C, chunk, Wh,
+                               1, C, 1, lane, bias, stream())
+        assert err == 0, err
+        return acc
+
+    def level_change():
+        W9 = -(-D // 3)
+        words = torch.empty((C, W9), dtype=torch.int32, device=sums2.device)
+        err = lib.repro_pack_sums(sums2.data_ptr(), words.data_ptr(), C, D, W9,
+                                  9, 2 * g, stream())
+        assert err == 0, err
+        return words
+
+    hop_words = sums()
+    return {"pack_sums": level_change, "pack_sums@rsag_hop": sums,
+            "unpack_dequantize": lambda: unpack(summed, 1, D, C * g),
+            "unpack_dequantize@rsag": lambda: unpack(hop_words, C, chunk, bias),
+            "rsag_hop_pair": hop,
+            "rsag_tail_pair": lambda: unpack(sums(), C, chunk, bias)}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("l2_probe: no CUDA device; it needs a card")
     from chip_smoke import time_back_to_back_ms
+    from repro_torch.core import aggregation as agg
     from repro_torch.core import quantization as quant
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as tref
@@ -168,6 +227,32 @@ def main() -> int:
             cases[f"{name}@{policy}"] = fn
     for policy, lib in pack_libs.items():
         for name, fn in ring_front_cases(torch, tref, lib, x, u).items():
+            cases[f"{name}@{policy}"] = fn
+    chunk = -(-D // C)
+    hop_sums = torch.randint(-1280, 1271, (C, chunk), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    summed = agg.sum_words(ops.quantize_pack(x, u, 8, lane_bits=12))
+    sums2 = torch.randint(-256, 255, (C, D), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    rsag = {policy: rsag_cases(torch, lib, hop_sums, summed, sums2, D)
+            for policy, lib in pack_libs.items()}
+    kw = dict(lane_bits=12, bias=2 ** 11)
+    want_words = tref.pack_sums_ref(hop_sums, 8, **kw)
+    want = {"pack_sums": tref.pack_sums_ref(sums2, 8, lane_bits=9, sum_of=2),
+            "pack_sums@rsag_hop": want_words,
+            "unpack_dequantize": tref.unpack_dequantize_ref(
+                summed, 8, D, lane_bits=12, sum_of=C).view(1, D),
+            "unpack_dequantize@rsag": tref.unpack_dequantize_ref(
+                want_words, 8, chunk, **kw),
+            "rsag_tail_pair": tref.unpack_dequantize_ref(
+                want_words, 8, chunk, **kw),
+            "rsag_hop_pair": tref.repack_ref(want_words, hop_sums.clone(), 8,
+                                             chunk, hop=1, **kw)}
+    for policy, fns in rsag.items():
+        for name, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want[name]), (name, policy)
             cases[f"{name}@{policy}"] = fn
     pair = cases["fake_quant_pair@plain_policy"]()
     torch.cuda.synchronize()
