@@ -189,16 +189,92 @@ def kernels_phase(torch, ops, tref):
             got = ops.masked_aggregate(upd, wts)
             torch.cuda.synchronize()
             want = tref.masked_aggregate_ref(upd, wts)
-            scale = max(1.0, float(upd.abs().max()))
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+            err["masked_aggregate"] = max(err["masked_aggregate"],
+                                          _max_diff(got, want))
+            check(torch.equal(got, want),
+                  f"aggregate differs: {label} {upd.dtype} K={upd.shape[0]}")
             if float(wts.abs().sum()) == 0.0:
                 check(bool((got == 0).all()), "all-zero weights must give 0")
-            if upd.dtype == torch.float32:
-                err["masked_aggregate"] = max(err["masked_aggregate"],
-                                              float((got - want).abs().max()))
-        print(f"kernels == plain at {label} shape (K={K}, D={D}): quantize "
-              f"codes equal, dequantize equal, aggregate within rtol 1e-5 "
-              f"atol 1e-6 (max abs err {err['masked_aggregate']:.3g})")
+        print(f"kernels == plain (torch.equal) at {label} shape (K={K}, D={D}): "
+              f"quantize, dequantize, aggregate (f32 and int32 updates, "
+              f"all-zero weights, K=1)")
+    return err
+
+
+#: masked_aggregate's cases beyond the main shapes (K, D, byte offset of
+#: the updates past a 16-byte boundary): every K specialisation (1-16) and
+#: the generic kernel (K 17, 20 and 33: one, two and three steps of 16
+#: rows) at D odd (4-byte loads), D = 2 mod 4 (8-byte) and D = 0 mod 4
+#: (16-byte); views 4, 8 and 12 bytes past a boundary at D = 1 to 7 and at
+#: both vector widths; the edges of a tile at K = 10 (512 vectors: 1,024
+#: columns at 8 bytes, 2,048 at 16)
+AGG_CASES = tuple((K, D, 0) for K in tuple(range(1, 17)) + (17, 20, 33)
+                  for D in (4099, 4098, 4100))
+AGG_CASES += tuple((K, D, off) for K in (1, 3, 10, 17)
+                   for D in (1, 2, 3, 5, 6, 7, 4098, 4100) for off in (4, 8, 12))
+AGG_CASES += tuple((10, D, 0) for D in (1022, 1024, 1026, 2044, 2048, 2052))
+
+
+def aggregate_plan_expected(K, D, offset):
+    """(K specialisation, bytes a load, loads a thread, head, vectors,
+    tail, tiles) that ``ops.masked_aggregate_plan`` must report for updates
+    (K, D) ``offset`` bytes past a 16-byte boundary (csrc/aggregate.cu:
+    16-byte loads where every row start shares the offset, D % 4 == 0 or
+    one row, 8-byte ones where D is even, else 4-byte; at least 16 loads a
+    thread; tiles of 256 threads' vectors)."""
+    V = 4 if K == 1 or D % 4 == 0 else 2 if D % 2 == 0 else 1
+    head = min((4 * V - offset % (4 * V)) % (4 * V) // 4, D)
+    vectors = (D - head) // V
+    spec = K if K <= 16 else 0
+    vecs = 1 if spec in (0, 16) else -(-16 // K)
+    loads = 16 if spec == 0 else K * vecs
+    return (spec, 4 * V, loads, head, vectors, D - head - V * vectors,
+            -(-vectors // (256 * vecs)))
+
+
+def aggregate_paths_phase(torch, ops, tref):
+    """``masked_aggregate`` against its plain version, ``torch.equal``, at
+    AGG_CASES, f32 and int32 updates, weights with a zero and all zero: its
+    launch plan as predicted, one launch counted a call, the output at the
+    updates' offset.  Prints the launches by path (K specialisation, bytes
+    a load).  Returns the max abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    err, cases, paths = 0.0, 0, {}
+    for K, D, off in AGG_CASES:
+        x = at_offset(torch, (torch.rand(K * D, generator=gen, device="cuda") - 0.5)
+                      * 0.02, off).view(K, D)
+        ints = at_offset(torch, torch.randint(-128, 128, (K * D,), generator=gen,
+                                              device="cuda", dtype=torch.int32),
+                         off).view(K, D)
+        w = torch.rand(K, generator=gen, device="cuda") * 0.2
+        if K > 1:
+            w[-1] = 0.0
+        for upd in (x, ints):
+            plan = ops.masked_aggregate_plan(upd)
+            what = f"K={K} D={D} +{off} {upd.dtype} plan {plan}"
+            check(tuple(plan)[:7] == aggregate_plan_expected(K, D, off)
+                  and 1 <= plan.blocks <= max(plan.tiles, 1), f"aggregate plan: {what}")
+            for wts in (w, torch.zeros_like(w)):
+                before = ops.LAUNCHES["masked_aggregate"]
+                got = ops.masked_aggregate(upd, wts)
+                check(ops.LAUNCHES["masked_aggregate"] == before + 1,
+                      f"aggregate not counted once: {what}")
+                torch.cuda.synchronize()
+                want = tref.masked_aggregate_ref(upd, wts)
+                err = max(err, _max_diff(got, want))
+                check(torch.equal(got, want), f"aggregate differs: {what}")
+                check(got.data_ptr() % 16 == off, f"aggregate output offset: {what}")
+                key = (plan.k_spec, plan.load_bytes)
+                paths[key] = paths.get(key, 0) + 1
+                cases += 1
+    specs = sorted({k for k, _ in paths})
+    check(specs == list(range(17)), f"K specialisations launched: {specs}")
+    check({b for _, b in paths} == {4, 8, 16}, f"load widths launched: {paths}")
+    print(f"aggregate == plain (torch.equal) in {cases} cases: K 1-16 and "
+          f"generic (17, 20, 33), D = 0-3 mod 4, views at byte offsets 4/8/12, "
+          f"tile edges, f32 and int32, weights with a zero and all zero; "
+          f"launches by (K specialisation, bytes a load): "
+          + ", ".join(f"{k}/{b}B {n}" for (k, b), n in sorted(paths.items())))
     return err
 
 
@@ -1094,13 +1170,19 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     quantize_pack_chunk are also timed beside ``torch.add(x, u)``, which
     moves quantize's 12 bytes an element without computing anything
     (``traffic_yardstick_*``, not a library call), and pack_sums and
-    unpack_dequantize beside a ``copy_`` of about their bytes.  The rows
+    unpack_dequantize beside a ``copy_`` of about their bytes, and so is
+    masked_aggregate, whose row carries its launch plan; the row
+    ``uplink_aggregate_pair`` is the round's kernels from the uplink's
+    codes to eq. 6: dequantize_codes, then ``error_aware_aggregate``'s
+    weights ``alphas * lambdas`` and masked_aggregate of the f32 (its
+    bound keeps the f32 in L2, ``bound_ms_f32_through_hbm`` does not).  The rows
     ``rsag_hop_pair`` (pack_sums at the hop shape, then one repack hop of
     its words) and ``rsag_tail_pair`` (the last pack_sums, then
     unpack_dequantize into f32) are rsag's chains.  An empty kernel
     (``launch_floor``) is timed at 1 block and at every grid these
     launches make, now and in the earlier design of one block per 256
-    words, and each of their rows carries the floor at its own grid."""
+    words (columns, for masked_aggregate), and each of their rows carries
+    the floor at its own grid."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1108,6 +1190,7 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     u = torch.rand((K, D), generator=gen, device="cuda")
     codes = ops.stochastic_quantize_codes(x, u, 8)
     w = torch.rand(K, generator=gen, device="cuda") * 0.1
+    lam = (torch.arange(K, device="cuda") != 3).float()    # one packet lost
     inv_gain = 1.0 / 128
     lane = quant.packed_lane_bits(8, K)                     # 12: 2 codes a word
     W = quant.packed_words(D, 8, lane_bits=lane)
@@ -1181,6 +1264,15 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             lambda: tref.masked_aggregate_ref(x, w),
             {"": lambda: (w @ x) / torch.clamp(w.sum(), min=1e-12)},
             4.0 * n + 4.0 * D + 4.0 * K, 2.0 * n),
+        # the round's kernels from the uplink's codes to eq. 6: dequantize,
+        # then error_aware_aggregate's weights alphas * lambdas and
+        # masked_aggregate; the bound keeps the f32 in L2
+        "uplink_aggregate_pair": (
+            lambda: ops.masked_aggregate(ops.dequantize_codes(codes, 8),
+                                         (w * lam).float().contiguous()),
+            lambda: tref.masked_aggregate_ref(tref.dequantize_ref(codes, 8),
+                                              (w * lam).float().contiguous()),
+            None, 4.0 * n + 4.0 * D + 16.0 * K, 3.0 * n + K),
         "quantize_pack": (
             lambda: ops.quantize_pack(x, u, 8, lane_bits=lane),
             lambda: tref.quantize_pack_ref(x, u, 8, lane_bits=lane), None,
@@ -1246,7 +1338,7 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
                   for k in ("stochastic_quantize_codes", "quantize_pack",
                             "quantize_pack_chunk")}
     for k in ("unpack_dequantize", "pack_sums", "pack_sums@rsag_hop",
-              "unpack_dequantize@rsag"):
+              "unpack_dequantize@rsag", "masked_aggregate"):
         yardsticks[k] = copy_yardstick(torch, rows[k][3])
     shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
               "qmatmul@256x512x256": [256, 512, 256],
@@ -1260,7 +1352,10 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
              "pack_sums@rsag_hop": launch_blocks(ops, "pack_sums", hop_sums,
                                                  12, K, W12c),
              "unpack_dequantize@rsag": launch_blocks(
-                 ops, "unpack_dequantize", hop_words, 12, K, W12c)}
+                 ops, "unpack_dequantize", hop_words, 12, K, W12c),
+             # the plan's blocks, and the earlier one block per 256 columns
+             "masked_aggregate": (ops.masked_aggregate_plan(x).blocks,
+                                  -(-D // 256))}
     pair_grids = {"rsag_hop_pair": (grids["pack_sums@rsag_hop"][0],
                                     K * -(-W12c // 256)),          # repack's
                   "rsag_tail_pair": (grids["pack_sums@rsag_hop"][0],
@@ -1285,6 +1380,11 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
         if name == "chunk_repack_pair":
             extra["bound_ms_codes_through_hbm"] = (
                 20.0 * n + 8.0 * K * Wn) / HBM_BYTES_PER_S * 1e3
+        if name == "uplink_aggregate_pair":
+            extra["bound_ms_f32_through_hbm"] = (
+                12.0 * n + 4.0 * D + 16.0 * K) / HBM_BYTES_PER_S * 1e3
+        if name == "masked_aggregate":
+            extra["plan"] = ops.masked_aggregate_plan(x)._asdict()
         launched = (grids[name][:1] if name in grids
                     else pair_grids.get(name, ()))
         if launched:
@@ -1355,6 +1455,8 @@ def main() -> int:
     name, count, smi = device_phase(torch)
     build_phase(build)
     err = kernels_phase(torch, ops, tref)
+    err["masked_aggregate"] = max(err["masked_aggregate"],
+                                  aggregate_paths_phase(torch, ops, tref))
     for k, v in quantizer_paths_phase(torch, ops, tref).items():
         err[k] = max(err[k], v)
     err.update(wire_kernels_phase(torch, ops, tref, quant))

@@ -39,6 +39,7 @@ SIGNATURES = {
     "repro_quantizer_plan": (_c, _c, _c, _ll, _c),
     "repro_masked_aggregate_f32": (_c, _c, _c, _i, _ll, _f, _c),
     "repro_masked_aggregate_i32": (_c, _c, _c, _i, _ll, _f, _c),
+    "repro_masked_aggregate_plan": (_c, _c, _i, _ll, _i, _c),
     "repro_quantize_pack": (_c, _c, _c, _i, _ll, _ll, _i, _f, _f, _i, _i,
                             _c),
     "repro_pack_plan": (_i, _i, _ll, _ll, _i, _c),

@@ -136,22 +136,6 @@ __host__ __device__ inline Tiles tiles_of(long long segments, long long W,
   return {per, per * segments};
 }
 
-// Programmatic dependent launch (Hopper): a kernel launched as a
-// dependent (launch_dependent) may start while the kernel before it on the
-// stream still runs.  Before its first load or store it waits here until
-// that kernel has finished and its writes are visible, so the stream's
-// order holds for memory (the caching allocator's reuse included).  A
-// no-op in a launch without the attribute.
-__device__ __forceinline__ void wait_for_prior_grid() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
-// Lets the next kernel on the stream, if launched as a dependent, start
-// its launch now rather than when this one ends.
-__device__ __forceinline__ void allow_dependent_grid() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-
 // x, u: (R, n); words: (R, W).  Bias +G.  Each tile: its thread's words
 // w = base + k*kThreads (k < kWords), every plane of x and u of each
 // loaded before the first code is computed.  u is read only when
@@ -433,24 +417,6 @@ int unpack_blocks(long long tiles) {
                   tiles);
 }
 
-// Launches `blocks` blocks of kThreads of kernel(args...) on `st` as a
-// programmatic dependent of the kernel before it; the kernel calls
-// wait_for_prior_grid before it touches memory.
-template <typename... Params, typename... Args>
-cudaError_t launch_dependent(void (*kernel)(Params...), int blocks,
-                             cudaStream_t st, Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, ((Params)args)...);
-}
-
 template <int CPW, bool kStochastic>
 void launch_quantize_pack(const float* x, const float* u, uint32_t* words,
                           int rows, long long n, long long W, int lane,
@@ -538,7 +504,7 @@ int repro_unpack_dequantize(const void* words, void* out, int rows,
         constexpr int CPW = decltype(c)::value;
         const Tiles t = tiles_of(rows, W, kThreads * kUnpackWords(CPW));
         err = launch_dependent(unpack_dequantize_kernel<CPW>,
-                               unpack_blocks<CPW>(t.total),
+                               unpack_blocks<CPW>(t.total), kThreads,
                                (cudaStream_t)stream, (const uint32_t*)words,
                                (float*)out, size, W, lane, (uint32_t)bias,
                                inv_gain, t);
@@ -597,7 +563,7 @@ int repro_pack_sums(const void* codes, void* words, int rows, long long n,
         constexpr int CPW = decltype(c)::value;
         const Tiles t = tiles_of(rows, W, kThreads * kSumWords(CPW));
         err = launch_dependent(pack_sums_kernel<CPW>,
-                               pack_sums_blocks<CPW>(t.total),
+                               pack_sums_blocks<CPW>(t.total), kThreads,
                                (cudaStream_t)stream, (const int*)codes,
                                (uint32_t*)words, n, W, lane, (uint32_t)bias, t);
       }))

@@ -1,7 +1,10 @@
-// The quantizer's step, its L2 cache policies and its one-wave launch
-// geometry, shared by quantize.cu (stochastic_quantize_codes,
-// dequantize_codes) and pack.cu (quantize_pack, quantize_pack_chunk), so
-// the kernels that quantize round alike and share their L2 policies.
+// The quantizer's step, its L2 cache policies, its one-wave launch
+// geometry and the programmatic dependent launch, shared by quantize.cu
+// (stochastic_quantize_codes, dequantize_codes) and pack.cu
+// (quantize_pack, quantize_pack_chunk, pack_sums, unpack_dequantize), so
+// the kernels that quantize round alike and share their L2 policies;
+// aggregate.cu (masked_aggregate) shares the geometry and the dependent
+// launch.
 //
 // The step is the reference's multiply (src/repro/kernels/ref.py
 // stochastic_quantize_ref, src/repro/core/quantization.py quantize_codes):
@@ -123,6 +126,40 @@ inline int one_wave(const void* kernel, int threads, int* cache,
                     long long items) {
   const int w = resident_blocks(kernel, threads, cache);
   return (int)(items < 1 ? 1 : items < w ? items : w);
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched as a
+// dependent (launch_dependent) may start while the kernel before it on the
+// stream still runs.  Before its first load or store it waits here until
+// that kernel has finished and its writes are visible, so the stream's
+// order holds for memory (the caching allocator's reuse included).  A
+// no-op in a launch without the attribute.
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Lets the next kernel on the stream, if launched as a dependent, start
+// its launch now rather than when this one ends.
+__device__ __forceinline__ void allow_dependent_grid() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Launches `blocks` blocks of `threads` of kernel(args...) on `st` as a
+// programmatic dependent of the kernel before it; the kernel calls
+// wait_for_prior_grid before it touches memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), int blocks,
+                             int threads, cudaStream_t st, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, ((Params)args)...);
 }
 
 }  // namespace

@@ -168,9 +168,42 @@ def dequantize_codes(codes: torch.Tensor, bits: int, *,
     return out
 
 
+class AggregatePlan(NamedTuple):
+    k_spec: int      # the K specialisation (1-16), 0 for the generic kernel
+    load_bytes: int  # bytes a load of the updates: 16, 8 or 4
+    loads: int       # loads a thread issues before its first FMA
+    head: int        # columns before the first boundary, one a thread
+    vectors: int     # whole vectors of load_bytes / 4 columns
+    tail: int        # columns after the last vector, one a thread
+    tiles: int       # tiles of 256 threads' vectors
+    blocks: int      # blocks launched: one wave, capped by the tiles
+
+
+def _aggregate_out(updates: torch.Tensor) -> torch.Tensor:
+    """The (D,) output, at the updates' offset past a 16-byte boundary:
+    the kernel's vector path needs every row start and the output there."""
+    return _empty_at_offset_of(updates[0], torch.float32)
+
+
+def masked_aggregate_plan(updates: torch.Tensor) -> AggregatePlan:
+    """The launch ``masked_aggregate`` makes for CUDA updates (K, D), as the
+    kernel's C side picks it from K, D, the pointers (the output's offset
+    is the updates') and the card's SM count."""
+    K, D = updates.shape
+    out = _aggregate_out(updates)
+    plan = (ctypes.c_longlong * 8)()
+    build.library("aggregate").repro_masked_aggregate_plan(
+        updates.data_ptr(), out.data_ptr(), K, D,
+        int(updates.dtype == torch.int32), plan)
+    return AggregatePlan(*plan)
+
+
 def masked_aggregate(updates: torch.Tensor, weights: torch.Tensor,
                      eps: float = 1e-12) -> torch.Tensor:
-    """updates (K, D) f32/int32, weights (K,) f32 -> (D,) f32 (paper eq. 6)."""
+    """updates (K, D) f32/int32, weights (K,) f32 -> (D,) f32 (paper eq. 6):
+    ``fma(w_k, u_k, acc)`` over k in order, over the weights' sum in order
+    (the reference's order).  On the card the output starts at the
+    updates' offset past a 16-byte boundary."""
     if updates.dim() != 2 or weights.shape != (updates.shape[0],):
         raise ValueError(f"need updates (K, D) and weights (K,), got "
                          f"{tuple(updates.shape)} and {tuple(weights.shape)}")
@@ -187,7 +220,7 @@ def masked_aggregate(updates: torch.Tensor, weights: torch.Tensor,
     _check(updates, updates.dtype, updates.device, "updates")
     _check(weights, torch.float32, updates.device, "weights")
     K, D = updates.shape
-    out = torch.empty(D, dtype=torch.float32, device=updates.device)
+    out = _aggregate_out(updates)
     err = getattr(build.library("aggregate"), fn)(
         updates.data_ptr(), weights.data_ptr(), out.data_ptr(), K, D,
         float(np.float32(eps)), _stream(updates.device))

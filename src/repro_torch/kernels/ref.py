@@ -68,16 +68,47 @@ def dequantize_ref(codes: torch.Tensor, bits: int, *,
     return codes.float() * _scalar(clip / float(2 ** (bits - 1)), codes)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a·b + c rounded once (a fused multiply-add), for float32
+    tensors that broadcast.
+
+    The only plain version that computes in float64: the product of two
+    float32 values is exact there (24 + 24 bits fit in 53); the sum with
+    c is rounded to odd (TwoSum gives its error e; where e != 0 and the
+    last bit of the sum is even, step its bit pattern one ulp towards e),
+    then cast to float32 once.  Rounding to odd in 53 bits and then to
+    nearest in 24 is correct rounding, as 53 >= 24 + 2 (Boldo and
+    Melquiond).  The sum is not 0 where e != 0, so the step never crosses
+    zero."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    step = torch.where((e > 0) == (s > 0), 1, -1)
+    bits = bits + torch.where((e != 0) & ((bits & 1) == 0), step, 0)
+    return bits.view(torch.float64).float()
+
+
 def masked_aggregate_ref(updates: torch.Tensor, weights: torch.Tensor,
                          eps: float = 1e-12) -> torch.Tensor:
     """Error-aware weighted aggregation (paper eq. 6).
 
     updates: (K, D) client deltas (f32 or int32); weights: (K,) = α_k·λ_k.
-    Returns Σ_k w_k·u_k / max(Σ_k w_k, eps).
+    Returns Σ_k w_k·u_k / max(Σ_k w_k, eps) in the reference's order, as
+    XLA:CPU runs its Pallas kernel and its jitted ``error_aware_aggregate``
+    (the multiply contracted into the reduce): ``acc = fma(w_k, u_k, acc)``
+    for k = 0..K-1 from 0, the denominator summed in k order from 0.
     """
     w = weights.float()
-    num = (w[:, None] * updates.float()).sum(0)
-    return num / torch.clamp(w.sum(), min=eps)
+    acc = torch.zeros(updates.shape[1:], dtype=torch.float32,
+                      device=updates.device)
+    den = torch.zeros((), dtype=torch.float32, device=updates.device)
+    for k in range(updates.shape[0]):
+        acc = fma32(w[k], updates[k].float(), acc)
+        den = den + w[k]
+    return acc / torch.clamp(den, min=eps)
 
 
 def quantize_pack_ref(x: torch.Tensor, u: Optional[torch.Tensor], bits: int, *,

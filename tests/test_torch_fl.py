@@ -194,6 +194,9 @@ def test_aggregation_matches_jax_pure_forms(aware):
                                         jnp.asarray(lam))["w"]
             got = tagg.naive_aggregate(torch.from_numpy(w), torch.from_numpy(deltas),
                                        torch.from_numpy(lam))
+        # the eager reference runs one op at a time and does not contract
+        # its multiply into the sum, while the port follows the jitted form
+        # (one fused multiply-add a client; tests/test_torch_aggregate_fma.py)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 

@@ -9,7 +9,9 @@ The JAX reference is imported by a fixture, not at the top, so that the
 ``gpu`` test also runs where JAX is not installed
 (``pytest -m gpu --noconftest tests/test_torch_kernels.py``).
 """
+import sys
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -102,11 +104,9 @@ def test_aggregate_plain_matches_pallas(jx, kd, dtype):
     oracle = np.asarray(jx.ref.masked_aggregate_ref(jx.jnp.asarray(upd), jx.jnp.asarray(w)))
     got = ops.masked_aggregate(torch.from_numpy(upd), torch.from_numpy(w)).numpy()
     assert got.shape == (D,) and got.dtype == np.float32
-    # the sums run in another order; atol 1e-6 is for updates of unit
-    # scale, so it grows with the int codes' magnitude (cancellation)
-    atol = 1e-6 * max(1.0, float(np.abs(upd).max()))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
-    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=atol)
+    # the plain version runs the reference's fused multiply-add chain
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracle)
 
 
 def test_aggregate_all_zero_weights_gives_zero(jx):
@@ -257,9 +257,7 @@ def test_cuda_kernels_match_plain_versions():
                                      dtype=torch.int32)):
             for wts in (w, torch.zeros_like(w)):
                 got = ops.masked_aggregate(upd, wts)
-                atol = 1e-6 * max(1.0, float(upd.abs().max()))
-                torch.testing.assert_close(got, tref.masked_aggregate_ref(upd, wts),
-                                           rtol=1e-5, atol=atol)
+                assert torch.equal(got, tref.masked_aggregate_ref(upd, wts)), (K, D)
         torch.cuda.synchronize()
 
 
@@ -299,4 +297,23 @@ def test_cuda_quantizer_paths_match_plain_versions():
                     deq = ops.dequantize_codes(codes, bits, clip=clip)
                     assert ops.quantizer_plan(codes, None, deq).vector
                     assert torch.equal(deq, tref.dequantize_ref(codes, bits, clip=clip))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_aggregate_paths_match_plain_version():
+    """masked_aggregate through ``chip_smoke.py``'s ``aggregate_paths_phase``
+    (its cases and plan rule live there once): every K specialisation
+    (1-16) and the generic kernel (K 17, 20, 33), each load width (D = 0,
+    2, 1 or 3 mod 4, and one row at any D), views 4, 8 and 12 bytes past a
+    16-byte boundary, D = 1 and the edges of a tile, f32 and int32 updates,
+    weights with a zero and all zero: ``torch.equal`` to the plain version,
+    one launch a call, the output at the updates' offset and the plan as
+    predicted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import aggregate_paths_phase
+
+    aggregate_paths_phase(torch, ops, tref)
     torch.cuda.synchronize()

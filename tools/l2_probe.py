@@ -32,6 +32,11 @@ paths' shapes:
   sums of 2, lane 9), through ``pack.cu``'s C entry points built as the
   port builds it (the f32 stored ``evict_last``) and with
   -DREPRO_PLAIN_CACHE_POLICY (stored plainly).
+* ``masked_aggregate`` at (10, 421,642) f32 and the round's kernels
+  from the uplink's codes to eq. 6 (``dequantize_codes``, then
+  ``error_aware_aggregate``'s weights ``alphas * lambdas`` and
+  ``masked_aggregate`` of the f32), as the port builds and launches them,
+  beside a ``copy_`` of its 18.55 MB.
 * the residue of the codes' ``evict_last`` lines: ``torch.add(x, u)``
   timed after the write flush before any hinted launch, after 50 hinted
   quantize launches into one buffer, after one dequantize of that buffer
@@ -42,7 +47,10 @@ paths' shapes:
 It prints one JSON line per case with the card's name and power limit.
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/l2_probe.py
+    python3 tools/l2_probe.py [case prefix ...]
+
+With prefixes it times only the cases whose names start with one of them
+(and skips the residue probe); every case is still checked.
 """
 from __future__ import annotations
 
@@ -176,31 +184,10 @@ def rsag_cases(torch, lib, hop_sums, summed, sums2, D, bits=8, lane=12):
             "rsag_tail_pair": lambda: unpack(sums(), C, chunk, bias)}
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("l2_probe: no CUDA device; it needs a card")
-    from chip_smoke import time_back_to_back_ms
-    from repro_torch.core import aggregation as agg
-    from repro_torch.core import quantization as quant
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels import ref as tref
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.splitlines()[0].strip()
-    C, D = 10, 421_642
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    codes = torch.randint(-128, 128, (C, D), generator=gen, device="cuda",
-                          dtype=torch.int32)
-    words = quant.pack_codes(codes, 8)
-    acc, other = codes.clone(), codes.clone()
-    x = (torch.rand((C, D), generator=gen, device="cuda") - 0.5) * 0.02
-    u = torch.rand((C, D), generator=gen, device="cuda")
-    buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB
-    flushes = {"write": buf.zero_, "read": buf.sum}
-    add_ms = lambda: single_ms(torch, lambda: torch.add(x, u), flushes["write"])
+def residue_probe(torch, ops, tref, build, x, u, flush, card):
+    """``torch.add(x, u)`` after the write flush, before any hinted launch
+    and after each step of the codes' hinted life (module docstring)."""
+    add_ms = lambda: single_ms(torch, lambda: torch.add(x, u), flush)
     residue = {"before": add_ms()}
     kept = ops.stochastic_quantize_codes(x, u, 8)
     lib = build.library("quantize")
@@ -215,6 +202,35 @@ def main() -> int:
     residue["after_zero_"] = add_ms()
     print(json.dumps({"probe": "evict_last_residue",
                       "add_x_u_ms_write_flush": residue, "card": card}))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("l2_probe: no CUDA device; it needs a card")
+    from chip_smoke import copy_yardstick, time_back_to_back_ms
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import quantization as quant
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ref as tref
+
+    only = tuple(sys.argv[1:])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.splitlines()[0].strip()
+    C, D = 10, 421_642
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    codes = torch.randint(-128, 128, (C, D), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    words = quant.pack_codes(codes, 8)
+    acc, other = codes.clone(), codes.clone()
+    x = (torch.rand((C, D), generator=gen, device="cuda") - 0.5) * 0.02
+    u = torch.rand((C, D), generator=gen, device="cuda")
+    buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB
+    flushes = {"write": buf.zero_, "read": buf.sum}
+    if not only:
+        residue_probe(torch, ops, tref, build, x, u, flushes["write"], card)
     cases = {"repack_hop": lambda: ops.repack(words, acc, 8, D, hop=1),
              "copy_33_7MB": lambda: acc.copy_(other),
              "add_x_u": lambda: torch.add(x, u)}
@@ -265,7 +281,23 @@ def main() -> int:
     front, acc0 = tref.quantize_pack_chunk_ref(x, u, 8, num_chunks=1)
     assert torch.equal(hop, tref.repack_ref(front.view(C, -1), acc0.view(C, D),
                                             8, D, hop=1))
+    w = torch.rand(C, generator=gen, device="cuda") * 0.1
+    lam = (torch.arange(C, device="cuda") != 3).float()    # one packet lost
+    deq = tref.dequantize_ref(codes, 8)
+    want = {"masked_aggregate": tref.masked_aggregate_ref(x, w),
+            "uplink_aggregate_pair": tref.masked_aggregate_ref(deq, w * lam)}
+    cases["copy_18_55MB"] = copy_yardstick(torch, 4.0 * C * D + 4.0 * D + 4.0 * C)[1]
+    for name, fn in {"masked_aggregate": lambda: ops.masked_aggregate(x, w),
+                     "uplink_aggregate_pair": lambda: ops.masked_aggregate(
+                         ops.dequantize_codes(codes, 8),
+                         (w * lam).float().contiguous())}.items():
+        got = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[name]), name
+        cases[name] = fn
     for name, fn in cases.items():
+        if only and not name.startswith(only):
+            continue
         print(json.dumps({"probe": name, **{
             f"ms_{k}_flush": single_ms(torch, fn, f) for k, f in flushes.items()},
             "ms_back_to_back": time_back_to_back_ms(torch, fn),
