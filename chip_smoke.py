@@ -16,7 +16,19 @@ through the kernels at the paper's widths:
   formats, and on two axes (2, 5) ("pod", "data") in int, packed, ring,
   rsag and auto;
 * the int8 product ``kernels.ops.qmatmul``, whose entry point is the
-  kernel API itself (no round calls it), at the shapes it is given.
+  kernel API itself (no round calls it), at the shapes it is given;
+* the fleet (``population``): ``FLSimulator`` over a 10^6-device fleet,
+  5 rounds each of rate_aware selection with fbl_target power (eq. 6)
+  and of lyapunov selection with lyapunov power and the unbiased IPW
+  aggregate (``masked_aggregate`` with a denominator); the cohort round
+  with a 10^5-device fleet and the IPW scale at (10,) and (2, 5) in int,
+  packed, ring and rsag; ``round_update`` alone at 10^6 devices, which
+  must make no synchronizing call;
+* the paper's §III planner: ``joint_optimize`` on the card against the
+  paper's trends, and the four power policies over 100 rounds of the
+  population layer at 10^5 devices, ``fixed`` seeded by
+  ``calibrate_fixed_power``, against the ordering the reference's
+  ``benchmarks/power_policies.py`` gates.
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -51,6 +63,10 @@ KERNELS = {
                          "src/repro/kernels/quantize.py:75"),
     "masked_aggregate": ("src/repro_torch/kernels/csrc/aggregate.cu",
                          "src/repro/kernels/aggregate.py:28"),
+    # the same kernel with a given divisor: the fleet's IPW aggregate
+    # (src/repro/population/errors.py:90), eq. 6's Pallas kernel's chain
+    "masked_aggregate_den": ("src/repro_torch/kernels/csrc/aggregate.cu",
+                             "src/repro/kernels/aggregate.py:28"),
     "quantize_pack": (PACK_SRC, "src/repro/kernels/pack.py:76"),
     "unpack_dequantize": (PACK_SRC, "src/repro/kernels/pack.py:134"),
     "quantize_pack_chunk": (PACK_SRC, "src/repro/kernels/pack.py:273"),
@@ -108,8 +124,22 @@ UNPACK_WORDS = {32: 1, 16: 1, 10: 1, 8: 1, 6: 2, 5: 2, 4: 2, 3: 3, 2: 4, 1: 8}
 #: the one PyTorch call timed beside a kernel (library_ms), where one exists
 LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
                  "masked_aggregate": "w @ x / sum(w)",
+                 "masked_aggregate_den": "w @ x / den",
                  "qmatmul": "torch._int_mm (int32, no scaling), the faster of "
                             "w row-major and w column-major"}
+
+
+#: the fleet paths: FLSimulator over FLEET_SIZE devices in (selection,
+#: power policy, error_reweight) runs, the cohort round over
+#: COHORT_FLEET_SIZE devices in each wire format of COHORT_FLEET_MODES,
+#: and the power-policy check of the population layer alone
+FLEET_SIZE = 1_000_000
+FLEET_SIM_RUNS = (("rate_aware", "fbl_target", False),
+                  ("lyapunov", "lyapunov", True))
+COHORT_FLEET_SIZE = 100_000
+COHORT_FLEET_MODES = ("int", "packed", "ring", "rsag")
+POWER_CHECK = {"size": 100_000, "rounds": 100, "cohort": 64,
+               "noise_psd_dbm": 0.0, "outage_tol": 0.02, "cmaes_iters": 40}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -151,7 +181,7 @@ def _edge_values(torch, bits, clip):
 def kernels_phase(torch, ops, tref):
     """Each kernel against its plain version at the main and a ragged shape."""
     err = {k: 0.0 for k in ("stochastic_quantize_codes", "dequantize_codes",
-                            "masked_aggregate")}
+                            "masked_aggregate", "masked_aggregate_den")}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, (K, D) in SHAPES.items():
         x = (torch.rand((K, D), generator=gen, device="cuda") - 0.5) * 3
@@ -195,9 +225,18 @@ def kernels_phase(torch, ops, tref):
                   f"aggregate differs: {label} {upd.dtype} K={upd.shape[0]}")
             if float(wts.abs().sum()) == 0.0:
                 check(bool((got == 0).all()), "all-zero weights must give 0")
+            den = wts.sum() * 0.75 + 0.01          # a divisor on the card
+            got = ops.masked_aggregate(upd, wts, den=den)
+            torch.cuda.synchronize()
+            want = tref.masked_aggregate_ref(upd, wts, den=den)
+            err["masked_aggregate_den"] = max(err["masked_aggregate_den"],
+                                              _max_diff(got, want))
+            check(torch.equal(got, want),
+                  f"aggregate with den differs: {label} {upd.dtype} "
+                  f"K={upd.shape[0]}")
         print(f"kernels == plain (torch.equal) at {label} shape (K={K}, D={D}): "
-              f"quantize, dequantize, aggregate (f32 and int32 updates, "
-              f"all-zero weights, K=1)")
+              f"quantize, dequantize, aggregate with and without a "
+              f"denominator (f32 and int32 updates, all-zero weights, K=1)")
     return err
 
 
@@ -236,10 +275,12 @@ def aggregate_paths_phase(torch, ops, tref):
     """``masked_aggregate`` against its plain version, ``torch.equal``, at
     AGG_CASES, f32 and int32 updates, weights with a zero and all zero: its
     launch plan as predicted, one launch counted a call, the output at the
-    updates' offset.  Prints the launches by path (K specialisation, bytes
-    a load).  Returns the max abs error."""
+    updates' offset; each case again with a denominator on the card,
+    counted once as ``masked_aggregate_den``.  Prints the launches by path
+    (K specialisation, bytes a load).  Returns the max abs errors without
+    and with the denominator."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    err, cases, paths = 0.0, 0, {}
+    err, err_den, cases, paths = 0.0, 0.0, 0, {}
     for K, D, off in AGG_CASES:
         x = at_offset(torch, (torch.rand(K * D, generator=gen, device="cuda") - 0.5)
                       * 0.02, off).view(K, D)
@@ -264,18 +305,30 @@ def aggregate_paths_phase(torch, ops, tref):
                 err = max(err, _max_diff(got, want))
                 check(torch.equal(got, want), f"aggregate differs: {what}")
                 check(got.data_ptr() % 16 == off, f"aggregate output offset: {what}")
+                den = wts.sum() * 0.75 + 0.01
+                before = ops.LAUNCHES["masked_aggregate_den"]
+                got = ops.masked_aggregate(upd, wts, den=den)
+                check(ops.LAUNCHES["masked_aggregate_den"] == before + 1,
+                      f"aggregate with den not counted once: {what}")
+                torch.cuda.synchronize()
+                want = tref.masked_aggregate_ref(upd, wts, den=den)
+                err_den = max(err_den, _max_diff(got, want))
+                check(torch.equal(got, want), f"aggregate with den differs: {what}")
+                check(got.data_ptr() % 16 == off,
+                      f"aggregate with den output offset: {what}")
                 key = (plan.k_spec, plan.load_bytes)
-                paths[key] = paths.get(key, 0) + 1
-                cases += 1
+                paths[key] = paths.get(key, 0) + 2
+                cases += 2
     specs = sorted({k for k, _ in paths})
     check(specs == list(range(17)), f"K specialisations launched: {specs}")
     check({b for _, b in paths} == {4, 8, 16}, f"load widths launched: {paths}")
     print(f"aggregate == plain (torch.equal) in {cases} cases: K 1-16 and "
           f"generic (17, 20, 33), D = 0-3 mod 4, views at byte offsets 4/8/12, "
-          f"tile edges, f32 and int32, weights with a zero and all zero; "
+          f"tile edges, f32 and int32, weights with a zero and all zero, "
+          f"each without and with a denominator; "
           f"launches by (K specialisation, bytes a load): "
           + ", ".join(f"{k}/{b}B {n}" for (k, b), n in sorted(paths.items())))
-    return err
+    return err, err_den
 
 
 def quantizer_paths_phase(torch, ops, tref):
@@ -728,6 +781,17 @@ def main_path_phase(torch, ops, get_config, build_model, make_federated_digits,
     return launches, sim, params
 
 
+class WeightStore:
+    """The client store a simulator's constructor reads for a round on
+    prepared inputs: the client weights and the store's device."""
+
+    def __init__(self, torch, device):
+        self.device = torch.device(device)
+
+    def client_weights(self):
+        return [0.1] * 10
+
+
 def reference_phase(torch, get_config, build_model, FLSimulator, convert):
     """One small round on the card against the same round on the CPU."""
     K, I, B = 3, 2, 8
@@ -744,17 +808,9 @@ def reference_phase(torch, get_config, build_model, FLSimulator, convert):
               "u_up": torch.rand((K, D), generator=gen),
               "lam": torch.tensor([1.0, 0.0, 1.0]),
               "alphas": torch.tensor([0.1, 0.25, 0.05])}
-
-    class Store:
-        def __init__(self, device):
-            self.device = torch.device(device)
-
-        def client_weights(self):
-            return [0.1] * 10
-
     out = {}
     for dev in ("cpu", "cuda"):
-        sim = FLSimulator(model, cfg, Store(dev), device=dev)
+        sim = FLSimulator(model, cfg, WeightStore(torch, dev), device=dev)
         b = {k: v.to(dev) for k, v in inputs["batches"].items()}
         kw = {k: inputs[k].to(dev) for k in ("u_train", "u_up")}
         deltas, _, _ = sim._client_update(params.to(dev), b, **kw)
@@ -950,6 +1006,400 @@ def cohort_reference_phase(torch, get_config, build_model, make_fl_round,
     check(float(diff.max()) <= 1 and agree >= 0.999, "cohort uplink codes disagree")
     check(float(perr.max()) <= 1 / 128 and float((perr <= 1e-5).float().mean()) >= 0.999,
           "cohort round parameters disagree with the CPU path")
+
+
+def fleet_config(cfg, size, selection, policy, reweight=False, **channel):
+    """``cfg`` with a fleet of ``size`` devices under ``selection`` and the
+    ``policy`` power policy (and channel overrides)."""
+    return dataclasses.replace(
+        cfg,
+        fleet=dataclasses.replace(cfg.fleet, size=size, selection=selection,
+                                  error_reweight=reweight),
+        power=dataclasses.replace(cfg.power, policy=policy),
+        channel=dataclasses.replace(cfg.channel, **channel))
+
+
+def check_battery(torch, before, after, charged, harvested, what):
+    """The fleet's energy moved by exactly the realized charge less the
+    harvest: per-device differences summed in float64 (a float32 total of
+    5·10^7 J has a 4 J ulp), as tests/test_population.py:426 does."""
+    moved = float((before.double() - after.double()).sum())
+    want = charged - harvested
+    check(abs(moved - want) <= 1e-3 * abs(want) + 0.05,
+          f"{what}: battery moved {moved} J, charged less harvested {want} J")
+    return moved
+
+
+def fleet_simulator_phase(torch, ops, sim0, get_config, FLSimulator, convert,
+                          smi):
+    """``FLSimulator.run_rounds`` over a FLEET_SIZE-device fleet on the
+    main path's QNN, store and settings, ROUNDS rounds of each run of
+    FLEET_SIM_RUNS; the launch counts set to 0 just before each run and
+    read just after.  Checks: loss finite and falling, the selected ids
+    valid, the battery conserved, the launches (eq. 6, or with
+    error_reweight the IPW aggregate's masked_aggregate_den); then two
+    more rounds queued under ``torch.cuda.set_sync_debug_mode("error")``
+    (no synchronizing call in the fleet loop), and the device time of a
+    traced round.  Returns the runs' launches summed."""
+    model, store = sim0.model, sim0.store
+    base = paper_config(get_config)
+    I, R = base.fl.local_iters, ROUNDS
+    total = {k: 0 for k in ops.LAUNCHES}
+    for selection, policy, reweight in FLEET_SIM_RUNS:
+        label = f"{selection}/{policy}" + ("/ipw" if reweight else "/eq6")
+        cfg = fleet_config(base, FLEET_SIZE, selection, policy, reweight)
+        t0 = time.perf_counter()
+        sim = FLSimulator(model, cfg, store)
+        params0 = convert.flatten_params(model.init(1))
+        before = sim.fleet_state.battery_j.clone()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, hist = sim.run_rounds(params0, R, gen)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        losses = [h["loss"] for h in hist]
+        check(all(map(math.isfinite, losses)), f"fleet {label}: loss {losses}")
+        check(losses[-1] < losses[0], f"fleet {label}: loss did not fall {losses}")
+        check(bool(torch.isfinite(params).all()), f"fleet {label}: parameters")
+        for h in hist:
+            check(len(h["selected"]) == int(h["selected_valid"])
+                  and all(0 <= d < FLEET_SIZE for d in h["selected"])
+                  and len(set(h["selected"])) == len(h["selected"]),
+                  f"fleet {label}: selected {h['selected']}")
+        moved = check_battery(torch, before, sim.fleet_state.battery_j,
+                              sum(h["cohort_energy_j"] for h in hist),
+                              sum(h["harvested_j"] for h in hist),
+                              f"fleet {label}")
+        want = {k: 0 for k in ops.LAUNCHES}
+        want.update({"stochastic_quantize_codes": (I + 1) * R,
+                     "dequantize_codes": (I + 1) * R,
+                     "masked_aggregate_den" if reweight
+                     else "masked_aggregate": R})
+        check(launches == want,
+              f"fleet {label}: launches {launches} != predicted {want}")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            queued, _ = sim._queue_fleet_rounds(params, 2, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(json.dumps({"fleet_simulator": label, "fleet_size": FLEET_SIZE,
+                          "K": base.fl.devices_per_round, "I": I,
+                          "rounds": R, "setup_s": setup_s,
+                          "rounds_host_ms": run_ms,
+                          "round_host_ms_mean": run_ms / R,
+                          "rounds_host_ms_is": "run_rounds through its "
+                                               "history and a synchronize",
+                          "losses": losses,
+                          "survivors": [h["survivors"] for h in hist],
+                          "selected": [h["selected"] for h in hist],
+                          "energy_j": [h["energy_j"] for h in hist],
+                          "outage_rate": [h["outage_rate"] for h in hist],
+                          "battery_moved_j": moved,
+                          "launches": {k: v for k, v in launches.items() if v},
+                          "sync_free_rounds": 2, "card": smi}))
+        profile_phase(torch, f"FLSimulator fleet {label} {FLEET_SIZE:,}",
+                      lambda: sim.run_round(params, gen))
+    return total
+
+
+def round_update_phase(torch, get_config, tfleet, smi):
+    """``round_update`` alone at FLEET_SIZE devices and K = 10 (the first
+    fleet run's policies): device time queued behind a sleep, and host time
+    through a synchronize; one call under sync debug mode "error"."""
+    cfg = fleet_config(paper_config(get_config), FLEET_SIZE,
+                       *FLEET_SIM_RUNS[0])
+    D, K = 421_642, cfg.fl.devices_per_round
+    state = tfleet.init_fleet(0, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    fn = lambda: tfleet.round_update(state, gen, cfg, D, K)
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    queued, late = time_queued_ms(torch, fn)
+    host = host_ms(torch, fn)
+    print(json.dumps({"timing": "round_update", "fleet_size": FLEET_SIZE,
+                      "k": K, "selection": cfg.fleet.selection,
+                      "power": cfg.power.policy, "ms_queued": queued,
+                      "ms_queued_late": late, "host_ms": host,
+                      "ms_queued_is": "device time of one call queued behind "
+                                      "a device sleep, L2 flushed, median of 50",
+                      "host_ms_is": "median host time of one call through a "
+                                    "synchronize",
+                      "card": smi}))
+    return {"ms_queued": queued, "ms_queued_late": late, "host_ms": host}
+
+
+def cohort_fleet_phase(torch, ops, get_config, build_model, digit_dataset,
+                       make_fl_round, tfleet, smi):
+    """The cohort round with a COHORT_FLEET_SIZE-device fleet (rate_aware,
+    fbl_target, the IPW scale after the collective) at (10,) and (2, 5) in
+    each format of COHORT_FLEET_MODES, COHORT_ROUNDS rounds from the same
+    parameters, fleet, batches and generator seed, the counts set to 0
+    just before each format's rounds and read just after.  Checks the
+    launches against ``predicted_cohort_launches``, loss finite and
+    falling, the battery conserved, and parameters and fleet
+    ``torch.equal`` across formats and layouts.  Returns the launches."""
+    C, I, micro, R = 10, 3, 32, COHORT_ROUNDS
+    cfg = fleet_config(cohort_config(get_config, I=I, micro=micro, C=C),
+                       COHORT_FLEET_SIZE, "rate_aware", "fbl_target", True)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = digit_dataset(gen, R * C * I * micro)
+    batches = [{k: v[r * C * I * micro:(r + 1) * C * I * micro]
+                for k, v in data.items()} for r in range(R)]
+    params0 = torch.cat([v.reshape(-1) for _, v in sorted(model.init(1).items())])
+    fleet0 = tfleet.init_fleet(4, cfg)
+    total = {k: 0 for k in ops.LAUNCHES}
+    results = {}
+    for sizes in ((C,), (2, 5)):
+        for mode in COHORT_FLEET_MODES:
+            fn = make_fl_round(model, cfg, sizes, collective=mode)
+            g = torch.Generator(device="cuda").manual_seed(11)
+            params, fleet, hist, ms = params0, fleet0, [], []
+            ops.reset_launch_counts()
+            for r in range(R):
+                t0 = time.perf_counter()
+                params, m, fleet = fn(params, batches[r], g, fleet)
+                loss = float(m["loss"])              # waits for the round
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                hist.append({k: float(m[k]) for k in
+                             ("survivors", "selected_valid", "cohort_energy_j",
+                              "harvested_j", "outage_rate")} | {"loss": loss})
+            launches = dict(ops.LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            want = {k: 0 for k in ops.LAUNCHES}
+            want.update(predicted_cohort_launches(mode, True, sizes, I, R))
+            what = f"fleet cohort round {sizes} {mode}"
+            check(launches == want, f"{what}: launches {launches} != {want}")
+            losses = [h["loss"] for h in hist]
+            check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+                  f"{what}: loss {losses}")
+            check(all(h["selected_valid"] == C for h in hist),
+                  f"{what}: cohort not filled {hist}")
+            check_battery(torch, fleet0.battery_j, fleet.battery_j,
+                          sum(h["cohort_energy_j"] for h in hist),
+                          sum(h["harvested_j"] for h in hist), what)
+            results[sizes, mode] = params, fleet
+            print(json.dumps({"fleet_cohort_round": mode,
+                              "axis_sizes": list(sizes), "C": C, "I": I,
+                              "fleet_size": COHORT_FLEET_SIZE,
+                              "error_reweight": True, "losses": losses,
+                              "survivors": [h["survivors"] for h in hist],
+                              "outage_rate": [h["outage_rate"] for h in hist],
+                              "round_ms": ms,
+                              "round_ms_median": sorted(ms)[R // 2],
+                              "launches": {k: v for k, v in launches.items() if v},
+                              "card": smi}))
+    p_ref, f_ref = results[(C,), "int"]
+    for key, (p, f) in results.items():
+        check(torch.equal(p, p_ref), f"fleet cohort {key}: params differ from int")
+        for name in tfleet.FleetState._fields:
+            check(torch.equal(getattr(f, name), getattr(f_ref, name)),
+                  f"fleet cohort {key}: fleet.{name} differs from int")
+    print(f"fleet cohort round: params and fleet torch.equal across "
+          f"{', '.join(COHORT_FLEET_MODES)} after {R} rounds at (10,) and "
+          f"(2, 5); launches as predicted")
+    fn = make_fl_round(model, cfg, (C,), collective="rsag")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    profile_phase(torch, f"make_fl_round rsag (10,) fleet {COHORT_FLEET_SIZE:,}",
+                  lambda: fn(params0, batches[0], g, fleet0))
+    return total
+
+
+def fleet_reference_phase(torch, get_config, build_model, FLSimulator,
+                          convert, tfleet, smi):
+    """Small fleet rounds on the card against the same rounds on the CPU,
+    on one set of draws.  One ``FLSimulator`` fleet round (K=3, I=2, B=8,
+    4,096 devices, rate_aware selection at the configured power): the
+    selected ids and their validity equal, uplink codes and parameters
+    as ``reference_phase`` holds them.  Then ``round_update``, 3 rounds
+    from one fleet for each selection × power policy at 0 dBm noise: idx,
+    valid and λ equal, except that where the card's float32 arithmetic
+    reorders scores the CPU rounds equal within 2 ulps, both picks must
+    score within 2 ulps on the CPU (ROADMAP C3); such swaps are
+    counted."""
+    from repro_torch.config.base import POWER_POLICIES, SELECTION_POLICIES
+
+    K, I, B, n = 3, 2, 8, 4096
+    cfg = fleet_config(paper_config(get_config, K=K, I=I, batch=B), n,
+                       "rate_aware", "fixed", error_prob=0.3)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(8)
+    params = convert.flatten_params(model.init(3, device="cpu"))
+    D = params.numel()
+    batches = {"images": torch.randn((K, I, B, 28, 28, 1), generator=gen),
+               "labels": torch.randint(0, 10, (K, I, B), generator=gen)}
+    fleet = tfleet.init_fleet(1, cfg, device="cpu")
+    draws = tfleet.draw_round(gen, cfg, n, K)
+    noise = {"u_train": torch.rand((K, I, D), generator=gen),
+             "u_up": torch.rand((K, D), generator=gen)}
+    alphas = torch.tensor([0.1, 0.25, 0.05])
+
+    def on(dev, x):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.to(dev)
+        return type(x)(*(on(dev, t) for t in x))
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sim = FLSimulator(model, cfg, WeightStore(torch, dev), device=dev)
+        new, _, tel = sim._fleet_round(
+            params.to(dev), on(dev, fleet), {k: v.to(dev) for k, v in batches.items()},
+            alphas.to(dev), draws=on(dev, draws),
+            **{k: v.to(dev) for k, v in noise.items()})
+        out[dev] = (new.cpu(), {k: v.cpu() for k, v in tel.items()})
+    for k in ("selected", "valid", "survivors"):
+        check(torch.equal(out["cuda"][1][k], out["cpu"][1][k]),
+              f"fleet round on the card: {k} {out['cuda'][1][k]} != CPU "
+              f"{out['cpu'][1][k]}")
+    perr = (out["cuda"][0] - out["cpu"][0]).abs()
+    check(float(perr.max()) <= 1 / 128 and float((perr <= 1e-5).float().mean()) >= 0.999,
+          "fleet round parameters disagree with the CPU path")
+    print(f"card vs CPU, one FLSimulator fleet round K={K} I={I} B={B} over "
+          f"{n} devices: selected {out['cpu'][1]['selected'].tolist()} and "
+          f"valid equal, max param diff {float(perr.max()):.3g}")
+
+    swaps, rounds = 0, 0
+    for selection in SELECTION_POLICIES:
+        for policy in POWER_POLICIES:
+            c = fleet_config(cfg, n, selection, policy, noise_psd_dbm=0.0)
+            c = dataclasses.replace(c, fleet=dataclasses.replace(
+                c.fleet, harvest_j_per_round=0.05))
+            states = {d: on(d, tfleet.init_fleet(2, c, device="cpu"))
+                      for d in ("cpu", "cuda")}
+            g = torch.Generator().manual_seed(9)
+            for r in range(3):
+                dr = tfleet.draw_round(g, c, n, 16)
+                seen = {}
+                for d in ("cpu", "cuda"):
+                    states[d], info = tfleet.round_update(
+                        states[d], None, c, D, 16, draws=on(d, dr))
+                    seen[d] = {k: getattr(info, k).cpu()
+                               for k in ("idx", "valid", "lam", "scores")}
+                what = f"round_update {selection}/{policy} round {r}"
+                check(torch.equal(seen["cuda"]["valid"], seen["cpu"]["valid"]),
+                      f"{what}: valid differs")
+                rounds += 1
+                if torch.equal(seen["cuda"]["idx"], seen["cpu"]["idx"]):
+                    check(torch.equal(seen["cuda"]["lam"], seen["cpu"]["lam"]),
+                          f"{what}: lam differs")
+                    continue
+                scores = seen["cpu"]["scores"]
+                a = scores[seen["cpu"]["idx"]]
+                b = scores[seen["cuda"]["idx"]]
+                tol = 2 * torch.finfo(torch.float32).eps * a.abs()
+                check(bool(((a == b) | ((a - b).abs() <= tol)).all()),
+                      f"{what}: idx {seen['cuda']['idx'].tolist()} != CPU "
+                      f"{seen['cpu']['idx'].tolist()} beyond a float32 tie")
+                swaps += 1
+    print(f"card vs CPU, round_update over every selection × power policy "
+          f"(3 rounds each, {n} devices): valid equal in all {rounds}; idx "
+          f"and lam equal in {rounds - swaps}, the rest reordered only among "
+          f"scores within 2 float32 ulps")
+    return swaps
+
+
+def planner_phase(torch, get_config, optimize, smi):
+    """The paper's §III two-stage planner on the card (``joint_optimize``,
+    60 CMA-ES iterations, the objective on the card) against the paper's
+    trends, as tests/test_fl_system.py:125 holds the reference: q* <= 0.05,
+    P_tx* in the box, τ within tau_limit_s, FP8 >= 70 % below FP32."""
+    from repro_torch.configs.mnist_cnn import PAPER_MACS, PAPER_WEIGHTS
+
+    cfg = get_config("mnist_cnn")
+    t0 = time.perf_counter()
+    res = optimize.joint_optimize(cfg, num_params=PAPER_WEIGHTS,
+                                  macs_per_iter=PAPER_MACS, max_iters=60,
+                                  seed=0)
+    host_s = time.perf_counter() - t0
+    saving = 1 - res.per_bits[8]["energy_j"] / res.per_bits[32]["energy_j"]
+    print(json.dumps({"joint_optimize": {
+        "p_tx": res.p_tx, "q": res.q, "bits": res.bits,
+        "energy_j": res.energy_j, "tau_pr_s": res.tau_pr_s,
+        "rounds_T": res.rounds_T, "fp8_saving_vs_fp32": saving,
+        "cmaes_iterations": res.cmaes_result.iterations,
+        "per_bits": {str(k): v for k, v in res.per_bits.items()},
+        "host_s": host_s, "card": smi}}))
+    check(res.q <= 0.05, f"joint_optimize: q* {res.q} should approach 0.01")
+    check(0.1 <= res.p_tx <= 2.0, f"joint_optimize: P_tx* {res.p_tx}")
+    check(res.tau_pr_s <= cfg.fl.tau_limit_s, f"joint_optimize: τ {res.tau_pr_s}")
+    check(saving >= 0.70, f"joint_optimize: FP8 saves {saving:.2%} < 70%")
+
+
+def power_policy_phase(torch, get_config, tfleet, tpower, energy_mod, smi):
+    """The four power policies over POWER_CHECK["rounds"] rounds of the
+    population layer alone (``round_update``, no training) at
+    POWER_CHECK["size"] devices, cohort 64, uniform selection, 0 dBm noise
+    (where the inversion policies bite), ``fixed`` and the shared (P_tx, q)
+    from ``calibrate_fixed_power`` (CMA-ES on the card), as the
+    reference's ``benchmarks/power_policies.py`` runs them: the mean
+    uplink energy of the cohort and its realized outage a round, read
+    once after the last round.  channel_inversion and fbl_target must
+    spend no more uplink energy than fixed at an outage at most
+    outage_tol above it (that script's gate)."""
+    pc = POWER_CHECK
+    D, R, k = 421_642, pc["rounds"], pc["cohort"]
+    cfg = get_config("mnist_cnn")
+    cfg = fleet_config(dataclasses.replace(
+        cfg, fl=dataclasses.replace(cfg.fl, devices_per_round=k)),
+        pc["size"], "uniform", "fixed", noise_psd_dbm=pc["noise_psd_dbm"])
+    t0 = time.perf_counter()
+    cal = tpower.calibrate_fixed_power(
+        cfg, num_params=D, macs_per_iter=cfg.energy.macs_per_iteration,
+        max_iters=pc["cmaes_iters"])
+    cal_s = time.perf_counter() - t0
+    stats = {}
+    for policy in ("fixed", "channel_inversion", "fbl_target", "lyapunov"):
+        c = dataclasses.replace(cal, power=dataclasses.replace(cal.power,
+                                                               policy=policy))
+        state = tfleet.init_fleet(0, c)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        acc = torch.zeros(3, dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(R):
+            state, info = tfleet.round_update(state, gen, c, D, k)
+            e_u = energy_mod.capped_uplink_energy_j(
+                c.channel, D, tpower.uplink_bits(c), info.rates_sel,
+                c.fl.tau_limit_s, tx_power_w=info.power_sel)
+            n_valid = torch.clamp(info.valid.sum(), min=1.0)
+            acc += torch.stack([(info.valid * e_u).sum(),
+                                info.outage_sel.sum() / n_valid,
+                                info.lam.sum()]).double()
+        up, outage, surv = (acc / R).tolist()
+        ms = (time.perf_counter() - t0) * 1e3
+        stats[policy] = {"uplink_energy_j_mean": up, "outage_rate_mean": outage,
+                         "survivors_round_mean": surv,
+                         "alive_at_end": int((state.battery_j > 0).sum()),
+                         "power_mean_w": float(state.p_last.mean()),
+                         "rounds_host_ms": ms}
+    print(json.dumps({"power_policies": {
+        "fleet_size": pc["size"], "rounds": R, "cohort": k,
+        "noise_psd_dbm": pc["noise_psd_dbm"], "p_fixed_cmaes_w": cal.power.p_fixed,
+        "error_prob_cmaes": cal.channel.error_prob, "calibrate_s": cal_s,
+        "policies": stats, "card": smi}}))
+    fixed = stats["fixed"]
+    for policy in ("channel_inversion", "fbl_target"):
+        got = stats[policy]
+        check(got["uplink_energy_j_mean"] <= fixed["uplink_energy_j_mean"] * (1 + 1e-6)
+              and got["outage_rate_mean"] <= fixed["outage_rate_mean"] + pc["outage_tol"],
+              f"power policy {policy}: uplink {got['uplink_energy_j_mean']} J "
+              f"outage {got['outage_rate_mean']} against fixed "
+              f"{fixed['uplink_energy_j_mean']} J {fixed['outage_rate_mean']}")
+    return stats
 
 
 def profile_phase(torch, label, run_round, rounds=5):
@@ -1190,6 +1640,7 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     u = torch.rand((K, D), generator=gen, device="cuda")
     codes = ops.stochastic_quantize_codes(x, u, 8)
     w = torch.rand(K, generator=gen, device="cuda") * 0.1
+    den = torch.clamp(w.sum(), min=1e-12)                  # a divisor on the card
     lam = (torch.arange(K, device="cuda") != 3).float()    # one packet lost
     inv_gain = 1.0 / 128
     lane = quant.packed_lane_bits(8, K)                     # 12: 2 codes a word
@@ -1264,6 +1715,13 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             lambda: tref.masked_aggregate_ref(x, w),
             {"": lambda: (w @ x) / torch.clamp(w.sum(), min=1e-12)},
             4.0 * n + 4.0 * D + 4.0 * K, 2.0 * n),
+        # the same with the divisor given on the card (the fleet's IPW
+        # aggregate): one more float32 read
+        "masked_aggregate_den": (
+            lambda: ops.masked_aggregate(x, w, den=den),
+            lambda: tref.masked_aggregate_ref(x, w, den=den),
+            {"": lambda: (w @ x) / den},
+            4.0 * n + 4.0 * D + 4.0 * K + 4.0, 2.0 * n),
         # the round's kernels from the uplink's codes to eq. 6: dequantize,
         # then error_aware_aggregate's weights alphas * lambdas and
         # masked_aggregate; the bound keeps the f32 in L2
@@ -1338,7 +1796,8 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
                   for k in ("stochastic_quantize_codes", "quantize_pack",
                             "quantize_pack_chunk")}
     for k in ("unpack_dequantize", "pack_sums", "pack_sums@rsag_hop",
-              "unpack_dequantize@rsag", "masked_aggregate"):
+              "unpack_dequantize@rsag", "masked_aggregate",
+              "masked_aggregate_den"):
         yardsticks[k] = copy_yardstick(torch, rows[k][3])
     shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
               "qmatmul@256x512x256": [256, 512, 256],
@@ -1356,6 +1815,7 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
              # the plan's blocks, and the earlier one block per 256 columns
              "masked_aggregate": (ops.masked_aggregate_plan(x).blocks,
                                   -(-D // 256))}
+    grids["masked_aggregate_den"] = grids["masked_aggregate"]
     pair_grids = {"rsag_hop_pair": (grids["pack_sums@rsag_hop"][0],
                                     K * -(-W12c // 256)),          # repack's
                   "rsag_tail_pair": (grids["pack_sums@rsag_hop"][0],
@@ -1383,7 +1843,7 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
         if name == "uplink_aggregate_pair":
             extra["bound_ms_f32_through_hbm"] = (
                 12.0 * n + 4.0 * D + 16.0 * K) / HBM_BYTES_PER_S * 1e3
-        if name == "masked_aggregate":
+        if name in ("masked_aggregate", "masked_aggregate_den"):
             extra["plan"] = ops.masked_aggregate_plan(x)._asdict()
         launched = (grids[name][:1] if name in grids
                     else pair_grids.get(name, ()))
@@ -1445,18 +1905,23 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import aggregation as agg
     from repro_torch.core import quantization as quant
+    from repro_torch.core import energy as energy_mod
+    from repro_torch.core import optimize
     from repro_torch.core.fl import FLSimulator, RoundNoise, local_sgd, make_fl_round
     from repro_torch.data.pipeline import make_federated_digits
     from repro_torch.data.synthetic import digit_dataset
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as tref
     from repro_torch.models import build_model
+    from repro_torch.population import fleet as tfleet
+    from repro_torch.population import power as tpower
 
     name, count, smi = device_phase(torch)
     build_phase(build)
     err = kernels_phase(torch, ops, tref)
-    err["masked_aggregate"] = max(err["masked_aggregate"],
-                                  aggregate_paths_phase(torch, ops, tref))
+    for k, v in zip(("masked_aggregate", "masked_aggregate_den"),
+                    aggregate_paths_phase(torch, ops, tref)):
+        err[k] = max(err[k], v)
     for k, v in quantizer_paths_phase(torch, ops, tref).items():
         err[k] = max(err[k], v)
     err.update(wire_kernels_phase(torch, ops, tref, quant))
@@ -1469,15 +1934,25 @@ def main() -> int:
     sim_gen = torch.Generator(device="cuda").manual_seed(3)
     profile_phase(torch, "FLSimulator", lambda: sim.run_round(params, sim_gen))
     reference_phase(torch, get_config, build_model, FLSimulator, convert)
+    fleet_sim = fleet_simulator_phase(torch, ops, sim, get_config, FLSimulator,
+                                      convert, smi)
+    fleet_reference_phase(torch, get_config, build_model, FLSimulator, convert,
+                          tfleet, smi)
     cohort = cohort_round_phase(torch, ops, get_config, build_model,
                                 digit_dataset, make_fl_round, smi)
     for sizes, collective in (((4,), "packed"), ((2, 2), "rsag")):
         cohort_reference_phase(torch, get_config, build_model, make_fl_round,
                                local_sgd, RoundNoise, quant, sizes, collective)
+    fleet_cohort = cohort_fleet_phase(torch, ops, get_config, build_model,
+                                      digit_dataset, make_fl_round, tfleet, smi)
+    planner_phase(torch, get_config, optimize, smi)
+    power_policy_phase(torch, get_config, tfleet, tpower, energy_mod, smi)
+    round_update_phase(torch, get_config, tfleet, smi)
     times = timing_phase(torch, ops, tref, quant, agg, smi)
     # qmatmul is on no round: its entry point is the kernel API, driven by
     # qmatmul_phase with the counts reset just before
-    path_launches = {k: launches[k] + cohort[k] for k in KERNELS}
+    path_launches = {k: launches[k] + cohort[k] + fleet_sim[k] + fleet_cohort[k]
+                     for k in KERNELS}
     path_launches["qmatmul"] = qmatmul_launches
     for k, n in path_launches.items():
         check(n > 0, f"{k} was not launched on its path")

@@ -1,12 +1,18 @@
 from repro_torch.config.base import (
+    POWER_POLICIES,
+    SELECTION_POLICIES,
     ChannelConfig,
     Config,
+    ConvergenceConfig,
     EnergyConfig,
+    FleetConfig,
     FLConfig,
     ModelConfig,
+    PowerConfig,
     QuantConfig,
     TrainConfig,
 )
 
-__all__ = ["ChannelConfig", "Config", "EnergyConfig", "FLConfig",
-           "ModelConfig", "QuantConfig", "TrainConfig"]
+__all__ = ["POWER_POLICIES", "SELECTION_POLICIES", "ChannelConfig", "Config",
+           "ConvergenceConfig", "EnergyConfig", "FleetConfig", "FLConfig",
+           "ModelConfig", "PowerConfig", "QuantConfig", "TrainConfig"]

@@ -1,4 +1,4 @@
-"""Carry parameters between the JAX reference and the port.
+"""Carry parameters and fleet state between the JAX reference and the port.
 
 Both packages keep the same names and layouts (conv weights HWIO, dense
 weights (in, out)), so a conversion is a plain copy through numpy.  The
@@ -56,3 +56,22 @@ def unflatten_params(flat: torch.Tensor, shapes: Shapes) -> Dict[str, torch.Tens
     if off != flat.shape[-1]:
         raise ValueError(f"flat width {flat.shape[-1]} != {off} parameters")
     return out
+
+
+def fleet_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
+    """A ``population.fleet.FleetState`` from its fields as numpy arrays
+    (a reference ``FleetState``'s ``_asdict()`` through ``np.asarray``):
+    the (N,) float32 vectors and the 0-dim int32 ``rr_cursor``."""
+    from repro_torch.population.fleet import FleetState
+
+    dev = resolve_device(device)
+    out = {}
+    for k in FleetState._fields:
+        dtype = np.int32 if k == "rr_cursor" else np.float32
+        out[k] = torch.tensor(np.asarray(d[k], dtype), device=dev)
+    return FleetState(**out)
+
+
+def fleet_to_numpy(fleet) -> Dict[str, np.ndarray]:
+    """A ``FleetState``'s fields as numpy arrays, by name."""
+    return {k: v.detach().cpu().numpy() for k, v in fleet._asdict().items()}

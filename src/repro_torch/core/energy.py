@@ -7,22 +7,42 @@ Round latency:                   τ_pr = (K/N) Σ_k (τ_k^u + MACs/C_comp · I)
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from repro_torch.config.base import ChannelConfig, EnergyConfig
 from repro_torch.core import channel as ch
 
 
-def local_training_energy_j(cfg: EnergyConfig, num_params: int, bits: int,
+def _at_least_one(bits):
+    """max(bits, 1) of a Python number or a float32 tensor (CMA-ES relaxes
+    n continuously)."""
+    if isinstance(bits, torch.Tensor):
+        return torch.clamp(bits, min=1.0)
+    return max(bits, 1)
+
+
+def _params(num_params: int) -> torch.Tensor:
+    """float32(d) as a 0-dim CPU tensor, which ops on any device read as a
+    scalar."""
+    return torch.tensor(float(num_params), dtype=torch.float32)
+
+
+def local_training_energy_j(cfg: EnergyConfig, num_params: int, bits,
                             local_iters: int) -> torch.Tensor:
     """eq. 7 — energy of I local SGD iterations at n-bit precision."""
-    d_n = torch.tensor(float(num_params), dtype=torch.float32) * max(bits, 1)
+    d_n = _params(num_params) * _at_least_one(bits)
     return cfg.beta * cfg.cycles_per_bit * cfg.cpu_freq_hz ** 2 * d_n * local_iters
 
 
-def uplink_time_s(ch_cfg: ChannelConfig, num_params: int, bits: int,
-                  rate_bps_hz) -> torch.Tensor:
-    payload = torch.tensor(float(num_params), dtype=torch.float32) * max(bits, 1)
+def uplink_time_s(ch_cfg: ChannelConfig, num_params: int, bits,
+                  rate_bps_hz, wire_bits_per_param: float | None = None
+                  ) -> torch.Tensor:
+    """τ = d·n/(B·r); ``wire_bits_per_param`` prices the payload at a
+    realised collective's wire bits instead of the ideal n."""
+    wire = bits if wire_bits_per_param is None else wire_bits_per_param
+    payload = _params(num_params) * _at_least_one(wire)
     return ch.transmission_time_s(payload, ch_cfg.bandwidth_hz, rate_bps_hz)
 
 
@@ -32,6 +52,51 @@ def uplink_energy_j(ch_cfg: ChannelConfig, num_params: int, bits: int,
     (scalar or per-device) defaults to the config's P_tx."""
     p = ch_cfg.tx_power_w if tx_power_w is None else tx_power_w
     return uplink_time_s(ch_cfg, num_params, bits, rate_bps_hz) * p
+
+
+def uplink_phase_energy_j(ch_cfg: ChannelConfig, num_params: int,
+                          phase_bits_per_param: Dict[str, float],
+                          rate_bps_hz, tx_power_w=None
+                          ) -> Dict[str, torch.Tensor]:
+    """eq. 9 itemized per collective phase (``aggregation``'s
+    ``wire_phase_bits_per_param``, e.g. rsag's reduce_scatter and
+    all_gather legs), each charged as its own transmission at the achieved
+    rate with no 1-bit floor: the values sum to :func:`uplink_energy_j`
+    at the summed wire bits whenever that clears the floor."""
+    p = ch_cfg.tx_power_w if tx_power_w is None else tx_power_w
+    out = {}
+    for phase, bits in phase_bits_per_param.items():
+        payload = _params(num_params) * bits
+        tau = ch.transmission_time_s(payload, ch_cfg.bandwidth_hz, rate_bps_hz)
+        out[phase] = tau * p
+    return out
+
+
+def capped_uplink_energy_j(ch_cfg: ChannelConfig, num_params: int, bits,
+                           rate_bps_hz, tau_cap_s: float, tx_power_w=None,
+                           wire_bits_per_param: float | None = None
+                           ) -> torch.Tensor:
+    """eq. 9 with the radio cut off at the round deadline: a device in a
+    deep fade transmits until ``tau_cap_s`` and gives up, so it is charged
+    at most ``tau_cap_s · P_i``, at its own assigned power (``tx_power_w``
+    broadcasts per device).  The round cost the fleet battery debits."""
+    p = ch_cfg.tx_power_w if tx_power_w is None else tx_power_w
+    tau = uplink_time_s(ch_cfg, num_params, bits, rate_bps_hz,
+                        wire_bits_per_param=wire_bits_per_param)
+    return torch.clamp(tau, max=tau_cap_s) * p
+
+
+def battery_debit_j(battery_j: torch.Tensor, device_idx: torch.Tensor,
+                    cost_j: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Debit per-device round costs from the fleet battery vector.
+
+    ``device_idx`` (K,) holds distinct device ids, ``cost_j`` (K,) their
+    round energies (zero for unfilled cohort slots).  The charge is clipped
+    at the remaining battery, so cells never go negative; returns
+    ``(new_battery_j, realized_charge_j)``, and the fleet's total energy
+    falls by exactly the realized charge."""
+    charge = torch.minimum(battery_j[device_idx], cost_j.float())
+    return battery_j.index_add(0, device_idx, -charge), charge
 
 
 def compute_time_s(cfg: EnergyConfig, macs_per_iter: float, local_iters: int) -> float:

@@ -17,6 +17,17 @@ Two runtimes share the same local steps (:func:`local_sgd`):
   cohorts stacked on one device, the cohort the leading dimension of
   every tensor, row-major over the cohort axes.
 
+Both runtimes accept a **fleet** (``config.fleet.size > 0``): the device
+population of ``population`` — per-device pathloss classes, AR(1)
+correlated fading, batteries debited by the §II-D energy model,
+availability, cohort selection, FBL-tied packet errors and a per-device
+uplink power policy.  ``population.fleet.round_update`` advances it once a
+round on the fleet's device with no host round-trip; the simulator keeps
+the ``FleetState`` on ``fleet_state`` across calls, and the cohort round
+threads it through its signature.  The battery is priced at the
+wire-independent d·n payload, so the fleet trajectory, and through it the
+model, is identical under every wire format.
+
 Where the reference ``vmap``s a ``lax.scan`` over clients, the port writes
 the batch out: the clients' (or cohorts') parameters are one flat (K, D)
 float32 tensor (columns in leaf order), so every local step is one
@@ -29,8 +40,8 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
-                    Sequence, Tuple, Union)
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -41,6 +52,9 @@ from repro_torch.core import channel as ch
 from repro_torch.core import energy as energy_mod
 from repro_torch.core import quantization as quant
 from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.population import errors as pop_errors
+from repro_torch.population import fleet as pop_fleet
+from repro_torch.population import power as pop_power
 from repro_torch.population import telemetry
 
 Batch = Dict[str, torch.Tensor]
@@ -119,9 +133,15 @@ class FLSimulator:
 
     Parameters are the model's flat (D,) float32 vector in leaf order
     (``convert.flatten_params``).  Every random draw comes from the caller's
-    ``torch.Generator``; ``_round`` and ``_client_update`` also take the
-    noise and packet draws as tensors, so a test can inject the
-    reference's own.
+    ``torch.Generator``; ``_round``, ``_fleet_round`` and ``_client_update``
+    also take the noise, packet and fleet draws as tensors, so a test can
+    inject the reference's own.
+
+    With ``config.fleet.enabled`` the constructor draws the fleet
+    (``fleet_state``, seeded by ``fleet.seed``) on the simulator's device,
+    and every round runs :meth:`_fleet_round`: the fleet's selection and
+    drops replace the i.i.d. packet draws, and the round's telemetry stays
+    on the device until the history is built after the last round.
     """
 
     def __init__(self, model, config: Config, client_store, *,
@@ -141,6 +161,16 @@ class FLSimulator:
                                    dtype=torch.float32, device=self.device)
         self.macs = macs_per_iter or config.energy.macs_per_iteration
         self._energy: Optional[Tuple[float, float]] = None
+        # the population, carried across run_rounds calls (None: the
+        # paper's homogeneous i.i.d. cohort)
+        self.fleet_state: Optional[pop_fleet.FleetState] = None
+        if config.fleet.enabled:
+            if config.fleet.size < config.fl.devices_per_round:
+                raise ValueError(
+                    f"fleet.size={config.fleet.size} smaller than the "
+                    f"cohort devices_per_round={config.fl.devices_per_round}")
+            self.fleet_state = pop_fleet.init_fleet(config.fleet.seed, config,
+                                                    device=self.device)
 
     # -- the K selected clients: I local steps of quantized SGD (eq. 4) --------
 
@@ -186,6 +216,76 @@ class FLSimulator:
             new_params = agg.naive_aggregate(params, deltas, lam)
         return new_params, losses.mean(), accs.mean(), lam.sum()
 
+    def _fleet_round(self, params: torch.Tensor, fleet: pop_fleet.FleetState,
+                     batches: Batch, client_alphas: torch.Tensor,
+                     gen: Optional[torch.Generator] = None, *,
+                     draws: Optional[pop_fleet.RoundDraws] = None,
+                     u_train: Optional[torch.Tensor] = None,
+                     u_up: Optional[torch.Tensor] = None):
+        """One fleet round: advance the whole fleet and select the cohort
+        (``round_update``, with ``k`` = K), run the K client updates,
+        aggregate under the fleet's validity and drops — the unbiased IPW
+        aggregate under ``fleet.error_reweight``, else eq. 6 (or eq. 5) —
+        and build the round's telemetry as device tensors.  Returns (new
+        params, fleet, telemetry)."""
+        cfg = self.config
+        K = client_alphas.shape[0]
+        fleet, info = pop_fleet.round_update(fleet, gen, cfg, self.num_params,
+                                             K, draws=draws)
+        deltas, losses, accs = self._client_update(params, batches, gen,
+                                                   u_train=u_train, u_up=u_up)
+        if cfg.fleet.error_reweight:
+            new_params = pop_errors.reweighted_aggregate(
+                params, deltas, client_alphas, info.valid, info.lam,
+                cfg.channel.error_prob, rates=info.rates_sel,
+                min_rate=pop_power.min_rate(cfg, self.num_params))
+        elif cfg.fl.error_aware:
+            new_params = agg.error_aware_aggregate(
+                params, deltas, client_alphas * info.valid, info.lam)
+        else:
+            new_params = agg.naive_aggregate(params, deltas, info.lam)
+        tau = (info.valid * pop_fleet.round_latency_s(
+            cfg, info.rates_sel, self.num_params, self.macs)).max()
+        tel = telemetry.simulator_round_telemetry(
+            loss=losses.mean(), accuracy=accs.mean(), selected=info.idx,
+            valid=info.valid, lam=info.lam, battery_j=fleet.battery_j,
+            charge_j=info.charge_j, tau_s=tau, power_w=fleet.p_last,
+            outage_sel=info.outage_sel, cost_sel=info.cost_sel,
+            harvest_j=info.harvest_j, error_prob=cfg.channel.error_prob)
+        return new_params, fleet, tel
+
+    def _run_rounds_fleet(self, params: torch.Tensor, rounds: int,
+                          gen: torch.Generator, *,
+                          eval_fn: Optional[Callable] = None,
+                          start_round: int = 0
+                          ) -> Tuple[torch.Tensor, List[dict]]:
+        """``rounds`` fleet rounds queued back to back
+        (:meth:`_queue_fleet_rounds`), then the history built from their
+        stacked telemetry: the one host read."""
+        params, tels = self._queue_fleet_rounds(params, rounds, gen,
+                                                eval_fn=eval_fn)
+        return params, telemetry.expand_history(telemetry.stack_rounds(tels),
+                                                rounds, start_round)
+
+    def _queue_fleet_rounds(self, params: torch.Tensor, rounds: int,
+                            gen: torch.Generator, *,
+                            eval_fn: Optional[Callable] = None
+                            ) -> Tuple[torch.Tensor, List[dict]]:
+        """Queue ``rounds`` fleet rounds without reading the device (unless
+        ``eval_fn`` does); returns the parameters and each round's
+        telemetry as device tensors."""
+        tels = []
+        for _ in range(rounds):
+            batches, client_alphas = self._round_inputs(gen)
+            params, self.fleet_state, tel = self._fleet_round(
+                params, self.fleet_state, batches, client_alphas, gen)
+            if eval_fn is not None:
+                tel["accuracy"] = torch.as_tensor(eval_fn(params),
+                                                  dtype=torch.float32,
+                                                  device=self.device)
+            tels.append(tel)
+        return params, tels
+
     # -- public API -------------------------------------------------------------
 
     def _round_inputs(self, gen: torch.Generator) -> Tuple[Batch, torch.Tensor]:
@@ -201,6 +301,11 @@ class FLSimulator:
     def run_round(self, params: torch.Tensor, gen: GenLike
                   ) -> Tuple[torch.Tensor, RoundTelemetry]:
         gen = make_generator(gen, self.device)
+        if self.fleet_state is not None:
+            params, (h,) = self._run_rounds_fleet(params, 1, gen)
+            return params, RoundTelemetry(h["loss"], h["accuracy"],
+                                          h["survivors"], h["energy_j"],
+                                          h["tau_s"])
         batches, client_alphas = self._round_inputs(gen)
         new_params, loss, acc, surv = self._round(params, batches,
                                                   client_alphas, gen)
@@ -213,8 +318,17 @@ class FLSimulator:
                    start_round: int = 0) -> Tuple[torch.Tensor, List[dict]]:
         """``rounds`` successive :meth:`run_round` calls.  Each history entry
         carries ``round_s``, the round's host time: reading its loss waits
-        for the device, so the time covers the round's device work."""
+        for the device, so the time covers the round's device work.
+
+        With a fleet the rounds are queued without a host read, and the
+        history (no ``round_s``) carries the fleet telemetry: the selected
+        devices, drops, battery and assigned-power quantiles, realized
+        cohort energy (``energy_j``) and latency, outage and harvest."""
         gen = make_generator(gen, self.device)
+        if self.fleet_state is not None:
+            return self._run_rounds_fleet(params, rounds, gen,
+                                          eval_fn=eval_fn,
+                                          start_round=start_round)
         history = []
         for t in range(rounds):
             t0 = time.perf_counter()
@@ -290,10 +404,11 @@ _WIRE_TO_COLLECTIVE = {"f32": "paper", "int": "int", "packed": "packed",
 class RoundNoise(NamedTuple):
     """Every random draw of one cohort round, so a test can inject the
     reference's own: u_train (C, I, D) fake-quant noise per local step,
-    u_up (C, D) uplink rounding noise, lam (C,) packet successes."""
+    u_up (C, D) uplink rounding noise, lam (C,) packet successes (None
+    with a fleet, whose drops decide λ)."""
     u_train: torch.Tensor
-    u_up: torch.Tensor
-    lam: torch.Tensor
+    u_up: Optional[torch.Tensor]
+    lam: Optional[torch.Tensor]
 
 
 def fl_data_axes(axis_sizes: Sequence[int],
@@ -337,12 +452,18 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     reference's ``P(("pod", "data"))`` batch split.
 
     Returned fn: ``round_fn(params, batch, gen=None, *, noise=None) ->
-    (params, metrics)``.  params is the flat (D,) float32 vector;
-    ``batch`` leaves are (global_batch, ...), and cohort c takes rows
+    (params, metrics)``, or with ``config.fleet.enabled``
+    ``round_fn(params, batch, gen=None, fleet, *, noise=None,
+    fleet_draws=None) -> (params, metrics, fleet)``: ``round_update`` runs
+    once with ``k`` = C, cohort c reads the fleet's ``lam[c]``, under
+    ``fleet.error_reweight`` ``ipw_delta_scale`` multiplies the aggregated
+    delta after the collective, and the metrics gain the fleet keys.
+    params is the flat (D,) float32 vector; ``batch`` leaves are (global_batch, ...), and cohort c takes rows
     [c·b, (c+1)·b), b = global_batch / C, split into I microbatches with
     the remainder b mod I dropped.  Each cohort's data weight is α = 1/C.
     The draws come from the ``torch.Generator`` ``gen`` or, all of them,
-    from ``noise`` (:class:`RoundNoise`, its rows in cohort order).
+    from ``noise`` (:class:`RoundNoise`, its rows in cohort order; with a
+    fleet its ``lam`` is None, and ``fleet_draws`` holds the fleet's).
     ``metrics`` holds the mean loss and the survivors (0-dim tensors),
     ``wire_bits_per_param`` and its per-phase split
     ``wire_phase_bits_per_param``.
@@ -360,6 +481,10 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     I = fl.local_iters
     D = sum(math.prod(s) for s in model.param_shapes.values())
     quantize_up = qcfg.enabled and qcfg.quantize_uplink
+    with_fleet = config.fleet.enabled
+    if with_fleet and config.fleet.size < C:
+        raise ValueError(f"fleet.size={config.fleet.size} smaller than the "
+                         f"cohort count {C}")
 
     def cohort_batches(batch: Batch) -> Batch:
         out = {}
@@ -373,27 +498,57 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
         return out
 
     def round_fn(params: torch.Tensor, batch: Batch,
-                 gen: Optional[torch.Generator] = None, *,
-                 noise: Optional[RoundNoise] = None
-                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                 gen: Optional[torch.Generator] = None,
+                 fleet: Optional[pop_fleet.FleetState] = None, *,
+                 noise: Optional[RoundNoise] = None,
+                 fleet_draws: Optional[pop_fleet.RoundDraws] = None):
         if params.shape != (D,) or params.device.type != dev.type:
             raise ValueError(f"params must be ({D},) on {dev}, got "
                              f"{tuple(params.shape)} on {params.device}")
         if noise is None and gen is None:
             raise ValueError("pass a generator, or the noise tensors")
+        if (fleet is not None) != with_fleet:
+            raise ValueError("pass the fleet exactly when config.fleet is "
+                             "enabled")
+        if with_fleet:
+            if noise is not None and noise.lam is not None:
+                raise ValueError("with a fleet, λ comes from the fleet: "
+                                 "noise.lam must be None")
+            fleet, info = pop_fleet.round_update(fleet, gen, config, D, C,
+                                                 draws=fleet_draws)
         batches = cohort_batches(batch)
         u_train = noise.u_train if noise is not None else None
         p, losses, _ = local_sgd(model, config, params, batches, gen,
                                  u_train=u_train)
-        if noise is not None:
-            lam, u_up = noise.lam, noise.u_up
+        if with_fleet:
+            lam = info.lam
+        elif noise is not None:
+            lam = noise.lam
         else:
             lam = ch.sample_packet_success(gen, (C,),
                                            config.channel.error_prob)
+        if noise is not None:
+            u_up = noise.u_up
+        else:
             u_up = _uniform(gen, (C, D), dev) if quantize_up else None
         agg_delta = agg.aggregate(plan, p - params, 1.0 / C, lam, u_up)
+        if not with_fleet:
+            metrics = telemetry.distributed_metrics(
+                plan, loss=losses.mean(), survivors=lam.sum())
+            return params + agg_delta, metrics
+        if config.fleet.error_reweight:
+            agg_delta = agg_delta * pop_errors.ipw_delta_scale(
+                info.lam, info.valid, info.rates_sel,
+                config.channel.error_prob,
+                min_rate=pop_power.min_rate(config, D))
         metrics = telemetry.distributed_metrics(
-            plan, loss=losses.mean(), survivors=lam.sum())
-        return params + agg_delta, metrics
+            plan, loss=losses.mean(), survivors=lam.sum(),
+            fleet=telemetry.fleet_round_metrics(
+                battery_j=fleet.battery_j, valid=info.valid,
+                charge_j=info.charge_j, power_w=fleet.p_last,
+                outage_sel=info.outage_sel, cost_sel=info.cost_sel,
+                harvest_j=info.harvest_j,
+                error_prob=config.channel.error_prob))
+        return params + agg_delta, metrics, fleet
 
     return round_fn

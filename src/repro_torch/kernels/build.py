@@ -37,8 +37,8 @@ SIGNATURES = {
     "repro_quantize_codes": (_c, _c, _c, _ll, _f, _f, _i, _i, _c),
     "repro_dequantize_codes": (_c, _c, _ll, _f, _c),
     "repro_quantizer_plan": (_c, _c, _c, _ll, _c),
-    "repro_masked_aggregate_f32": (_c, _c, _c, _i, _ll, _f, _c),
-    "repro_masked_aggregate_i32": (_c, _c, _c, _i, _ll, _f, _c),
+    "repro_masked_aggregate_f32": (_c, _c, _c, _c, _i, _ll, _f, _c),
+    "repro_masked_aggregate_i32": (_c, _c, _c, _c, _i, _ll, _f, _c),
     "repro_masked_aggregate_plan": (_c, _c, _i, _ll, _i, _c),
     "repro_quantize_pack": (_c, _c, _c, _i, _ll, _ll, _i, _f, _f, _i, _i,
                             _c),

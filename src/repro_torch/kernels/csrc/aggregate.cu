@@ -1,5 +1,10 @@
 // Error-aware masked weighted aggregation (paper eq. 6):
 //   out[d] = sum_k w_k * u[k, d] / max(sum_k w_k, eps),  w_k = alpha_k * lambda_k
+// or, given a denominator (one float32 on the device, read after the kernel
+// before this one has finished), sum_k w_k * u[k, d] / den: the fleet's
+// unbiased inverse-probability aggregate, whose divisor is the expected
+// surviving mass and not the weights' sum (population/errors.py
+// reweighted_aggregate).  A null denominator keeps eq. 6.
 //
 // Replaces the Pallas TPU kernel masked_aggregate in
 // src/repro/kernels/aggregate.py.
@@ -130,6 +135,7 @@ template <typename T, int KS, int V>
 __global__ void __launch_bounds__(kThreads)
 masked_aggregate_kernel(const int* __restrict__ u,
                         const float* __restrict__ weights,
+                        const float* __restrict__ den_in,
                         float* __restrict__ out, int K, long long D,
                         long long head, long long nvec, float eps) {
   using L = typename Lanes<V>::type;
@@ -147,7 +153,7 @@ masked_aggregate_kernel(const int* __restrict__ u,
   } else {
     for (int k = 0; k < K; ++k) den = __fadd_rn(den, __ldg(weights + k));
   }
-  den = fmaxf(den, eps);
+  den = den_in != nullptr ? *den_in : fmaxf(den, eps);
 
   const L* rows = reinterpret_cast<const L*>(u + head);  // row k at k*D/V
   const long long stride = D / V;                // whole when V > 1
@@ -282,8 +288,8 @@ long long tiles_of(long long nvec, int KS) {
 }
 
 template <typename T>
-int launch(const void* updates, const void* weights, void* out, int K,
-           long long D, float eps, void* stream) {
+int launch(const void* updates, const void* weights, const void* den,
+           void* out, int K, long long D, float eps, void* stream) {
   cudaError_t err = cudaSuccess;
   if (D > 0) {
     const Plan p = plan(updates, out, K, D);
@@ -293,7 +299,8 @@ int launch(const void* updates, const void* weights, void* out, int K,
       err = launch_dependent(masked_aggregate_kernel<T, KS, V>, blocks,
                              kThreads, (cudaStream_t)stream,
                              (const int*)updates, (const float*)weights,
-                             (float*)out, K, D, p.head, p.nvec, eps);
+                             (const float*)den, (float*)out, K, D, p.head,
+                             p.nvec, eps);
     });
   }
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
@@ -303,17 +310,19 @@ int launch(const void* updates, const void* weights, void* out, int K,
 
 extern "C" {
 
-// Returns cudaGetLastError().  out must not overlap updates.
+// Returns cudaGetLastError().  out must not overlap updates.  den: null
+// for eq. 6's max(sum_k w_k, eps), else one float32 on the device that
+// divides the numerator as it is.
 int repro_masked_aggregate_f32(const void* updates, const void* weights,
-                               void* out, int K, long long D, float eps,
-                               void* stream) {
-  return launch<float>(updates, weights, out, K, D, eps, stream);
+                               const void* den, void* out, int K, long long D,
+                               float eps, void* stream) {
+  return launch<float>(updates, weights, den, out, K, D, eps, stream);
 }
 
 int repro_masked_aggregate_i32(const void* updates, const void* weights,
-                               void* out, int K, long long D, float eps,
-                               void* stream) {
-  return launch<int>(updates, weights, out, K, D, eps, stream);
+                               const void* den, void* out, int K, long long D,
+                               float eps, void* stream) {
+  return launch<int>(updates, weights, den, out, K, D, eps, stream);
 }
 
 // The launch masked_aggregate makes for these pointers, K and D (is_int:

@@ -20,6 +20,7 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: Dict[str, int] = {"stochastic_quantize_codes": 0,
                             "dequantize_codes": 0, "masked_aggregate": 0,
+                            "masked_aggregate_den": 0,
                             "quantize_pack": 0, "unpack_dequantize": 0,
                             "quantize_pack_chunk": 0, "repack": 0,
                             "pack_sums": 0, "qmatmul": 0}
@@ -199,18 +200,24 @@ def masked_aggregate_plan(updates: torch.Tensor) -> AggregatePlan:
 
 
 def masked_aggregate(updates: torch.Tensor, weights: torch.Tensor,
-                     eps: float = 1e-12) -> torch.Tensor:
+                     eps: float = 1e-12, *,
+                     den: Optional[torch.Tensor] = None) -> torch.Tensor:
     """updates (K, D) f32/int32, weights (K,) f32 -> (D,) f32 (paper eq. 6):
     ``fma(w_k, u_k, acc)`` over k in order, over the weights' sum in order
-    (the reference's order).  On the card the output starts at the
+    (the reference's order).  ``den``, a 0-dim float32 tensor on the
+    updates' device, replaces max(Σ w_k, eps) as the divisor; the kernel
+    reads it on the device (no host sync), and its launches count as
+    ``masked_aggregate_den``.  On the card the output starts at the
     updates' offset past a 16-byte boundary."""
     if updates.dim() != 2 or weights.shape != (updates.shape[0],):
         raise ValueError(f"need updates (K, D) and weights (K,), got "
                          f"{tuple(updates.shape)} and {tuple(weights.shape)}")
     if updates.shape[0] < 1:
         raise ValueError("masked_aggregate needs K >= 1")
+    if den is not None and den.shape != ():
+        raise ValueError(f"den must be 0-dim, got {tuple(den.shape)}")
     if not _on_cuda(updates, "updates"):
-        return ref.masked_aggregate_ref(updates, weights, eps)
+        return ref.masked_aggregate_ref(updates, weights, eps, den=den)
     if updates.dtype == torch.float32:
         fn = "repro_masked_aggregate_f32"
     elif updates.dtype == torch.int32:
@@ -219,13 +226,16 @@ def masked_aggregate(updates: torch.Tensor, weights: torch.Tensor,
         raise TypeError(f"updates must be float32 or int32, got {updates.dtype}")
     _check(updates, updates.dtype, updates.device, "updates")
     _check(weights, torch.float32, updates.device, "weights")
+    if den is not None:
+        _check(den, torch.float32, updates.device, "den")
     K, D = updates.shape
     out = _aggregate_out(updates)
     err = getattr(build.library("aggregate"), fn)(
-        updates.data_ptr(), weights.data_ptr(), out.data_ptr(), K, D,
+        updates.data_ptr(), weights.data_ptr(),
+        den.data_ptr() if den is not None else None, out.data_ptr(), K, D,
         float(np.float32(eps)), _stream(updates.device))
     _raise_on(err, "masked_aggregate")
-    LAUNCHES["masked_aggregate"] += 1
+    LAUNCHES["masked_aggregate" if den is None else "masked_aggregate_den"] += 1
     return out
 
 

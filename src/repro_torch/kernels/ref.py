@@ -92,23 +92,26 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def masked_aggregate_ref(updates: torch.Tensor, weights: torch.Tensor,
-                         eps: float = 1e-12) -> torch.Tensor:
+                         eps: float = 1e-12,
+                         den: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Error-aware weighted aggregation (paper eq. 6).
 
     updates: (K, D) client deltas (f32 or int32); weights: (K,) = α_k·λ_k.
     Returns Σ_k w_k·u_k / max(Σ_k w_k, eps) in the reference's order, as
     XLA:CPU runs its Pallas kernel and its jitted ``error_aware_aggregate``
     (the multiply contracted into the reduce): ``acc = fma(w_k, u_k, acc)``
-    for k = 0..K-1 from 0, the denominator summed in k order from 0.
+    for k = 0..K-1 from 0, the denominator summed in k order from 0.  A
+    given ``den`` (a 0-dim float32 tensor on the updates' device) divides
+    the same numerator as it is: the fleet's inverse-probability aggregate.
     """
     w = weights.float()
     acc = torch.zeros(updates.shape[1:], dtype=torch.float32,
                       device=updates.device)
-    den = torch.zeros((), dtype=torch.float32, device=updates.device)
+    total = torch.zeros((), dtype=torch.float32, device=updates.device)
     for k in range(updates.shape[0]):
         acc = fma32(w[k], updates[k].float(), acc)
-        den = den + w[k]
-    return acc / torch.clamp(den, min=eps)
+        total = total + w[k]
+    return acc / (torch.clamp(total, min=eps) if den is None else den)
 
 
 def quantize_pack_ref(x: torch.Tensor, u: Optional[torch.Tensor], bits: int, *,

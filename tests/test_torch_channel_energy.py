@@ -89,3 +89,50 @@ def test_packet_success_rate_is_one_minus_q(q):
     lam = tch.sample_packet_success(gen, (400_000,), q)
     assert set(lam.unique().tolist()) <= {0.0, 1.0}
     assert abs(float(lam.mean()) - (1 - q)) < 0.005
+
+
+def test_fleet_channel_and_energy_helpers_match_jax():
+    """The fleet's helpers on the reference's own draws: the stationary
+    fading state and one AR(1) step (equal), E[r] over the reference's
+    gains, the per-phase and deadline-capped uplink energy, the battery
+    debit (equal, clipped at empty)."""
+    import jax
+    key = jax.random.PRNGKey(3)
+    scale = jnp.asarray(GAINS[:64] + 0.1)
+    k1, k2 = jax.random.split(key)
+    normals = tuple(torch.from_numpy(np.array(jax.random.normal(k, (64,))))
+                    for k in (k1, k2))
+    want = jch.init_rayleigh_state(key, (64,), scale)
+    got = tch.init_rayleigh_state(None, (64,), torch.from_numpy(np.array(scale)),
+                                  normals=normals)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    k1, k2 = jax.random.split(jax.random.PRNGKey(4))
+    normals = tuple(torch.from_numpy(np.array(jax.random.normal(k, (64,))))
+                    for k in (k1, k2))
+    want = jch.gauss_markov_fading_step(jax.random.PRNGKey(4), *want, 0.9, scale)
+    got = tch.gauss_markov_fading_step(None, *got, 0.9,
+                                       torch.from_numpy(np.array(scale)),
+                                       normals=normals)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    ccfg = ChannelConfig(error_prob=0.05, tx_power_w=0.01)
+    jcfg = JChannelConfig(error_prob=0.05, tx_power_w=0.01)
+    g2 = jch.sample_rayleigh_gain2(jax.random.PRNGKey(5), (4096,), 1.0)
+    _close(float(tch.expected_rate(ccfg, None, gain2=torch.from_numpy(np.array(g2)))),
+           float(jch.expected_rate(jcfg, jax.random.PRNGKey(5))))
+    rates = torch.from_numpy(GAINS * 2)
+    phases = {"reduce_scatter": 13.2, "all_gather": 13.2}
+    want = jen.uplink_phase_energy_j(jcfg, D, phases, jnp.asarray(GAINS * 2))
+    for k, v in ten.uplink_phase_energy_j(ccfg, D, phases, rates).items():
+        _close(v.numpy(), want[k])
+    _close(ten.capped_uplink_energy_j(ccfg, D, 8, rates, 1.0).numpy(),
+           jen.capped_uplink_energy_j(jcfg, D, 8, jnp.asarray(GAINS * 2), 1.0))
+    battery = np.array([5.0, 0.2, 3.0], np.float32)
+    jb, jc = jen.battery_debit_j(jnp.asarray(battery), jnp.asarray([0, 1]),
+                                 jnp.asarray([1.0, 1.0]))
+    tb, tc = ten.battery_debit_j(torch.from_numpy(battery), torch.tensor([0, 1]),
+                                 torch.tensor([1.0, 1.0]))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))

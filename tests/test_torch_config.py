@@ -10,7 +10,8 @@ from repro.configs import get_config as jget_config
 from repro_torch.config import base as tbase
 from repro_torch.configs import get_config
 
-SECTIONS = ["model", "quant", "channel", "energy", "fl", "train"]
+SECTIONS = ["model", "quant", "channel", "energy", "convergence", "fl",
+            "fleet", "power", "train"]
 
 
 @pytest.mark.parametrize("section", SECTIONS)
@@ -43,3 +44,9 @@ def test_wire_fields_are_ported_and_use_pallas_is_not():
     assert "use_pallas" in jq and "use_pallas" not in tq
     assert tbase.FLConfig().cohort_axes == jbase.FLConfig().cohort_axes
     assert tbase.COLLECTIVE_CHOICES == jbase.COLLECTIVE_CHOICES
+
+
+def test_policy_registries_are_the_references():
+    assert tbase.SELECTION_POLICIES == jbase.SELECTION_POLICIES
+    assert tbase.POWER_POLICIES == jbase.POWER_POLICIES
+    assert tbase.FleetConfig(size=3).enabled and not tbase.FleetConfig().enabled
