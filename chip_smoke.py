@@ -28,7 +28,14 @@ through the kernels at the paper's widths:
   paper's trends, and the four power policies over 100 rounds of the
   population layer at 10^5 devices, ``fixed`` seeded by
   ``calibrate_fixed_power``, against the ordering the reference's
-  ``benchmarks/power_policies.py`` gates.
+  ``benchmarks/power_policies.py`` gates;
+* the dense LM: olmo-1b at full width (D = 1,176,764,416 bfloat16)
+  through the cohort round on the reference's 8-device (2, 4) mesh, C = 2
+  cohorts stacked, I = 3, 12 sequences of 512 tokens a round, in the
+  paper, int, packed, ring, rsag and auto wire formats; the uplink's
+  kernels on its (2, D) operands, past flat index 2^31, on windows held
+  to their plain versions; a reduced float32 LM round against the CPU;
+  and the trainer ``repro_torch.launch.train.main`` for 2 steps.
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -835,13 +842,16 @@ def cohort_config(get_config, mode_hops=True, *, I=3, micro=32, C=10, q=0.01):
         channel=dataclasses.replace(cfg.channel, error_prob=q))
 
 
-def predicted_cohort_launches(collective, hops, axis_sizes, I, R):
+def predicted_cohort_launches(collective, hops, axis_sizes, ste_steps, R,
+                              auto="packed"):
     """Launches of R cohort rounds, counted from the reference's schedules
     (``src/repro/core/aggregation.py`` ``_reduce_ring``, ``_rsag_level``,
     ``_reduce_rsag``).  The STE takes one quantize and one dequantize per
-    local step in every mode; the uplink as the wire format runs it, "auto"
-    resolving to packed at (10,) and at (2, 5), 8 bits.  Per non-trivial
-    axis of K entries:
+    local step of a model that trains quantized (``ste_steps``: I for the
+    QNN, 0 for the LM, ``model.quantizes_training``) in every mode; the
+    uplink as the wire format runs it, "auto" resolving to ``auto``
+    (packed for the QNN at (10,) and at (2, 5), 8 bits; the ring at (2,)).
+    Per non-trivial axis of K entries:
 
     * ring: K - 1 repacks, and a pack_sums of the partial sums before every
       axis but the first; front-end quantize_pack_chunk (pipelined) or
@@ -857,9 +867,11 @@ def predicted_cohort_launches(collective, hops, axis_sizes, I, R):
     pack_sums + 1 dequantize, rsag 1 chunk + 6 repack + 6 pack_sums + 1
     unpack (pipelined)."""
     ks = [k for k in axis_sizes if k > 1]
+    if collective == "auto":
+        collective = auto
     if collective in ("paper", "int"):
         up = {"stochastic_quantize_codes": 1, "dequantize_codes": 1}
-    elif collective in ("packed", "auto"):
+    elif collective == "packed":
         up = {"quantize_pack": 1, "unpack_dequantize": 1}
     elif collective == "ring":
         up = ({"quantize_pack_chunk": 1} if hops else
@@ -872,7 +884,8 @@ def predicted_cohort_launches(collective, hops, axis_sizes, I, R):
         up.update({"repack": sum(k - 1 for k in ks) + len(ks) - 1,
                    "pack_sums": sum(ks) - int(hops),
                    "unpack_dequantize": 1})
-    per_round = {"stochastic_quantize_codes": I, "dequantize_codes": I}
+    per_round = {"stochastic_quantize_codes": ste_steps,
+                 "dequantize_codes": ste_steps}
     for k, v in up.items():
         per_round[k] = per_round.get(k, 0) + v
     return {k: v * R for k, v in per_round.items() if v}
@@ -919,7 +932,9 @@ def cohort_round_phase(torch, ops, get_config, build_model, digit_dataset,
             for k, v in launches.items():
                 total[k] += v
             want = {k: 0 for k in ops.LAUNCHES}
-            want.update(predicted_cohort_launches(collective, hops, sizes, I, R))
+            want.update(predicted_cohort_launches(
+                collective, hops, sizes, I if model.quantizes_training else 0,
+                R))
             check(launches == want,
                   f"{sizes} {label}: launches {launches} != predicted {want}")
             losses = [h[1] for h in hist]
@@ -1181,7 +1196,8 @@ def cohort_fleet_phase(torch, ops, get_config, build_model, digit_dataset,
             for k, v in launches.items():
                 total[k] += v
             want = {k: 0 for k in ops.LAUNCHES}
-            want.update(predicted_cohort_launches(mode, True, sizes, I, R))
+            want.update(predicted_cohort_launches(
+                mode, True, sizes, I if model.quantizes_training else 0, R))
             what = f"fleet cohort round {sizes} {mode}"
             check(launches == want, f"{what}: launches {launches} != {want}")
             losses = [h["loss"] for h in hist]
@@ -1217,6 +1233,337 @@ def cohort_fleet_phase(torch, ops, get_config, build_model, digit_dataset,
     profile_phase(torch, f"make_fl_round rsag (10,) fleet {COHORT_FLEET_SIZE:,}",
                   lambda: fn(params0, batches[0], g, fleet0))
     return total
+
+
+#: the LM path: olmo-1b at full width on the reference's (2, 4) debug mesh
+#: for 8 devices (C = 2 cohorts stacked, I = 3), cut to 12 sequences of
+#: 512 tokens a round (the config's 256 x 4,096) so that two stacked
+#: replicas fit one card; width and C are never cut
+LM_OVERRIDES = ("train.global_batch=12", "train.seq_len=512")
+LM_D = 1_176_764_416
+LM_MODES = ("paper", "int", "packed", "ring", "rsag", "auto")
+LM_ROUNDS = 3
+#: wire bits/param of each format at C = 2, 8 bits (the reference's plan;
+#: "auto" picks the ring there)
+LM_WIRE_BITS = {"paper": 32.0, "int": 16.0, "packed": 32.0 / 3, "ring": 8.0,
+                "rsag": 28.0 / 3, "auto": 8.0}
+#: the flat index the LM's (2, D) uplink passes: int32's limit
+FLAT_LIMIT = 2 ** 31
+#: words of each window the wire kernels are held in, and the small
+#: reduced LM the card is held to the CPU on (the reference's trainer test)
+LM_WINDOW = 4096
+LM_SMALL = ("model.n_layers=2", "model.d_model=128", "model.n_heads=4",
+            "model.n_kv_heads=4", "model.d_ff=256", "model.vocab_size=512",
+            "model.dtype=float32", "train.seq_len=32")
+
+
+def lm_config(get_config, apply_overrides):
+    return apply_overrides(get_config("olmo-1b"), LM_OVERRIDES)
+
+
+def lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
+                   token_batch, make_fl_round, tmesh, smi):
+    """The cohort round over olmo-1b at full width: D = 1,176,764,416
+    bfloat16 parameters, C = 2 cohorts (the (2, 4) mesh of 8 devices),
+    I = 3, in each wire format of LM_MODES, LM_ROUNDS rounds each from the
+    same parameters, batches and generator seed.  The launch counts are set
+    to 0 just before each format's rounds and read just after, and checked
+    against ``predicted_cohort_launches`` with no STE launch (the LM trains
+    unquantized); parameters ``torch.equal`` across int, packed, ring, rsag
+    and auto after every round; loss finite; peak memory and round time
+    per format, with each round's host time until ``make_fl_round``'s
+    function returns (the round reads nothing back, so a host time near
+    the round's time says the host, not the card, bounds it).  The rsag
+    round's profile adds its host operators.  Returns the launches summed
+    over the formats."""
+    cfg = lm_config(get_config, apply_overrides)
+    model = build_model(cfg)
+    sizes = tmesh.cohort_axis_sizes(tmesh.make_debug_mesh(8), cfg.fl.cohort_axes)
+    C, I, R = math.prod(sizes), cfg.fl.local_iters, LM_ROUNDS
+    check(model.num_params == LM_D == cfg.model.param_count(),
+          f"olmo-1b has {model.num_params:,} parameters, not {LM_D:,}")
+    check((C, I) == (2, 3) and not model.quantizes_training,
+          f"LM round at C={C}, I={I}")
+    t0 = time.perf_counter()
+    params0 = model.init_flat(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [token_batch(gen, cfg.train.global_batch, cfg.train.seq_len,
+                           cfg.model.vocab_size) for _ in range(R)]
+    torch.cuda.synchronize()
+    print(f"LM set-up: {time.perf_counter() - t0:.2f} s ({cfg.model.name}, "
+          f"D = {model.num_params:,} {params0.dtype}, C = {C} cohorts at "
+          f"{sizes}, I = {I}, {cfg.train.global_batch} x "
+          f"{cfg.train.seq_len} tokens a round)")
+    # warm-up (cuBLAS's first calls), outside the counted runs
+    make_fl_round(model, cfg, sizes, collective="int")(
+        params0, batches[0], torch.Generator(device="cuda").manual_seed(99))
+    torch.cuda.synchronize()
+    total = {k: 0 for k in ops.LAUNCHES}
+    int_params = []
+    for mode in LM_MODES:
+        fn = make_fl_round(model, cfg, sizes, collective=mode)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        params, hist, ms = params0, [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        host_ms = []
+        for r in range(R):
+            t0 = time.perf_counter()
+            params, m = fn(params, batches[r], g)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            loss = float(m["loss"])              # waits for the round
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append((loss, float(m["survivors"]), m["wire_bits_per_param"]))
+            check(params.dtype == torch.bfloat16 and params.shape == (LM_D,),
+                  f"LM {mode}: params {params.dtype} {tuple(params.shape)}")
+            if mode == "int":
+                int_params.append(params.to("cpu"))
+            elif mode != "paper":
+                check(torch.equal(params, int_params[r].to("cuda")),
+                      f"LM round {r}: {mode} params differ from int")
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launches.items():
+            total[k] += v
+        want = {k: 0 for k in ops.LAUNCHES}
+        want.update(predicted_cohort_launches(
+            mode, cfg.quant.pipeline_hops, sizes,
+            I if model.quantizes_training else 0, R, auto="ring"))
+        check(launches == want, f"LM {mode}: launches {launches} != "
+                                f"predicted {want}")
+        losses = [h[0] for h in hist]
+        check(all(map(math.isfinite, losses)), f"LM {mode}: loss {losses}")
+        check(bool(torch.isfinite(params).all()), f"LM {mode}: non-finite params")
+        check(abs(hist[0][2] - LM_WIRE_BITS[mode]) < 1e-9,
+              f"LM {mode}: wire bits {hist[0][2]} != {LM_WIRE_BITS[mode]}")
+        print(json.dumps({"lm_round": mode, "arch": cfg.model.name,
+                          "D": model.num_params, "dtype": cfg.model.dtype,
+                          "axis_sizes": list(sizes), "C": C, "I": I,
+                          "global_batch": cfg.train.global_batch,
+                          "seq_len": cfg.train.seq_len, "losses": losses,
+                          "survivors": [h[1] for h in hist],
+                          "wire_bits_per_param": hist[0][2],
+                          "round_ms": ms,
+                          "round_ms_median": sorted(ms)[R // 2],
+                          "round_host_ms": host_ms,
+                          "max_memory_allocated_gb": peak / 1e9,
+                          "launches": {k: v for k, v in launches.items() if v},
+                          "card": smi}))
+        del params, fn
+    print(f"LM round: params torch.equal across int, packed, ring, rsag and "
+          f"auto after each of {R} rounds at {sizes}; launches as predicted, "
+          f"none of the STE")
+    del int_params
+    fn = make_fl_round(model, cfg, sizes, collective="rsag")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    profile_phase(torch, f"make_fl_round rsag olmo-1b {sizes}",
+                  lambda: fn(params0, batches[0], g), rounds=3, host_ops=12)
+    return total
+
+
+def planar_window(torch, W, cpw, n, w0, w1, device):
+    """The flat indices j·W + w (j-major) of the codes that words [w0, w1)
+    of a planar row of n codes hold: those below n.  Only the row's last
+    words hold padding lanes, so a window that holds some ends at W, and
+    the valid indices are a prefix: a plain version packs them into the
+    same words."""
+    w = torch.arange(w0, w1, dtype=torch.int64, device=device)
+    idx = (torch.arange(cpw, dtype=torch.int64, device=device)[:, None] * W
+           + w[None, :]).reshape(-1)
+    valid = idx < n
+    check(bool(valid.all()) or w1 == W, f"window [{w0}, {w1}) of {W} words "
+                                        f"holds padding before its end")
+    return idx[valid]
+
+
+def lm_windows_phase(torch, ops, tref, quant, agg):
+    """The uplink's kernels at the LM round's shapes, (2, D) = 2,353,528,832
+    values (past 2^31), held ``torch.equal`` to their plain versions on
+    windows: flat windows across index 2^31, across the row boundary and at
+    the end; for the packed kernels, the words whose codes cross 2^31 in
+    row 1 and each row's last words (the padded tail).  The plain versions
+    compute in int64, so they run on the windows only.  Launches here are
+    not counted on any path.  Returns the largest error per kernel."""
+    D, n2 = LM_D, 2 * LM_D
+    G31 = FLAT_LIMIT
+    check(n2 > G31 and D % 2 == 0, "the LM's uplink does not pass 2^31")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, D), generator=gen, device="cuda") * 0.02
+    u = torch.rand((2, D), generator=gen, device="cuda")
+    xf, uf = x.view(-1), u.view(-1)
+    err, checked = {}, {}
+    half = LM_WINDOW // 2
+
+    def held(name, got, want, where):
+        check(torch.equal(got, want),
+              f"{name} at {where}: differs from its plain version")
+        err[name] = max(err.get(name, 0.0), _max_diff(got, want))
+        checked[name] = checked.get(name, 0) + 1
+
+    flat_windows = ((G31 - LM_WINDOW, G31 + LM_WINDOW),
+                    (D - LM_WINDOW, D + LM_WINDOW), (n2 - LM_WINDOW, n2))
+
+    def word_windows(W):
+        """Row 1's words around those holding flat index 2^31, and the
+        last words of a row."""
+        w = (G31 - D) % W
+        return ((w - half, w + half), (W - LM_WINDOW, W))
+
+    # int: the quantizer over (2, D), and its dequantize
+    codes = ops.stochastic_quantize_codes(x, u, 8)
+    deq = ops.dequantize_codes(codes, 8)
+    for a, b in flat_windows:
+        held("stochastic_quantize_codes", codes.view(-1)[a:b],
+             tref.stochastic_quantize_ref(xf[a:b], uf[a:b], 8), (a, b))
+        held("dequantize_codes", deq.view(-1)[a:b],
+             tref.dequantize_ref(codes.view(-1)[a:b], 8), (a, b))
+    del codes, deq
+
+    # packed: quantize_pack at the guard lane, the word sum, unpack
+    lane = quant.packed_lane_bits(8, 2)
+    cpw = quant.codes_per_word(8, lane_bits=lane)
+    words = ops.quantize_pack(x, u, 8, lane_bits=lane)
+    W = words.shape[1]
+    summed = agg.sum_words(words)
+    vals = ops.unpack_dequantize(summed, 8, D, lane_bits=lane, sum_of=2)
+    for w0, w1 in word_windows(W):
+        idx = planar_window(torch, W, cpw, D, w0, w1, x.device)
+        for r in (0, 1):
+            held("quantize_pack", words[r, w0:w1],
+                 tref.quantize_pack_ref(x[r, idx][None], u[r, idx][None], 8,
+                                        lane_bits=lane)[0], (r, w0, w1))
+        held("unpack_dequantize", vals[idx],
+             tref.unpack_dequantize_ref(summed[w0:w1], 8, idx.numel(),
+                                        lane_bits=lane, sum_of=2), (w0, w1))
+    del words, summed, vals
+
+    # ring: the pipelined front-end (one chunk) and the hop into its codes
+    words, codes = ops.quantize_pack_chunk(x, u, 8, lane_bits=8, num_chunks=1)
+    buf, acc = words.reshape(2, -1), codes.reshape(2, D)
+    W, cpw = buf.shape[1], quant.codes_per_word(8, lane_bits=8)
+    for a, b in flat_windows:
+        held("quantize_pack_chunk", codes.view(-1)[a:b],
+             tref.stochastic_quantize_ref(xf[a:b], uf[a:b], 8), (a, b))
+    windows = [(w0, w1, planar_window(torch, W, cpw, D, w0, w1, x.device))
+               for w0, w1 in word_windows(W)]
+    before = [acc[1, idx].clone() for _, _, idx in windows]
+    for w0, w1, idx in windows:
+        held("quantize_pack_chunk", buf[1, w0:w1],
+             tref.quantize_pack_chunk_ref(x[1, idx][None], u[1, idx][None], 8,
+                                          lane_bits=8)[0].reshape(-1),
+             (1, w0, w1))
+    ops.repack(buf, acc, 8, D, hop=1, lane_bits=8, axis_size=2, inner=1)
+    for (w0, w1, idx), acc0 in zip(windows, before):
+        held("repack", acc[1, idx],
+             tref.repack_ref(buf[0:1, w0:w1], acc0[None].clone(), 8,
+                             idx.numel(), lane_bits=8)[0], (1, w0, w1))
+    del words, codes, buf, acc
+
+    # rsag: two chunks a row at lane 8, the scatter hop's pack_sums of
+    # partial sums of 2 codes at lane 9, and the gather's unpack
+    b8 = quant.lane_bias(8)
+    words, codes = ops.quantize_pack_chunk(x, u, 8, lane_bits=8,
+                                           num_chunks=2, bias=b8)
+    Cc, Wc = codes.shape[2], words.shape[2]
+    for a, b in flat_windows:
+        held("quantize_pack_chunk", codes.view(-1)[a:b],
+             tref.stochastic_quantize_ref(xf[a:b], uf[a:b], 8), (a, b))
+    for c in (0, 1):
+        for w0, w1 in ((((G31 - D - c * Cc) % Wc) - half,
+                        ((G31 - D - c * Cc) % Wc) + half), (Wc - LM_WINDOW, Wc)):
+            idx = planar_window(torch, Wc, cpw, Cc, w0, w1, x.device)
+            held("quantize_pack_chunk", words[1, c, w0:w1],
+                 tref.quantize_pack_chunk_ref(
+                     x[1, c * Cc + idx][None], u[1, c * Cc + idx][None], 8,
+                     lane_bits=8, bias=b8)[0].reshape(-1), (1, c, w0, w1))
+    lane9, b9 = quant.packed_lane_bits(8, 2), quant.lane_bias(
+        quant.packed_lane_bits(8, 2))
+    cpw9 = quant.codes_per_word(8, lane_bits=lane9)
+    sums = (codes[:, 0] + codes[:, 1]).contiguous()
+    packed = ops.pack_sums(sums, 8, lane_bits=lane9, bias=b9)
+    vals = ops.unpack_dequantize(packed, 8, Cc, lane_bits=lane9, bias=b9)
+    W9 = packed.shape[1]
+    for w0, w1 in ((W9 // 2 - half, W9 // 2 + half), (W9 - LM_WINDOW, W9)):
+        idx = planar_window(torch, W9, cpw9, Cc, w0, w1, x.device)
+        held("pack_sums", packed[1, w0:w1],
+             tref.pack_sums_ref(sums[1, idx][None], 8, lane_bits=lane9,
+                                bias=b9)[0], (1, w0, w1))
+        held("unpack_dequantize", vals[1, idx],
+             tref.unpack_dequantize_ref(packed[1, w0:w1], 8, idx.numel(),
+                                        lane_bits=lane9, bias=b9), (1, w0, w1))
+    print(json.dumps({"lm_uplink_windows": {
+        "shape": [2, D], "values": n2, "past_2_31": n2 - G31,
+        "window_words": LM_WINDOW, "windows_checked": checked,
+        "max_abs_err": err}}))
+    return err
+
+
+def lm_reference_phase(torch, get_config, apply_overrides, build_model,
+                       make_fl_round, RoundNoise):
+    """A reduced float32 LM round on the card against the same round on the
+    CPU (the reference trainer test's size, C = 4, I = 2, lr 0.5, q = 0.3),
+    in int and rsag, within the CPU tests' bound: every parameter within
+    one uplink code step, 99.9 % within 1e-5, loss rtol 1e-4."""
+    C, I, B = 4, 2, 16
+    cfg = apply_overrides(get_config("olmo-1b"), LM_SMALL + (
+        f"fl.local_iters={I}", "fl.learning_rate=0.5",
+        f"train.global_batch={B}", "channel.error_prob=0.3"))
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(7)
+    params = model.init_flat(3, device="cpu")
+    tok = torch.randint(0, cfg.model.vocab_size, (B, 32), generator=gen,
+                        dtype=torch.int32)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    noise = RoundNoise(None, torch.rand((C, model.num_params), generator=gen),
+                       torch.tensor([1.0, 0.0, 1.0, 1.0]))
+    for mode in ("int", "rsag"):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            fn = make_fl_round(model, cfg, (C,), collective=mode, device=dev)
+            new, m = fn(params.to(dev), {k: v.to(dev) for k, v in batch.items()},
+                        noise=RoundNoise(None, noise.u_up.to(dev),
+                                         noise.lam.to(dev)))
+            out[dev] = (new.cpu(), float(m["loss"]))
+        diff = (out["cuda"][0] - out["cpu"][0]).abs()
+        moved = float((out["cpu"][0] - params).abs().max())
+        within = float((diff <= 1e-5).float().mean())
+        print(f"card vs CPU, one reduced float32 LM round ({C},) I={I} "
+              f"({mode}): max param diff {float(diff.max()):.3g} (a code step "
+              f"{1 / 128:.4g}; moved up to {moved:.3g}), {within:.6f} within "
+              f"1e-5, loss {out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f}")
+        check(float(diff.max()) <= 1 / 128 + 1e-7 and within >= 0.999,
+              f"LM {mode}: round parameters disagree with the CPU path")
+        check(abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * abs(out["cpu"][1]),
+              f"LM {mode}: loss disagrees with the CPU path")
+
+
+def lm_train_phase(torch, ops, train_main, smi):
+    """The reference's trainer entry point on the card:
+    ``repro_torch.launch.train.main`` for 2 steps of olmo-1b at full width
+    on the 8-device mesh in rsag, the counts set to 0 just before and read
+    just after.  Returns the launches."""
+    argv = ["--arch", "olmo-1b", "--devices", "8", "--collective", "rsag",
+            "--steps", "2", "--log-every", "1", *LM_OVERRIDES]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(predicted_cohort_launches("rsag", True, (2,), 0, 2))
+    check(launches == want, f"trainer: launches {launches} != predicted {want}")
+    check(out["kind"] == "fl_round" and out["cohorts"] == 2
+          and out["steps"] == 2, f"trainer ran {out}")
+    check(math.isfinite(out["loss"]) and out["params_finite"],
+          f"trainer: loss {out['loss']}")
+    print(json.dumps({"lm_trainer": " ".join(argv), **{
+        k: out.get(k) for k in ("kind", "mesh", "cohorts", "steps", "loss",
+                            "tok_s", "seconds", "max_memory_allocated")},
+        "launches": {k: v for k, v in launches.items() if v}, "card": smi}))
+    return launches
 
 
 def fleet_reference_phase(torch, get_config, build_model, FLSimulator,
@@ -1402,13 +1749,17 @@ def power_policy_phase(torch, get_config, tfleet, tpower, energy_mod, smi):
     return stats
 
 
-def profile_phase(torch, label, run_round, rounds=5):
+def profile_phase(torch, label, run_round, rounds=5, host_ops=0):
     """Device busy share of a round.  The round time is the median host time
     of ``rounds`` unprofiled rounds, each ended by ``synchronize``; the
     device time by kernel comes from one more round under a CUDA-only
     ``torch.profiler`` trace (CUPTI), which adds no per-op host tracing but
     can slow the kernels themselves: the busy share is given both against
-    the unprofiled median and against the traced round's own time."""
+    the unprofiled median and against the traced round's own time.  With
+    ``host_ops`` > 0, one more round traced with CPU activity too gives the
+    ``host_ops`` operators with the most host (self CPU) time, and the
+    kernel launches the round enqueued, by API call (cuBLAS launches its
+    own kernels through the driver's ``cuLaunchKernelEx``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1442,6 +1793,23 @@ def profile_phase(torch, label, run_round, rounds=5):
             busy_ms / profiled_ms if rows else None,
         "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
                         for ms, n, k in rows[:12]]}}))
+    if host_ops:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_round()
+            torch.cuda.synchronize()
+        evts = list(prof.key_averages())
+        evts.sort(key=lambda e: -e.self_cpu_time_total)
+        launches = {e.key: e.count for e in evts if e.key in (
+            "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx")}
+        print(json.dumps({"profile_host": {
+            "path": label,
+            "kernel_launches": sum(launches.values()),
+            "kernel_launches_by_call": launches,
+            "top_host_ops": [{"op": e.key[:70],
+                              "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                              "calls": e.count} for e in evts[:host_ops]]}}))
 
 
 def time_ms(torch, fn, reps=50):
@@ -1902,6 +2270,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it needs a card")
     from repro_torch import convert
+    from repro_torch.config import apply_overrides
     from repro_torch.configs import get_config
     from repro_torch.core import aggregation as agg
     from repro_torch.core import quantization as quant
@@ -1909,9 +2278,11 @@ def main() -> int:
     from repro_torch.core import optimize
     from repro_torch.core.fl import FLSimulator, RoundNoise, local_sgd, make_fl_round
     from repro_torch.data.pipeline import make_federated_digits
-    from repro_torch.data.synthetic import digit_dataset
+    from repro_torch.data.synthetic import digit_dataset, token_batch
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as tref
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
     from repro_torch.population import fleet as tfleet
     from repro_torch.population import power as tpower
@@ -1945,6 +2316,14 @@ def main() -> int:
                                local_sgd, RoundNoise, quant, sizes, collective)
     fleet_cohort = cohort_fleet_phase(torch, ops, get_config, build_model,
                                       digit_dataset, make_fl_round, tfleet, smi)
+    lm = lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
+                        token_batch, make_fl_round, tmesh, smi)
+    for k, v in lm_windows_phase(torch, ops, tref, quant, agg).items():
+        err[k] = max(err[k], v)
+    lm_reference_phase(torch, get_config, apply_overrides, build_model,
+                       make_fl_round, RoundNoise)
+    for k, v in lm_train_phase(torch, ops, train_main, smi).items():
+        lm[k] += v
     planner_phase(torch, get_config, optimize, smi)
     power_policy_phase(torch, get_config, tfleet, tpower, energy_mod, smi)
     round_update_phase(torch, get_config, tfleet, smi)
@@ -1952,13 +2331,13 @@ def main() -> int:
     # qmatmul is on no round: its entry point is the kernel API, driven by
     # qmatmul_phase with the counts reset just before
     path_launches = {k: launches[k] + cohort[k] + fleet_sim[k] + fleet_cohort[k]
-                     for k in KERNELS}
+                     + lm[k] for k in KERNELS}
     path_launches["qmatmul"] = qmatmul_launches
     for k, n in path_launches.items():
         check(n > 0, f"{k} was not launched on its path")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": path_launches[k], "max_abs_err": err[k],
-                **times[k]}
+                **times[k], "launches_lm": lm[k]}
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,17 +1,78 @@
-"""Config registry: ``get_config("mnist_cnn")`` returns the module's CONFIG."""
+"""Config registry: ``get_config("olmo-1b")`` returns the module's CONFIG;
+``reduced(cfg)`` returns the CPU smoke-test variant of the same family
+(at most 2 layers, d_model at most 256), as the reference's."""
 from __future__ import annotations
 
 import importlib
+from dataclasses import replace
 from typing import Dict
 
 from repro_torch.config import Config
 
 _ARCHS: Dict[str, str] = {
+    "olmo-1b": "repro_torch.configs.olmo_1b",
     "mnist_cnn": "repro_torch.configs.mnist_cnn",
 }
+
+#: families ``reduced`` and ``models.build_model`` handle so far
+PORTED_FAMILIES = ("dense", "cnn")
 
 
 def get_config(name: str) -> Config:
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; valid: {sorted(_ARCHS)}")
     return importlib.import_module(_ARCHS[name]).CONFIG
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise for a model the port cannot run yet: a family other than dense
+    and cnn, or a dense config with MoE, MLA, recurrent blocks, multi-token
+    prediction or an encoder (ROADMAP A13); or a dense config whose norms
+    carry parameters in another dtype than float32: the reference keeps
+    those leaves in float32 beside the others' dtype, and the port's flat
+    vector has one dtype (ROADMAP A13)."""
+    m = cfg.model
+    extras = [name for name, on in (
+        ("moe", m.moe.enabled), ("mla", m.mla.enabled),
+        ("recurrent", m.recurrent.kind != "none"), ("mtp", m.mtp_depth > 0),
+        ("encoder-decoder", m.is_encoder_decoder)) if on]
+    if m.family not in PORTED_FAMILIES or extras:
+        what = f"family {m.family!r}" + (f" with {', '.join(extras)}"
+                                         if extras else "")
+        raise NotImplementedError(
+            f"{m.name}: {what} is not ported yet (ROADMAP A13); the port "
+            f"runs the dense decoder-only LM and the cnn")
+    if (m.family == "dense" and m.norm_type != "nonparametric_ln"
+            and m.dtype != "float32"):
+        raise NotImplementedError(
+            f"{m.name}: {m.norm_type} scales in float32 beside {m.dtype} "
+            f"weights need a dtype per leaf, not ported yet (ROADMAP A13); "
+            f"set model.dtype=float32")
+
+
+def reduced(cfg: Config) -> Config:
+    """Smoke-test variant: same family and block structure, tiny dims (the
+    reference's ``reduced`` for the dense and cnn families)."""
+    check_ported(cfg)
+    m = cfg.model
+    d = min(m.d_model, 256)
+    heads = min(m.n_heads, 4)
+    kv = min(m.n_kv_heads, heads)
+    m = replace(
+        m,
+        name=m.name + "-reduced",
+        n_layers=min(m.n_layers, 2),
+        n_encoder_layers=min(m.n_encoder_layers, 2),
+        d_model=d,
+        n_heads=heads,
+        n_kv_heads=kv,
+        head_dim=d // heads if m.family != "cnn" else 0,
+        d_ff=min(m.d_ff, 512),
+        vocab_size=min(m.vocab_size, 512),
+        encoder_seq_len=min(m.encoder_seq_len, 64),
+        local_window=min(m.local_window, 16),
+        attention_window=min(m.attention_window, 16) if m.attention_window else 0,
+        max_seq_len=min(m.max_seq_len, 2048),
+    )
+    train = replace(cfg.train, global_batch=2, seq_len=32, steps=2, fsdp=False)
+    return replace(cfg, model=m, train=train)

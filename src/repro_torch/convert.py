@@ -5,6 +5,13 @@ weights (in, out)), so a conversion is a plain copy through numpy.  The
 flat order of a parameter dict is its sorted key order — the JAX pytree
 leaf order — so a flat vector means the same in both packages.  Leading
 batch dimensions (the K clients of a round) ride in front of each leaf.
+
+A nested tree (the LM's ``{"blocks": {"attn": {"wq": ...}}, ...}``) is
+keyed by its leaves' paths joined with "/" (``tree_paths``).  JAX orders a
+dict's children by sorted key and empty dicts hold no leaf, so its
+``tree_leaves`` order is the paths' order as long as "/" sorts below every
+character of a key: keys are letters, digits and "_", all above "/", so
+sorting the joined paths sorts first by the top key, then by the next.
 """
 from __future__ import annotations
 
@@ -56,6 +63,31 @@ def unflatten_params(flat: torch.Tensor, shapes: Shapes) -> Dict[str, torch.Tens
     if off != flat.shape[-1]:
         raise ValueError(f"flat width {flat.shape[-1]} != {off} parameters")
     return out
+
+
+def tree_paths(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict's leaves keyed by their "/"-joined paths; an empty
+    dict (a non-parametric norm's) has no leaf."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(tree_paths(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def flat_from_tree(tree: Mapping, dtype: torch.dtype = torch.float32,
+                   device: DeviceLike = None) -> torch.Tensor:
+    """A nested dict of numpy leaves (the reference's parameters through
+    ``np.asarray``) -> the port's flat (D,) vector in leaf order.  A
+    bfloat16 leaf (``ml_dtypes.bfloat16``) passes through float32, which
+    holds it exactly, and is cast to ``dtype`` on the device."""
+    leaves = tree_paths(tree)
+    parts = [torch.from_numpy(np.array(leaves[k], np.float32).reshape(-1))
+             for k in sorted(leaves)]
+    return torch.cat(parts).to(device=resolve_device(device), dtype=dtype)
 
 
 def fleet_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):

@@ -30,10 +30,11 @@ model, is identical under every wire format.
 
 Where the reference ``vmap``s a ``lax.scan`` over clients, the port writes
 the batch out: the clients' (or cohorts') parameters are one flat (K, D)
-float32 tensor (columns in leaf order), so every local step is one
-fake-quant launch pair over all K, one stacked forward (grouped
-convolutions, ``bmm``) and one backward of the summed loss, which gives
-each its own gradient.
+tensor of the model's dtype (columns in leaf order), so every local step
+is one stacked forward (the QNN's grouped convolutions and ``bmm``, the
+LM's batched products), one backward of the summed loss, which gives
+each its own gradient, and for the QNN one fake-quant launch pair over
+all K.
 """
 from __future__ import annotations
 
@@ -69,48 +70,76 @@ def _uniform(gen: Optional[torch.Generator], shape,
 
 
 def _full_fp32(device: torch.device) -> None:
-    """Run the round in full float32, as the reference does: TF32 off for
-    cuDNN convolutions (on by default) and matrix products — a
-    process-wide setting."""
+    """Run the round's float math as the reference does: TF32 off for cuDNN
+    convolutions (on by default) and for float32 matrix products, and
+    bfloat16 products accumulated in float32 (cuBLAS may otherwise reduce
+    a split-K product in bfloat16; the reference's dots accumulate in
+    float32 and round the result once) — process-wide settings."""
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def local_sgd(model, config: Config, params: torch.Tensor, batches: Batch,
               gen: Optional[torch.Generator] = None, *,
               u_train: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """I local steps of quantized SGD (eq. 4) for K clients at once.
+    """I local steps of SGD (eq. 4) for K clients at once.
 
-    params (D,); batches leaves (K, I, B, ...); u_train (K, I, D) the
-    fake-quant noise of each step (drawn from ``gen`` when None).  Returns
-    the K local parameter vectors (K, D) and each step's loss and accuracy,
-    (I, K) each.
+    params (D,), of the model's dtype; batches leaves (K, I, B, ...).
+    Where ``model.quantizes_training`` (the QNN), each step trains through
+    the STE fake-quant with noise u_train (K, I, D) (drawn from ``gen``
+    when None); the LM, like the reference's, trains on its raw weights.
+    The step is ``w - eta * g`` in the parameters' dtype with eta rounded
+    to it once, as the reference's ``w - eta * g.astype(w.dtype)`` (a
+    Python float takes the array's dtype there).  Returns the K local
+    parameter vectors (K, D) and each step's loss and accuracy, (I, K)
+    each.
     """
     fl, qcfg = config.fl, config.quant
     K, I = batches["labels"].shape[:2]
     D = params.shape[0]
-    fake_quant = qcfg.enabled and qcfg.quantize_training
+    eta = float(torch.tensor(fl.learning_rate, dtype=params.dtype))
     p = params.detach().expand(K, D).clone()
     losses, accs = [], []
     for i in range(I):
-        p.requires_grad_(True)
-        with torch.enable_grad():
-            pq = p
-            if fake_quant:
+        batch = {k: v[:, i] for k, v in batches.items()}
+        if model.quantizes_training:
+            p.requires_grad_(True)
+            with torch.enable_grad():
                 u = (u_train[:, i] if u_train is not None
                      else _uniform(gen, (K, D), params.device))
                 pq = quant.fake_quant_ste(p, u, qcfg.bits, qcfg.clip,
                                           qcfg.stochastic)
-            ce, acc = model.loss_stacked(
-                convert.unflatten_params(pq, model.param_shapes),
-                {k: v[:, i] for k, v in batches.items()})
-            (grad,) = torch.autograd.grad(ce.sum(), p)
-        p = p.detach() - fl.learning_rate * grad
+                ce, acc = model.loss_stacked(
+                    convert.unflatten_params(pq, model.param_shapes), batch)
+                (grad,) = torch.autograd.grad(ce.sum(), p)
+            p = p.detach() - eta * grad
+        else:
+            ce, acc = sgd_step_(lambda leaves: model.loss_stacked(leaves, batch),
+                                p, model.param_shapes, eta)
         losses.append(ce.detach())
         accs.append(acc)
     return p, torch.stack(losses), torch.stack(accs)
+
+
+def sgd_step_(loss_fn: Callable, flat: torch.Tensor,
+              shapes: Dict[str, Tuple[int, ...]], eta: float):
+    """One SGD step on ``flat`` (..., D), in place: ``loss_fn`` maps the
+    leaves (views by path) to (loss, aux), loss one value or one per row;
+    each leaf steps ``w - eta * g`` in its dtype.  The gradients are taken
+    by leaf (one of the whole flat vector would zero-fill a (..., D)
+    tensor for each leaf), and the leaves step in place once the graph is
+    spent.  Returns (loss, aux)."""
+    views = convert.unflatten_params(flat, shapes)
+    live = {k: v.detach().requires_grad_(True) for k, v in views.items()}
+    with torch.enable_grad():
+        loss, aux = loss_fn(live)
+        grads = torch.autograd.grad(loss.sum(), list(live.values()))
+    for w, g in zip(views.values(), grads):
+        w.sub_(eta * g)
+    return loss.detach(), aux
 
 
 @dataclass
@@ -403,10 +432,11 @@ _WIRE_TO_COLLECTIVE = {"f32": "paper", "int": "int", "packed": "packed",
 
 class RoundNoise(NamedTuple):
     """Every random draw of one cohort round, so a test can inject the
-    reference's own: u_train (C, I, D) fake-quant noise per local step,
+    reference's own: u_train (C, I, D) fake-quant noise per local step
+    (None for a model whose local steps do not fake-quantize, the LM),
     u_up (C, D) uplink rounding noise, lam (C,) packet successes (None
     with a fleet, whose drops decide λ)."""
-    u_train: torch.Tensor
+    u_train: Optional[torch.Tensor]
     u_up: Optional[torch.Tensor]
     lam: Optional[torch.Tensor]
 
@@ -480,6 +510,7 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     _full_fp32(dev)
     I = fl.local_iters
     D = sum(math.prod(s) for s in model.param_shapes.values())
+    dtype = model.dtype
     quantize_up = qcfg.enabled and qcfg.quantize_uplink
     with_fleet = config.fleet.enabled
     if with_fleet and config.fleet.size < C:
@@ -502,9 +533,11 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                  fleet: Optional[pop_fleet.FleetState] = None, *,
                  noise: Optional[RoundNoise] = None,
                  fleet_draws: Optional[pop_fleet.RoundDraws] = None):
-        if params.shape != (D,) or params.device.type != dev.type:
-            raise ValueError(f"params must be ({D},) on {dev}, got "
-                             f"{tuple(params.shape)} on {params.device}")
+        if (params.shape != (D,) or params.device.type != dev.type
+                or params.dtype != dtype):
+            raise ValueError(f"params must be ({D},) {dtype} on {dev}, got "
+                             f"{tuple(params.shape)} {params.dtype} on "
+                             f"{params.device}")
         if noise is None and gen is None:
             raise ValueError("pass a generator, or the noise tensors")
         if (fleet is not None) != with_fleet:
@@ -531,11 +564,16 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
             u_up = noise.u_up
         else:
             u_up = _uniform(gen, (C, D), dev) if quantize_up else None
-        agg_delta = agg.aggregate(plan, p - params, 1.0 / C, lam, u_up)
+        # the reference's (p_local - params).astype(f32): XLA computes the
+        # difference of the two upcast operands, unrounded to their dtype
+        delta = p.to(torch.float32).sub_(params)
+        del p
+        agg_delta = agg.aggregate(plan, delta, 1.0 / C, lam, u_up)
+        del delta
         if not with_fleet:
             metrics = telemetry.distributed_metrics(
                 plan, loss=losses.mean(), survivors=lam.sum())
-            return params + agg_delta, metrics
+            return _apply(params, agg_delta), metrics
         if config.fleet.error_reweight:
             agg_delta = agg_delta * pop_errors.ipw_delta_scale(
                 info.lam, info.valid, info.rates_sel,
@@ -549,6 +587,12 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                 outage_sel=info.outage_sel, cost_sel=info.cost_sel,
                 harvest_j=info.harvest_j,
                 error_prob=config.channel.error_prob))
-        return params + agg_delta, metrics, fleet
+        return _apply(params, agg_delta), metrics, fleet
 
     return round_fn
+
+
+def _apply(params: torch.Tensor, agg_delta: torch.Tensor) -> torch.Tensor:
+    """The reference's ``w + d.astype(w.dtype)``: the float32 aggregate
+    rounded to the parameters' dtype, then added in it."""
+    return params + agg_delta.to(params.dtype)

@@ -1,4 +1,5 @@
-"""Synthetic datasets: procedural MNIST-like digits.
+"""Synthetic datasets: procedural MNIST-like digits and a Markov-ish token
+stream for the language models.
 
 MNIST is not available offline; ``digit_dataset`` draws 28x28 images whose
 class-conditional structure (a smoothed random template per class + noise +
@@ -68,3 +69,18 @@ def partition_dirichlet(gen: torch.Generator, labels: torch.Tensor,
             idx_per_client[client].extend(part.tolist())
     return [torch.tensor(sorted(ix), dtype=torch.int64, device=gen.device)
             for ix in idx_per_client]
+
+
+def token_batch(gen: torch.Generator, batch: int, seq_len: int,
+                vocab: int) -> Dict[str, torch.Tensor]:
+    """Markov-ish synthetic token stream: next token depends on current one.
+
+    Returns {"tokens", "labels"}, (batch, seq_len) int32 each on the
+    generator's device; the labels are the tokens shifted left by one
+    (the last wraps around), as the reference's ``token_batch``."""
+    dev = gen.device
+    base = torch.randint(0, vocab, (batch, seq_len), generator=gen, device=dev)
+    shifted = (base * 31 + 7) % vocab   # deterministic successor structure
+    mix = torch.rand((batch, seq_len), generator=gen, device=dev) < 0.5
+    tokens = torch.where(mix, base, shifted).to(torch.int32)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}

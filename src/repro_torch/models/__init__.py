@@ -1,19 +1,25 @@
 """Model factory: ``build_model(config)`` returns the family's model.
 
-Only the paper's QNN (family ``cnn``) is ported so far; the LM zoo of the
-reference waits for a later slice.
+The paper's QNN (family ``cnn``) and the dense decoder-only LM (family
+``dense``, e.g. olmo-1b) are ported; the rest of the reference's zoo
+raises (ROADMAP A13).  Every model exposes ``param_shapes`` (leaf shapes in
+leaf order), ``init``, ``loss`` for one model and ``loss_stacked`` for
+several stacked on a leading dimension, and ``quantizes_training``: whether
+its local steps run the STE fake-quant.
 """
 from __future__ import annotations
 
 from repro_torch.config.base import Config
+from repro_torch.configs import check_ported
 from repro_torch.models.cnn import CNNModel
+from repro_torch.models.transformer import LM
 
 
 def build_model(config: Config):
-    fam = config.model.family
-    if fam == "cnn":
+    check_ported(config)
+    if config.model.family == "cnn":
         return CNNModel(config)
-    raise NotImplementedError(f"model family {fam!r} is not ported yet")
+    return LM(config)
 
 
-__all__ = ["build_model", "CNNModel"]
+__all__ = ["build_model", "CNNModel", "LM"]

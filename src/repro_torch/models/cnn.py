@@ -79,6 +79,14 @@ class CNNModel:
     config: Config
 
     param_shapes = PARAM_SHAPES
+    dtype = torch.float32
+
+    @property
+    def quantizes_training(self) -> bool:
+        """The local steps train through the STE fake-quant (paper eq. 4),
+        as the reference's QNN loss does whenever it gets a key."""
+        qcfg = self.config.quant
+        return qcfg.enabled and qcfg.quantize_training
 
     def init(self, seed: Union[int, torch.Generator] = 0, *,
              device: DeviceLike = None) -> Params:

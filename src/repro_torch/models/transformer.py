@@ -1,0 +1,225 @@
+"""Decoder-only LM for the homogeneous dense stack (olmo-1b and its kin).
+
+The reference's ``LM`` in PyTorch: layer-stacked leaves ((L, ...) each,
+as the reference's vmapped init builds them), a loop over the layers where
+the reference scans, tied or separate output head, and the cross-entropy
+loss.  MoE, MLA, recurrent and hybrid stacks and multi-token prediction
+raise (ROADMAP A13), as do prefill and decode, which come with serving.
+
+Parameters are a dict keyed by the leaves' paths in the reference's tree
+("blocks/attn/wq", "embed", ...): sorted, those keys are the reference's
+``jax.tree_util.tree_leaves`` order, so ``convert.flatten_params`` gives
+the flat vector both packages agree on.  ``loss`` runs one model;
+``loss_stacked`` runs C cohorts at once, a leading C on every leaf and on
+the batch, and returns one loss per cohort (``core.fl.local_sgd``).
+
+Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
+its activations are recomputed in the backward pass, the same numbers.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import convert
+from repro_torch.config.base import Config, ModelConfig
+from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import common, mlp
+
+Params = Dict[str, torch.Tensor]
+Shapes = Dict[str, Tuple[int, ...]]
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def block_param_shapes(cfg: ModelConfig) -> Shapes:
+    """One layer's leaves by path: norm1, norm2, attn, mlp."""
+    shapes: Shapes = {}
+    for norm in ("norm1", "norm2"):
+        for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
+            shapes[f"{norm}/{k}"] = s
+    for k, s in attn.attention_param_shapes(cfg).items():
+        shapes[f"attn/{k}"] = s
+    for k, s in mlp.mlp_param_shapes(cfg).items():
+        shapes[f"mlp/{k}"] = s
+    return shapes
+
+
+def lm_param_shapes(cfg: ModelConfig) -> Shapes:
+    """Every leaf of the LM by path, in sorted (leaf) order; the layer
+    leaves are stacked (L, ...)."""
+    shapes: Shapes = {"embed": (cfg.vocab_size, cfg.d_model)}
+    for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
+        shapes[f"final_norm/{k}"] = s
+    if not cfg.tie_embeddings:
+        shapes["head"] = (cfg.d_model, cfg.vocab_size)
+    for k, s in block_param_shapes(cfg).items():
+        shapes[f"blocks/{k}"] = (cfg.n_layers,) + s
+    return {k: shapes[k] for k in sorted(shapes)}
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood over the last two axes but one: logits
+    (..., B, S, V), labels (..., B, S) -> (...)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -ll.mean(dim=(-2, -1))
+
+
+@dataclass
+class LM:
+    """Decoder-only language model, dense family; ``models.build_model``
+    checks the config (``configs.check_ported``) before it builds one."""
+    config: Config
+
+    def __post_init__(self):
+        self.param_shapes = lm_param_shapes(self.cfg)
+        self.num_params = sum(math.prod(s) for s in self.param_shapes.values())
+
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.config.model
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg)
+
+    #: the reference's ``LM.loss`` ignores its rng: no fake-quant in the
+    #: local steps (the QNN's STE is the cnn's, ``CNNModel``)
+    quantizes_training = False
+
+    # -- init ------------------------------------------------------------------
+
+    def init_flat(self, seed: Union[int, torch.Generator] = 0, *,
+                  device: DeviceLike = None) -> torch.Tensor:
+        """The flat (D,) parameter vector of the config's dtype from one
+        generator, as the reference's ``init`` lays it out: embeddings
+        N(0, 0.02²); then layer by layer its attention and MLP matrices
+        N(0, 1/fan_in) (``init_attention_params``, ``init_mlp_params``) and
+        its norms (``make_norm_params``); the final norm; a separate head.
+        The draws are the port's own: a parity test converts the
+        reference's parameters instead (``convert.flat_from_tree``)."""
+        cfg, dt = self.cfg, self.dtype
+        dev = resolve_device(device)
+        gen = make_generator(seed, dev)
+        flat = torch.empty(self.num_params, dtype=dt, device=dev)
+        views = convert.unflatten_params(flat, self.param_shapes)
+
+        def fill(prefix, leaves, layer=None):
+            for k, v in leaves.items():
+                view = views[f"{prefix}/{k}"]
+                (view if layer is None else view[layer]).copy_(v)
+
+        views["embed"].copy_(common.embed_init(
+            gen, (cfg.vocab_size, cfg.d_model)))
+        norm = common.make_norm_params(cfg, cfg.d_model, device=dev)
+        for i in range(cfg.n_layers):
+            fill("blocks/norm1", norm, i)
+            fill("blocks/norm2", norm, i)
+            fill("blocks/attn", attn.init_attention_params(gen, cfg, dtype=dt), i)
+            fill("blocks/mlp", mlp.init_mlp_params(gen, cfg, dtype=dt), i)
+        fill("final_norm", norm)
+        if not cfg.tie_embeddings:
+            views["head"].copy_(common.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size)))
+        return flat
+
+    def init(self, seed: Union[int, torch.Generator] = 0, *,
+             device: DeviceLike = None) -> Params:
+        """:meth:`init_flat`'s leaves by path (views of one flat vector)."""
+        return convert.unflatten_params(self.init_flat(seed, device=device),
+                                        self.param_shapes)
+
+    # -- forward (full sequence) -------------------------------------------------
+
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               stacked: bool) -> torch.Tensor:
+        table = params["embed"]
+        if not stacked:
+            return F.embedding(tokens.long(), table)
+        # C tables as one (C·V, d) table, cohort c's ids offset by c·V
+        C, V, d = table.shape
+        offs = torch.arange(C, device=tokens.device) * V
+        ids = tokens.long() + offs.reshape(C, *([1] * (tokens.dim() - 1)))
+        return F.embedding(ids, table.reshape(C * V, d))
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            logits = common.linear(x, params["embed"].transpose(-1, -2))
+        else:
+            logits = common.linear(x, params["head"])
+        return logits.float()
+
+    def _backbone(self, params: Params, tokens: torch.Tensor, *,
+                  stacked: bool, remat: bool) -> torch.Tensor:
+        """tokens (B, S) or (C, B, S) -> the final normed hidden states."""
+        cfg = self.cfg
+        B, S = tokens.shape[-2:]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        x = self._embed(params, tokens, stacked)
+        # one unbind a leaf: its backward stacks the layers' gradients in
+        # one write, where a select a layer would zero-fill the whole leaf
+        # and add into it once a layer
+        blocks = {k[len("blocks/"):]: v.unbind(1 if stacked else 0)
+                  for k, v in params.items() if k.startswith("blocks/")}
+        for i in range(cfg.n_layers):
+            layer = {k: v[i] for k, v in blocks.items()}
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(self._block, layer, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._block(layer, x, positions)
+        return common.apply_norm(x, _sub(params, "final_norm"), cfg)
+
+    def _block(self, layer: Params, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = common.apply_norm(x, _sub(layer, "norm1"), cfg)
+        mix, _ = attn.self_attention(_sub(layer, "attn"), h, positions, cfg,
+                                     window=cfg.attention_window)
+        x = x + mix.to(x.dtype)
+        h = common.apply_norm(x, _sub(layer, "norm2"), cfg)
+        ff = mlp.mlp(_sub(layer, "mlp"), h, cfg)
+        return x + ff.to(x.dtype)
+
+    # -- training loss -------------------------------------------------------------
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], rng=None,
+             *, remat: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One model's mean cross-entropy over the batch's tokens and labels
+        (B, S); ``rng`` is ignored, as the reference's."""
+        remat = self.config.train.remat if remat is None else remat
+        x = self._backbone(params, batch["tokens"], stacked=False, remat=remat)
+        ce = _cross_entropy(self._logits(params, x), batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+
+    def loss_stacked(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                     remat: Optional[bool] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """C cohorts at once: leaves (C, ...), tokens and labels (C, B, S).
+        Returns each cohort's cross-entropy and token accuracy, (C,) each
+        (the accuracy computed without gradient)."""
+        remat = self.config.train.remat if remat is None else remat
+        x = self._backbone(params, batch["tokens"], stacked=True, remat=remat)
+        logits = self._logits(params, x)
+        ce = _cross_entropy(logits, batch["labels"])
+        with torch.no_grad():
+            hit = logits.argmax(-1) == batch["labels"].long()
+            acc = hit.float().mean(dim=(-2, -1))
+        return ce, acc
+
+
+def _sub(params: Params, prefix: str) -> Params:
+    """The leaves under ``prefix/``, keyed by the rest of their path."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + "/")}
