@@ -35,7 +35,16 @@ through the kernels at the paper's widths:
   paper, int, packed, ring, rsag and auto wire formats; the uplink's
   kernels on its (2, D) operands, past flat index 2^31, on windows held
   to their plain versions; a reduced float32 LM round against the CPU;
-  and the trainer ``repro_torch.launch.train.main`` for 2 steps.
+  and the trainer ``repro_torch.launch.train.main`` for 2 steps;
+* the float32 local step ``kernels.ops.sgd_step_`` (``csrc/sgd.cu``, one
+  fused multiply-add an element, as XLA contracts the reference's
+  ``w - eta * g``), held to ``fma32`` and launched I times a QNN round;
+* checkpoints and streamed telemetry: the trainer on olmo-1b at full width
+  with a 10^5-device fleet saves after step 1 and resumes for step 2
+  (``--checkpoint-dir``, ``--telemetry-dir``), held to a replay; the
+  simulator over the 10^6-device fleet with the tap on and off; the
+  ``wire/*``, ``fleet/*`` and ``fl/*`` spans of a profiled cohort fleet
+  round in each format.
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -81,7 +90,15 @@ KERNELS = {
     "pack_sums": (PACK_SRC, "src/repro/kernels/pack.py:368"),
     "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
                 "src/repro/kernels/qmatmul.py:35"),
+    # no Pallas counterpart: XLA's fused w - eta*g of the local steps
+    # (src/repro/core/fl.py:185 and :620, src/repro/launch/steps.py:31)
+    "sgd_step": ("src/repro_torch/kernels/csrc/sgd.cu",
+                 "src/repro/core/fl.py:185"),
 }
+#: what each kernel's "replaces" points at, where that is not a Pallas kernel
+REPLACES_NOTE = {"sgd_step": "no Pallas counterpart: XLA's fused w - eta*g "
+                             "(src/repro/core/fl.py:185, :620, "
+                             "src/repro/launch/steps.py:31)"}
 #: the cohort round's layouts and modes: (label, collective, pipeline_hops)
 COHORT_MODES = {
     (10,): (("paper", "paper", True), ("int", "int", True),
@@ -133,7 +150,16 @@ LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
                  "masked_aggregate": "w @ x / sum(w)",
                  "masked_aggregate_den": "w @ x / den",
                  "qmatmul": "torch._int_mm (int32, no scaling), the faster of "
-                            "w row-major and w column-major"}
+                            "w row-major and w column-major",
+                 "sgd_step": "w.sub_(g, alpha=eta), counted only where it "
+                             "rounds once on the card (sub_alpha_rounds_once)"}
+#: the wire phases each format's aggregate spans (as the reference's do)
+WIRE_SPANS = {"int": ("wire/psum", "wire/quantize_pack", "wire/unpack_dequant"),
+              "ring": ("wire/psum", "wire/quantize_pack", "wire/ring_hops",
+                       "wire/unpack_dequant"),
+              "rsag": ("wire/psum", "wire/quantize_pack", "wire/reduce_scatter",
+                       "wire/all_gather", "wire/unpack_dequant")}
+WIRE_SPANS["packed"] = WIRE_SPANS["int"]
 
 
 #: the fleet paths: FLSimulator over FLEET_SIZE devices in (selection,
@@ -245,6 +271,63 @@ def kernels_phase(torch, ops, tref):
               f"quantize, dequantize, aggregate with and without a "
               f"denominator (f32 and int32 updates, all-zero weights, K=1)")
     return err
+
+
+def roadmap_c5_input(torch):
+    """ROADMAP C5's input on the card: 200,000 weights N(0, 0.05^2) and
+    gradients N(0, 1) from ``numpy.random.default_rng(0)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal(200_000) * 0.05).astype(np.float32)
+    g = rng.standard_normal(200_000).astype(np.float32)
+    return torch.from_numpy(w).cuda(), torch.from_numpy(g).cuda()
+
+
+def sgd_phase(torch, ops, tref):
+    """The float32 SGD step (``csrc/sgd.cu``) against its plain version
+    ``fma32`` (w - eta*g rounded once), ``torch.equal``: at the QNN's
+    (10, 421,642) on its 16-byte path, on ROADMAP C5's input (eta 0.001:
+    a mul and a sub differ from the exact step at 6,028 weights), on a leaf of
+    a (K, D) parameter block (strided rows, the element path) and on a view
+    4 bytes off a boundary; the plans checked.  Also whether
+    ``w.sub_(g, alpha=eta)`` rounds once on the card (equal to ``fma32``
+    on the same inputs).  Returns (max abs error, that answer)."""
+    eta = float(torch.tensor(0.05, dtype=torch.float32))
+    eta_c5 = float(torch.tensor(0.001, dtype=torch.float32))    # ROADMAP C5's
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    K, D = SHAPES["main"]
+    block = torch.randn((K, D), generator=gen, device="cuda") * 0.05
+    w0, g0 = roadmap_c5_input(torch)
+    cases = {"main": (block.clone(), torch.randn((K, D), generator=gen,
+                                                 device="cuda"), True),
+             "roadmap_c5": (w0.clone(), g0, True),
+             "leaf_of_(K,D)": (block.clone()[:, 1000:5096].view(K, 64, 64),
+                               torch.randn((K, 64, 64), generator=gen,
+                                           device="cuda"), False),
+             "view_4_bytes_off": (block.clone().view(-1)[1:100_001],
+                                  torch.randn(100_000, generator=gen,
+                                              device="cuda"), False)}
+    err, sub_once = 0.0, True
+    for label, (w, g, vector) in cases.items():
+        e = eta_c5 if label == "roadmap_c5" else eta
+        want = tref.fma32(torch.tensor(-e, device="cuda"), g, w)
+        sub_once &= torch.equal(w.clone().sub_(g, alpha=e), want)
+        plan = ops.sgd_plan(w, g)
+        check(plan.vector == vector, f"sgd_step {label}: plan {plan}")
+        before = ops.LAUNCHES["sgd_step"]
+        ops.sgd_step_(w, g, e)
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["sgd_step"] == before + 1, f"sgd_step {label}: launch")
+        err = max(err, _max_diff(w, want))
+        check(torch.equal(w, want), f"sgd_step {label} differs from fma32")
+    two = w0 - eta_c5 * g0
+    print(json.dumps({"sgd_step": "torch.equal to fma32",
+                      "cases": list(cases), "roadmap_c5_two_roundings_differ":
+                      int((two != tref.fma32(torch.tensor(-eta_c5, device="cuda"),
+                                             g0, w0)).sum()),
+                      "sub_alpha_rounds_once": bool(sub_once)}))
+    return err, bool(sub_once)
 
 
 #: masked_aggregate's cases beyond the main shapes (K, D, byte offset of
@@ -782,7 +865,8 @@ def main_path_phase(torch, ops, get_config, build_model, make_federated_digits,
     I, R = cfg.fl.local_iters, ROUNDS
     want = {k: 0 for k in ops.LAUNCHES}
     want.update({"stochastic_quantize_codes": (I + 1) * R,
-                 "dequantize_codes": (I + 1) * R, "masked_aggregate": R})
+                 "dequantize_codes": (I + 1) * R, "masked_aggregate": R,
+                 "sgd_step": I * R})
     print(f"launches on the main path ({R} rounds): {launches}")
     check(launches == want, f"launch counts {launches} != predicted {want}")
     return launches, sim, params
@@ -848,7 +932,9 @@ def predicted_cohort_launches(collective, hops, axis_sizes, ste_steps, R,
     (``src/repro/core/aggregation.py`` ``_reduce_ring``, ``_rsag_level``,
     ``_reduce_rsag``).  The STE takes one quantize and one dequantize per
     local step of a model that trains quantized (``ste_steps``: I for the
-    QNN, 0 for the LM, ``model.quantizes_training``) in every mode; the
+    QNN, 0 for the LM, ``model.quantizes_training``) in every mode, and the
+    QNN's float32 step one ``sgd_step`` over its (C, D) parameters (the
+    bfloat16 LM's step launches none: also ``ste_steps``); the
     uplink as the wire format runs it, "auto" resolving to ``auto``
     (packed for the QNN at (10,) and at (2, 5), 8 bits; the ring at (2,)).
     Per non-trivial axis of K entries:
@@ -885,7 +971,7 @@ def predicted_cohort_launches(collective, hops, axis_sizes, ste_steps, R,
                    "pack_sums": sum(ks) - int(hops),
                    "unpack_dequantize": 1})
     per_round = {"stochastic_quantize_codes": ste_steps,
-                 "dequantize_codes": ste_steps}
+                 "dequantize_codes": ste_steps, "sgd_step": ste_steps}
     for k, v in up.items():
         per_round[k] = per_round.get(k, 0) + v
     return {k: v * R for k, v in per_round.items() if v}
@@ -1093,7 +1179,7 @@ def fleet_simulator_phase(torch, ops, sim0, get_config, FLSimulator, convert,
                               f"fleet {label}")
         want = {k: 0 for k in ops.LAUNCHES}
         want.update({"stochastic_quantize_codes": (I + 1) * R,
-                     "dequantize_codes": (I + 1) * R,
+                     "dequantize_codes": (I + 1) * R, "sgd_step": I * R,
                      "masked_aggregate_den" if reweight
                      else "masked_aggregate": R})
         check(launches == want,
@@ -1122,6 +1208,177 @@ def fleet_simulator_phase(torch, ops, sim0, get_config, FLSimulator, convert,
         profile_phase(torch, f"FLSimulator fleet {label} {FLEET_SIZE:,}",
                       lambda: sim.run_round(params, gen))
     return total
+
+
+def telemetry_phase(torch, sim0, get_config, FLSimulator, convert, obs,
+                    telemetry, smi):
+    """``FLSimulator`` over the FLEET_SIZE-device fleet (the first run of
+    FLEET_SIM_RUNS), ROUNDS rounds with the tap off and on, from one
+    fleet, parameter vector and generator seed.  The untapped rounds are
+    queued under ``torch.cuda.set_sync_debug_mode("error")`` (no
+    synchronizing call), then the history read; the tapped ones stream to a
+    ``RecordingSink`` through ``obs.scan_sink_tap`` (the simulator wraps it
+    in a ``DeferredTap``).  Checks: parameters, fleet and history equal;
+    one record a round, valid, equal to the history.  Then the round time,
+    host time of ``run_rounds`` through a synchronize over ROUNDS rounds,
+    with the tap off and on, interleaved off, on, on, off, three times."""
+    from repro_torch.obs import tap as obs_tap
+
+    cfg = fleet_config(paper_config(get_config), FLEET_SIZE,
+                       *FLEET_SIM_RUNS[0])
+    sim = FLSimulator(sim0.model, cfg, sim0.store)
+    fleet0 = sim.fleet_state
+    params0 = convert.flatten_params(sim0.model.init(1))
+    R = ROUNDS
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(2)
+
+    sim._queue_fleet_rounds(params0, 1, gen())       # warm
+    sim.fleet_state = fleet0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p_off, tels = sim._queue_fleet_rounds(params0, R, gen())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h_off = telemetry.expand_history(telemetry.stack_rounds(tels), R)
+    f_off, sim.fleet_state = sim.fleet_state, fleet0
+    rec = obs.RecordingSink()
+    p_on, h_on = sim.run_rounds(params0, R, gen(),
+                                tap=obs_tap.scan_sink_tap(rec))
+    check(torch.equal(p_on, p_off), "telemetry: the tap changed the parameters")
+    check(all(torch.equal(a, b) for a, b in zip(sim.fleet_state, f_off)),
+          "telemetry: the tap changed the fleet")
+    check(h_on == h_off, "telemetry: the tap changed the history")
+    check(len(rec.records) == R, f"telemetry: {len(rec.records)} records")
+    for r, h in zip(rec.records, h_on):
+        check(obs.validate_record(r) == [] and r["round"] == h["round"],
+              f"telemetry: record {r}")
+        for key in ("loss", "accuracy", "survivors", "tau_s",
+                    "cohort_energy_j", "battery_total_j", "outage_rate",
+                    "harvested_j", "power_q50_w"):
+            check(r[key] == h[key], f"telemetry: record {key} {r[key]} != "
+                                    f"history {h[key]}")
+        sel = [d for d, v in zip(r["selected"], r["valid"]) if v > 0]
+        check(sel == h["selected"], f"telemetry: selected {sel}")
+    ms = {"off": [], "on": []}
+    for order in ("off", "on", "on", "off") * 3:
+        sim.fleet_state = fleet0
+        tap = obs_tap.scan_sink_tap(obs.RecordingSink()) if order == "on" \
+            else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run_rounds(params0, R, gen(), tap=tap)
+        torch.cuda.synchronize()
+        ms[order].append((time.perf_counter() - t0) * 1e3 / R)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    print(json.dumps({"telemetry": "FLSimulator fleet tap on vs off",
+                      "fleet_size": FLEET_SIZE, "rounds": R,
+                      "records_equal_history": True, "untapped_sync_free": True,
+                      "round_ms_off": ms["off"], "round_ms_on": ms["on"],
+                      "round_ms_off_median": med["off"],
+                      "round_ms_on_median": med["on"],
+                      "round_ms_is": "host time of run_rounds over the rounds "
+                                     "through a synchronize, per round",
+                      "card": smi}))
+    return med
+
+
+def checkpoint_phase(torch, train_main, get_config, apply_overrides,
+                     build_model, smi):
+    """The trainer's checkpoints and stream on olmo-1b at full width: 1 step
+    in rsag with a COHORT_FLEET_SIZE fleet, ``--checkpoint-every 1`` and a
+    telemetry stream, then a resumed run to step 2, in a directory under
+    ``build/`` removed afterwards.  Checks: the parameters and fleet
+    restored from step 1 ``torch.equal`` to those the first run ended
+    with; the resumed step equal to a one-step replay from them with a
+    fresh generator (the reference's resume); both records valid.  Prints
+    the files' bytes and the save and restore seconds."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.device import make_generator
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.obs import validate_record
+    from repro_torch.population import fleet as tfleet
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build"))
+    ck, tel = d / "ckpt", d / "tel"
+    argv = ["--arch", "olmo-1b", "--devices", "8", "--collective", "rsag",
+            "--fleet-size", str(COHORT_FLEET_SIZE), "--log-every", "1",
+            "--checkpoint-dir", str(ck), "--checkpoint-every", "1",
+            "--telemetry-dir", str(tel), *LM_OVERRIDES]
+    host = lambda out: (out["params"].cpu(),
+                        [t.cpu() for t in out["fleet"]])
+    try:
+        a = train_main(argv + ["--steps", "1"])
+        a_params, a_fleet = host(a)
+        save_s = a["save_s"]
+        del a
+        sizes = {"params": os.path.getsize(ck / "ckpt_1.msgpack"),
+                 "fleet": os.path.getsize(ck / "fleet" / "ckpt_1.msgpack")}
+        b = train_main(argv + ["--steps", "2"])
+        check(b["start_step"] == 1 and b["steps"] == 2,
+              f"checkpoint: resumed {b['start_step']} -> {b['steps']}")
+        b_params, b_fleet = host(b)
+        resumed_restore_s = b["restore_s"]
+        del b
+        cfg = apply_overrides(get_config("olmo-1b"), LM_OVERRIDES + (
+            f"fleet.size={COHORT_FLEET_SIZE}",))
+        model = build_model(cfg)
+        D = sum(math.prod(v) for v in model.param_shapes.values())
+        check(D == LM_D, f"checkpoint: D = {D}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = ckpt.restore_params(str(ck), torch.empty(
+            D, dtype=model.dtype, device="cuda"), model.param_shapes, step=1)
+        fleet = tfleet.restore_fleet_checkpoint(
+            str(ck / "fleet"), tfleet.init_fleet(cfg.fleet.seed, cfg), step=1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(torch.equal(params.cpu(), a_params),
+              "checkpoint: restored parameters differ from the saved")
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(fleet, a_fleet)),
+              "checkpoint: restored fleet differs from the saved")
+        step_fn, kind = tsteps.make_train_step(
+            model, cfg, tmesh.mesh_for_devices(8), collective="rsag")
+        check(kind == "fleet_fl_round", f"checkpoint: step kind {kind}")
+        gen = make_generator(cfg.fl.seed + 1, torch.device("cuda"))
+        batch = token_batch(gen, cfg.train.global_batch, cfg.train.seq_len,
+                            cfg.model.vocab_size)
+        params, _, fleet = step_fn(params, batch, gen, fleet)
+        check(torch.equal(params.cpu(), b_params),
+              "checkpoint: the resumed step differs from its replay")
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(fleet, b_fleet)),
+              "checkpoint: the resumed fleet differs from its replay")
+        del params, fleet
+        with open(tel / "telemetry.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        check([r["round"] for r in records] == [0, 1]
+              and all(validate_record(r) == [] for r in records),
+              f"checkpoint: records {records}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(json.dumps({"checkpoint": "olmo-1b rsag, fleet "
+                                    f"{COHORT_FLEET_SIZE:,}, 1 step then resume",
+                      "bytes": sizes, "save_s": save_s,
+                      "restore_s_in_trainer": resumed_restore_s,
+                      "restore_s": restore_s,
+                      "restored_equal_saved": True,
+                      "resumed_equal_replay": True,
+                      "records": [r["round"] for r in records],
+                      "save_s_is": "host seconds to write the parameters and "
+                                   "the fleet after step 1, from the card",
+                      "restore_s_is": "host seconds to read both back onto "
+                                      "the card, through a synchronize",
+                      "card": smi}))
+    return {"bytes": sizes, "save_s": save_s, "restore_s": restore_s}
 
 
 def round_update_phase(torch, get_config, tfleet, smi):
@@ -1232,7 +1489,49 @@ def cohort_fleet_phase(torch, ops, get_config, build_model, digit_dataset,
     g = torch.Generator(device="cuda").manual_seed(3)
     profile_phase(torch, f"make_fl_round rsag (10,) fleet {COHORT_FLEET_SIZE:,}",
                   lambda: fn(params0, batches[0], g, fleet0))
+    for mode in COHORT_FLEET_MODES:
+        fn = make_fl_round(model, cfg, (C,), collective=mode)
+        spans_phase(torch, f"make_fl_round {mode} (10,) fleet "
+                           f"{COHORT_FLEET_SIZE:,}",
+                    lambda: fn(params0, batches[0], g, fleet0),
+                    WIRE_SPANS[mode])
     return total
+
+
+def spans_phase(torch, label, run_round, wire):
+    """One round traced with CPU and CUDA activity holds every span of
+    ``wire`` (the wire phases its format runs), every ``fleet/*`` phase and
+    both ``fl/*`` phases, and no other wire phase; prints each span's host
+    time (its range on the host) and device span (the ranges the profiler
+    puts on the card's timeline for it, summed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+
+    run_round()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_round()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.name.split("/")[0] not in ("wire", "fleet", "fl"):
+            continue
+        d = spans.setdefault(e.name, {"host_ms": 0.0, "device_span_ms": 0.0,
+                                      "calls": 0})
+        if e.device_type == DeviceType.CPU:
+            d["host_ms"] += e.time_range.elapsed_us() / 1e3
+            d["calls"] += 1
+        else:
+            d["device_span_ms"] += e.time_range.elapsed_us() / 1e3
+    want = set(wire) | set(trace.FLEET_PHASES) | set(trace.FL_PHASES)
+    have = {k for k, d in spans.items() if d["calls"]}
+    check(want <= have, f"{label}: spans missing {sorted(want - have)}")
+    check(not set(spans) - want, f"{label}: spans {sorted(set(spans) - want)} "
+                                 f"its format does not run")
+    print(json.dumps({"spans": label, "phases": dict(sorted(spans.items()))}))
 
 
 #: the LM path: olmo-1b at full width on the reference's (2, 4) debug mesh
@@ -1958,7 +2257,7 @@ def launch_floor_phase(torch, ops, grids, smi):
     return floor
 
 
-def timing_phase(torch, ops, tref, quant, agg, smi):
+def timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once):
     """Every kernel at the shape the main paths give it (8 bits, C=K=10,
     D=421,642): the packed psum's lane 12 for quantize_pack and
     unpack_dequantize, the ring's native lane 8 for quantize_pack_chunk
@@ -2000,7 +2299,10 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
     (``launch_floor``) is timed at 1 block and at every grid these
     launches make, now and in the earlier design of one block per 256
     words (columns, for masked_aggregate), and each of their rows carries
-    the floor at its own grid."""
+    the floor at its own grid.  The row ``sgd_step`` is the QNN's float32
+    local step over (K, D) in place; ``w.sub_(g, alpha=eta)`` is its
+    library call where it rounds once on the card (``sgd_phase``), else its
+    same-bytes yardstick."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2035,6 +2337,11 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
             torch.randint(-128, 128, (Kd, N), generator=gen, device="cuda",
                           dtype=torch.int8))
     (xq, wq), (xs, ws) = mm[960, 3136, 128], mm[256, 512, 256]
+    # the QNN's float32 local step over (K, D), in place
+    eta = float(torch.tensor(0.05, dtype=torch.float32))
+    neg_eta = torch.tensor(-eta, device="cuda")
+    sw = torch.randn((K, D), generator=gen, device="cuda") * 0.05
+    sg = torch.randn((K, D), generator=gen, device="cuda")
     # column-major copies of w, the layout cuBLASLt's int8 kernels favour
     wq_cm, ws_cm = wq.t().contiguous().t(), ws.t().contiguous().t()
 
@@ -2158,6 +2465,13 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
              "w_col_major": lambda: torch._int_mm(xs, ws_cm)},
             256 * 512 + 512 * 256 + 4.0 * 256 * 256,
             2.0 * 256 * 512 * 256, INT8_OPS_PER_S),
+        # w read and written, g read; sub_ with alpha is the same function
+        # only where it rounds once (sgd_phase)
+        "sgd_step": (
+            lambda: ops.sgd_step_(sw, sg, eta),
+            lambda: tref.fma32(neg_eta, sg, sw),
+            {"": lambda: sw.sub_(sg, alpha=eta)} if sub_alpha_once else None,
+            12.0 * n, 2.0 * n),
     }
     # about the bytes the kernel moves, not its function: no library_ms
     yardsticks = {k: ("torch.add(x, u)", lambda: torch.add(x, u), 12.0 * n)
@@ -2167,6 +2481,9 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
               "unpack_dequantize@rsag", "masked_aggregate",
               "masked_aggregate_den"):
         yardsticks[k] = copy_yardstick(torch, rows[k][3])
+    if not sub_alpha_once:
+        yardsticks["sgd_step"] = ("w.sub_(g, alpha=eta), two roundings",
+                                  lambda: sw.sub_(sg, alpha=eta), 12.0 * n)
     shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
               "qmatmul@256x512x256": [256, 512, 256],
               "unpack_dequantize@rsag": [K, chunk], "rsag_hop_pair": [K, chunk],
@@ -2205,6 +2522,8 @@ def timing_phase(torch, ops, tref, quant, agg, smi):
                  "host_ms": host_ms(torch, kernel)}
         if name == "fake_quant_pair":
             extra["bound_ms_codes_through_hbm"] = 20.0 * n / HBM_BYTES_PER_S * 1e3
+        if name == "sgd_step":
+            extra["sub_alpha_rounds_once"] = sub_alpha_once
         if name == "chunk_repack_pair":
             extra["bound_ms_codes_through_hbm"] = (
                 20.0 * n + 8.0 * K * Wn) / HBM_BYTES_PER_S * 1e3
@@ -2283,9 +2602,11 @@ def main() -> int:
     from repro_torch.kernels import ref as tref
     from repro_torch.launch import mesh as tmesh
     from repro_torch.launch.train import main as train_main
+    from repro_torch import obs
     from repro_torch.models import build_model
     from repro_torch.population import fleet as tfleet
     from repro_torch.population import power as tpower
+    from repro_torch.population import telemetry
 
     name, count, smi = device_phase(torch)
     build_phase(build)
@@ -2299,6 +2620,7 @@ def main() -> int:
     for k, v in wire_quantizer_paths_phase(torch, ops, tref).items():
         err[k] = max(err[k], v)
     err["qmatmul"], qmatmul_launches = qmatmul_phase(torch, ops, tref)
+    err["sgd_step"], sub_alpha_once = sgd_phase(torch, ops, tref)
     launches, sim, params = main_path_phase(torch, ops, get_config, build_model,
                                             make_federated_digits, FLSimulator,
                                             convert)
@@ -2309,6 +2631,8 @@ def main() -> int:
                                       convert, smi)
     fleet_reference_phase(torch, get_config, build_model, FLSimulator, convert,
                           tfleet, smi)
+    telemetry_phase(torch, sim, get_config, FLSimulator, convert, obs,
+                    telemetry, smi)
     cohort = cohort_round_phase(torch, ops, get_config, build_model,
                                 digit_dataset, make_fl_round, smi)
     for sizes, collective in (((4,), "packed"), ((2, 2), "rsag")):
@@ -2324,10 +2648,12 @@ def main() -> int:
                        make_fl_round, RoundNoise)
     for k, v in lm_train_phase(torch, ops, train_main, smi).items():
         lm[k] += v
+    checkpoint_phase(torch, train_main, get_config, apply_overrides,
+                     build_model, smi)
     planner_phase(torch, get_config, optimize, smi)
     power_policy_phase(torch, get_config, tfleet, tpower, energy_mod, smi)
     round_update_phase(torch, get_config, tfleet, smi)
-    times = timing_phase(torch, ops, tref, quant, agg, smi)
+    times = timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once)
     # qmatmul is on no round: its entry point is the kernel API, driven by
     # qmatmul_phase with the counts reset just before
     path_launches = {k: launches[k] + cohort[k] + fleet_sim[k] + fleet_cohort[k]
@@ -2337,7 +2663,9 @@ def main() -> int:
         check(n > 0, f"{k} was not launched on its path")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": path_launches[k], "max_abs_err": err[k],
-                **times[k], "launches_lm": lm[k]}
+                **times[k], "launches_lm": lm[k],
+                **({"replaces_note": REPLACES_NOTE[k]}
+                   if k in REPLACES_NOTE else {})}
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,8 +15,10 @@ in the port:
   where a model is built (ROADMAP A13).  ``local_window`` and
   ``encoder_seq_len`` belong to those families.
 - ``TrainConfig.learning_rate``, ``warmup_steps``, ``weight_decay`` and
-  ``optimizer`` are read by neither trainer: both step plain SGD at
-  ``fl.learning_rate``.  ``fsdp``, ``dp_over_model``, ``zero_over_model``
+  ``optimizer`` (the optimizer's fields) are read by neither trainer: both
+  step plain SGD at ``fl.learning_rate``.  ``optim`` ports the reference's
+  optimizers and schedules that these fields name, but no trainer calls
+  them, in either package, so the fields stay inert.  ``fsdp``, ``dp_over_model``, ``zero_over_model``
   and ``decode_batch_2d`` choose the reference's sharding, which changes
   no number; the port does not shard yet (ROADMAP A8, A13).
 

@@ -64,6 +64,7 @@ import torch
 from repro_torch.config.base import COLLECTIVE_CHOICES, QuantConfig
 from repro_torch.core import quantization as quant
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import phase_span
 
 EPS = 1e-12
 
@@ -251,27 +252,37 @@ def aggregate(plan: WirePlan, delta: torch.Tensor, alpha: float,
                          f"{plan.num_shards} shards")
     # α·λ in float32, as the reference's f32 scalar product
     w = lam.to(torch.float32) * float(np.float32(alpha))
-    den = torch.clamp(w.sum(), min=EPS)
     if plan.effective == "paper":
         qcfg = plan.quant
         if qcfg.enabled and qcfg.quantize_uplink:
-            delta = quant.quantize(delta, u, qcfg)
-        return (delta.to(torch.float32) * w[:, None]).sum(0) / den
+            with phase_span("wire/quantize_pack"):
+                delta = quant.quantize(delta, u, qcfg)
+        with phase_span("wire/psum"):
+            den = torch.clamp(w.sum(), min=EPS)
+            return (delta.to(torch.float32) * w[:, None]).sum(0) / den
+    with phase_span("wire/psum"):
+        den = torch.clamp(w.sum(), min=EPS)
     scale = float(plan.num_shards)
-    x = delta.to(torch.float32) * (w * scale)[:, None]
+    with phase_span("wire/quantize_pack"):
+        # the λ-weighting is the quantizer's input: the wire's front-end
+        x = delta.to(torch.float32) * (w * scale)[:, None]
     deq = _REDUCERS[plan.effective](plan, x, u)   # Σ codes · clip/G, (D,)
-    return deq / (den * scale)
+    with phase_span("wire/unpack_dequant"):
+        return deq / (den * scale)
 
 
 def _reduce_int(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
     """The codes summed in the smallest int container (one quantize and one
     dequantize launch)."""
     qcfg = plan.quant
-    codes = quant.quantize_codes(x, u, qcfg.bits, clip=qcfg.clip,
-                                 stochastic=qcfg.stochastic)
+    with phase_span("wire/quantize_pack"):
+        codes = quant.quantize_codes(x, u, qcfg.bits, clip=qcfg.clip,
+                                     stochastic=qcfg.stochastic)
     container = _int_container(qcfg.bits, plan.num_shards)
-    total = codes.to(container).sum(0, dtype=container).to(torch.int32)
-    return quant.dequantize_codes(total, qcfg.bits, clip=qcfg.clip)
+    with phase_span("wire/psum"):
+        total = codes.to(container).sum(0, dtype=container).to(torch.int32)
+    with phase_span("wire/unpack_dequant"):
+        return quant.dequantize_codes(total, qcfg.bits, clip=qcfg.clip)
 
 
 def _reduce_packed(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
@@ -281,11 +292,15 @@ def _reduce_packed(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
     exactly one +G per lane and the un-bias is C·G."""
     qcfg = plan.quant
     lane = quant.packed_lane_bits(qcfg.bits, plan.num_shards)
-    words = ops.quantize_pack(x, _contig(u), qcfg.bits, clip=qcfg.clip,
-                              lane_bits=lane, stochastic=qcfg.stochastic)
-    return ops.unpack_dequantize(sum_words(words), qcfg.bits, x.shape[1],
-                                 clip=qcfg.clip, lane_bits=lane,
-                                 sum_of=plan.num_shards)
+    with phase_span("wire/quantize_pack"):
+        words = ops.quantize_pack(x, _contig(u), qcfg.bits, clip=qcfg.clip,
+                                  lane_bits=lane, stochastic=qcfg.stochastic)
+    with phase_span("wire/psum"):
+        total = sum_words(words)
+    with phase_span("wire/unpack_dequant"):
+        return ops.unpack_dequantize(total, qcfg.bits, x.shape[1],
+                                     clip=qcfg.clip, lane_bits=lane,
+                                     sum_of=plan.num_shards)
 
 
 def _cohort_levels(plan: WirePlan) -> Tuple[Tuple[int, int], ...]:
@@ -306,27 +321,30 @@ def ring_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
     qcfg = plan.quant
     bits = qcfg.bits
     C, n = x.shape
-    if qcfg.pipeline_hops:
-        words, codes = ops.quantize_pack_chunk(
-            x, _contig(u), bits, clip=qcfg.clip, lane_bits=bits,
-            stochastic=qcfg.stochastic, num_chunks=1)
-        buf, acc = words.reshape(C, -1), codes.reshape(C, n)
-    else:
-        buf = ops.quantize_pack(x, _contig(u), bits, clip=qcfg.clip,
-                                lane_bits=bits, stochastic=qcfg.stochastic)
-        # own codes: the exact unpack of the freshly packed words
-        acc = ops.repack(buf, torch.zeros((C, n), dtype=torch.int32,
-                                          device=x.device),
-                         bits, n, hop=0, lane_bits=bits)
+    with phase_span("wire/quantize_pack"):
+        if qcfg.pipeline_hops:
+            words, codes = ops.quantize_pack_chunk(
+                x, _contig(u), bits, clip=qcfg.clip, lane_bits=bits,
+                stochastic=qcfg.stochastic, num_chunks=1)
+            buf, acc = words.reshape(C, -1), codes.reshape(C, n)
+        else:
+            buf = ops.quantize_pack(x, _contig(u), bits, clip=qcfg.clip,
+                                    lane_bits=bits,
+                                    stochastic=qcfg.stochastic)
+            # own codes: the exact unpack of the freshly packed words
+            acc = ops.repack(buf, torch.zeros((C, n), dtype=torch.int32,
+                                              device=x.device),
+                             bits, n, hop=0, lane_bits=bits)
     m = 1   # codes summed in each accumulator entry so far
-    for K, inner in _cohort_levels(plan):
-        lane = quant.packed_lane_bits(bits, m)
-        if m > 1:
-            buf = ops.pack_sums(acc, bits, lane_bits=lane, sum_of=m)
-        for h in range(1, K):
-            ops.repack(buf, acc, bits, n, hop=h, lane_bits=lane, sum_of=m,
-                       axis_size=K, inner=inner)
-        m *= K
+    with phase_span("wire/ring_hops"):
+        for K, inner in _cohort_levels(plan):
+            lane = quant.packed_lane_bits(bits, m)
+            if m > 1:
+                buf = ops.pack_sums(acc, bits, lane_bits=lane, sum_of=m)
+            for h in range(1, K):
+                ops.repack(buf, acc, bits, n, hop=h, lane_bits=lane,
+                           sum_of=m, axis_size=K, inner=inner)
+            m *= K
     return acc
 
 
@@ -335,7 +353,8 @@ def _reduce_ring(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
     row 0."""
     qcfg = plan.quant
     acc = ring_sum(plan, x, u)
-    return quant.dequantize_codes(acc[0], qcfg.bits, clip=qcfg.clip)
+    with phase_span("wire/unpack_dequant"):
+        return quant.dequantize_codes(acc[0], qcfg.bits, clip=qcfg.clip)
 
 
 def _gather_chunks(vals: torch.Tensor, K: int, inner: int,
@@ -376,52 +395,54 @@ def rsag_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
     R, n = x.shape
     levels = _cohort_levels(plan)
     rows = torch.arange(R, device=x.device)
-    if not levels:
-        codes = quant.quantize_codes(x, u, bits, clip=qcfg.clip,
-                                     stochastic=qcfg.stochastic)
-        return quant.dequantize_codes(codes, bits, clip=qcfg.clip)
     front = None
-    if qcfg.pipeline_hops:
-        lane0 = quant.packed_lane_bits(bits, 1)
-        front = ops.quantize_pack_chunk(
-            x, _contig(u), bits, clip=qcfg.clip, lane_bits=lane0,
-            stochastic=qcfg.stochastic, num_chunks=levels[0][0],
-            bias=quant.lane_bias(lane0))
-    else:
-        codes = quant.quantize_codes(x, u, bits, clip=qcfg.clip,
-                                     stochastic=qcfg.stochastic)
+    with phase_span("wire/quantize_pack"):
+        if qcfg.pipeline_hops and levels:
+            lane0 = quant.packed_lane_bits(bits, 1)
+            front = ops.quantize_pack_chunk(
+                x, _contig(u), bits, clip=qcfg.clip, lane_bits=lane0,
+                stochastic=qcfg.stochastic, num_chunks=levels[0][0],
+                bias=quant.lane_bias(lane0))
+        else:
+            codes = quant.quantize_codes(x, u, bits, clip=qcfg.clip,
+                                         stochastic=qcfg.stochastic)
+    if not levels:
+        with phase_span("wire/unpack_dequant"):
+            return quant.dequantize_codes(codes, bits, clip=qcfg.clip)
     unit = 1
     for li, (K, inner) in enumerate(levels):
         C = -(-n // K)
         idx = (rows // inner) % K
-        if li == 0 and front is not None:
-            words, chunks = front
-        else:
-            chunks = torch.nn.functional.pad(codes, (0, K * C - n))
-            chunks = chunks.reshape(R, K, C)
-        carry = chunks[rows, idx]
-        for h in range(1, K):
-            lane = quant.packed_lane_bits(bits, unit * h)
-            bias = quant.lane_bias(lane)
-            if h == 1 and li == 0 and front is not None:
-                payload = words[rows, idx]       # the own chunk, pre-packed
+        with phase_span("wire/reduce_scatter"):
+            if li == 0 and front is not None:
+                words, chunks = front
             else:
-                payload = ops.pack_sums(carry, bits, lane_bits=lane,
-                                        bias=bias)
-            carry = chunks[rows, (idx - h) % K]
-            ops.repack(payload, carry, bits, C, hop=1, lane_bits=lane,
-                       bias=bias, axis_size=K, inner=inner)
-        lane = quant.packed_lane_bits(bits, unit * K)
-        bias = quant.lane_bias(lane)
-        buf = ops.pack_sums(carry, bits, lane_bits=lane, bias=bias)
-        if li == len(levels) - 1:
-            vals = ops.unpack_dequantize(buf, bits, C, clip=qcfg.clip,
-                                         lane_bits=lane, bias=bias)
-        else:
-            vals = ops.repack(buf, torch.zeros((R, C), dtype=torch.int32,
-                                               device=x.device),
-                              bits, C, hop=0, lane_bits=lane, bias=bias)
-        codes = _gather_chunks(vals, K, inner, n)
+                chunks = torch.nn.functional.pad(codes, (0, K * C - n))
+                chunks = chunks.reshape(R, K, C)
+            carry = chunks[rows, idx]
+            for h in range(1, K):
+                lane = quant.packed_lane_bits(bits, unit * h)
+                bias = quant.lane_bias(lane)
+                if h == 1 and li == 0 and front is not None:
+                    payload = words[rows, idx]   # the own chunk, pre-packed
+                else:
+                    payload = ops.pack_sums(carry, bits, lane_bits=lane,
+                                            bias=bias)
+                carry = chunks[rows, (idx - h) % K]
+                ops.repack(payload, carry, bits, C, hop=1, lane_bits=lane,
+                           bias=bias, axis_size=K, inner=inner)
+        with phase_span("wire/all_gather"):
+            lane = quant.packed_lane_bits(bits, unit * K)
+            bias = quant.lane_bias(lane)
+            buf = ops.pack_sums(carry, bits, lane_bits=lane, bias=bias)
+            if li == len(levels) - 1:
+                vals = ops.unpack_dequantize(buf, bits, C, clip=qcfg.clip,
+                                             lane_bits=lane, bias=bias)
+            else:
+                vals = ops.repack(buf, torch.zeros((R, C), dtype=torch.int32,
+                                                   device=x.device),
+                                  bits, C, hop=0, lane_bits=lane, bias=bias)
+            codes = _gather_chunks(vals, K, inner, n)
         unit *= K
     return codes
 

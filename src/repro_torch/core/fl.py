@@ -53,6 +53,10 @@ from repro_torch.core import channel as ch
 from repro_torch.core import energy as energy_mod
 from repro_torch.core import quantization as quant
 from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.obs import sinks as obs_sinks
+from repro_torch.obs import tap as obs_tap
+from repro_torch.obs.trace import phase_span
 from repro_torch.population import errors as pop_errors
 from repro_torch.population import fleet as pop_fleet
 from repro_torch.population import power as pop_power
@@ -93,7 +97,10 @@ def local_sgd(model, config: Config, params: torch.Tensor, batches: Batch,
     when None); the LM, like the reference's, trains on its raw weights.
     The step is ``w - eta * g`` in the parameters' dtype with eta rounded
     to it once, as the reference's ``w - eta * g.astype(w.dtype)`` (a
-    Python float takes the array's dtype there).  Returns the K local
+    Python float takes the array's dtype there); in float32 it rounds once,
+    as XLA contracts the reference's into a fused multiply-add
+    (``kernels.ops.sgd_step_``: the QNN's step is one launch over (K, D)).
+    Returns the K local
     parameter vectors (K, D) and each step's loss and accuracy, (I, K)
     each.
     """
@@ -115,7 +122,8 @@ def local_sgd(model, config: Config, params: torch.Tensor, batches: Batch,
                 ce, acc = model.loss_stacked(
                     convert.unflatten_params(pq, model.param_shapes), batch)
                 (grad,) = torch.autograd.grad(ce.sum(), p)
-            p = p.detach() - eta * grad
+            p = p.detach()
+            _step_(p, grad, eta)
         else:
             ce, acc = sgd_step_(lambda leaves: model.loss_stacked(leaves, batch),
                                 p, model.param_shapes, eta)
@@ -131,15 +139,26 @@ def sgd_step_(loss_fn: Callable, flat: torch.Tensor,
     each leaf steps ``w - eta * g`` in its dtype.  The gradients are taken
     by leaf (one of the whole flat vector would zero-fill a (..., D)
     tensor for each leaf), and the leaves step in place once the graph is
-    spent.  Returns (loss, aux)."""
+    spent: a float32 leaf in one ``sgd_step_`` launch.  Returns (loss,
+    aux)."""
     views = convert.unflatten_params(flat, shapes)
     live = {k: v.detach().requires_grad_(True) for k, v in views.items()}
     with torch.enable_grad():
         loss, aux = loss_fn(live)
         grads = torch.autograd.grad(loss.sum(), list(live.values()))
     for w, g in zip(views.values(), grads):
-        w.sub_(eta * g)
+        _step_(w, g, eta)
     return loss.detach(), aux
+
+
+def _step_(w: torch.Tensor, g: torch.Tensor, eta: float) -> None:
+    """``w - eta * g`` in place, in w's dtype: rounded once in float32 (the
+    reference's contracted update, ROADMAP C5), a product and a difference
+    in bfloat16 (the reference's rounding there too)."""
+    if w.dtype == torch.float32:
+        ops.sgd_step_(w, g, eta)
+    else:
+        w.sub_(eta * g)
 
 
 @dataclass
@@ -286,23 +305,30 @@ class FLSimulator:
     def _run_rounds_fleet(self, params: torch.Tensor, rounds: int,
                           gen: torch.Generator, *,
                           eval_fn: Optional[Callable] = None,
-                          start_round: int = 0
+                          start_round: int = 0,
+                          tap: Optional[Callable] = None
                           ) -> Tuple[torch.Tensor, List[dict]]:
         """``rounds`` fleet rounds queued back to back
         (:meth:`_queue_fleet_rounds`), then the history built from their
         stacked telemetry: the one host read."""
+        stream = obs_tap.DeferredTap(tap) if tap is not None else None
         params, tels = self._queue_fleet_rounds(params, rounds, gen,
-                                                eval_fn=eval_fn)
+                                                eval_fn=eval_fn, tap=stream)
+        if stream is not None:
+            stream.flush()
         return params, telemetry.expand_history(telemetry.stack_rounds(tels),
                                                 rounds, start_round)
 
     def _queue_fleet_rounds(self, params: torch.Tensor, rounds: int,
                             gen: torch.Generator, *,
-                            eval_fn: Optional[Callable] = None
+                            eval_fn: Optional[Callable] = None,
+                            tap: Optional[Callable] = None
                             ) -> Tuple[torch.Tensor, List[dict]]:
         """Queue ``rounds`` fleet rounds without reading the device (unless
         ``eval_fn`` does); returns the parameters and each round's
-        telemetry as device tensors."""
+        telemetry as device tensors.  ``tap`` gets each round's telemetry
+        as it is queued (a :class:`obs.tap.DeferredTap` copies it to the
+        host without waiting)."""
         tels = []
         for _ in range(rounds):
             batches, client_alphas = self._round_inputs(gen)
@@ -312,6 +338,8 @@ class FLSimulator:
                 tel["accuracy"] = torch.as_tensor(eval_fn(params),
                                                   dtype=torch.float32,
                                                   device=self.device)
+            if tap is not None:
+                tap(tel)
             tels.append(tel)
         return params, tels
 
@@ -344,7 +372,9 @@ class FLSimulator:
 
     def run_rounds(self, params: torch.Tensor, rounds: int, gen: GenLike, *,
                    eval_fn: Optional[Callable[[torch.Tensor], float]] = None,
-                   start_round: int = 0) -> Tuple[torch.Tensor, List[dict]]:
+                   start_round: int = 0,
+                   tap: Optional[Callable] = None
+                   ) -> Tuple[torch.Tensor, List[dict]]:
         """``rounds`` successive :meth:`run_round` calls.  Each history entry
         carries ``round_s``, the round's host time: reading its loss waits
         for the device, so the time covers the round's device work.
@@ -352,12 +382,22 @@ class FLSimulator:
         With a fleet the rounds are queued without a host read, and the
         history (no ``round_s``) carries the fleet telemetry: the selected
         devices, drops, battery and assigned-power quantiles, realized
-        cohort energy (``energy_j``) and latency, outage and harvest."""
+        cohort energy (``energy_j``) and latency, outage and harvest.
+
+        ``tap`` (a host callable taking one round's telemetry dict, usually
+        ``obs.scan_sink_tap(sink)``) gets every round, in round order,
+        while the call runs: with a fleet the round's telemetry tensors,
+        copied to the host without waiting for the device
+        (``obs.tap.DeferredTap``); without, the round's loss, accuracy and
+        survivors.  Every round has reached the tap when the call returns.
+        The tap reads only the rounds' outputs: parameters, fleet and
+        history are those of an untapped call.  ``tap=None`` adds
+        nothing."""
         gen = make_generator(gen, self.device)
         if self.fleet_state is not None:
             return self._run_rounds_fleet(params, rounds, gen,
                                           eval_fn=eval_fn,
-                                          start_round=start_round)
+                                          start_round=start_round, tap=tap)
         history = []
         for t in range(rounds):
             t0 = time.perf_counter()
@@ -368,6 +408,9 @@ class FLSimulator:
                             "survivors": tel.survivors,
                             "energy_j": tel.energy_j, "tau_s": tel.tau_s,
                             "round_s": time.perf_counter() - t0})
+            if tap is not None:
+                tap({"loss": tel.loss, "accuracy": float(metric),
+                     "survivors": tel.survivors})
         return params, history
 
     def round_energy(self) -> Tuple[float, float]:
@@ -403,20 +446,26 @@ class FLSimulator:
     def train(self, params: torch.Tensor, rounds: int, gen: GenLike, *,
               target_accuracy: float = 0.0,
               eval_fn: Optional[Callable[[torch.Tensor], float]] = None,
-              log_every: int = 0) -> Tuple[torch.Tensor, List[dict]]:
+              log_every: int = 0,
+              sink: Optional[obs_sinks.MetricsSink] = None
+              ) -> Tuple[torch.Tensor, List[dict]]:
         """Run rounds until ``rounds`` or the target accuracy; returns
-        (params, history).  ``log_every`` prints every that many rounds."""
+        (params, history).  ``log_every`` prints every that many rounds
+        through ``obs.sinks.ConsoleSink`` (the reference's round line);
+        ``sink`` also gets every round's record (kind ``fl_round``) as the
+        round runs (:meth:`run_rounds`'s ``tap``)."""
         gen = make_generator(gen, self.device)
+        console = obs_sinks.ConsoleSink(log_every=log_every) \
+            if log_every else None
+        tap = obs_tap.scan_sink_tap(sink) if sink is not None else None
         history: List[dict] = []
         for t in range(rounds):
             params, hist = self.run_rounds(params, 1, gen, eval_fn=eval_fn,
-                                           start_round=t)
+                                           start_round=t, tap=tap)
             h = hist[0]
             history.append(h)
-            if log_every and (t % log_every == 0 or t == rounds - 1):
-                print(f"round {t:4d}  loss {h['loss']:.4f}  acc "
-                      f"{h['accuracy']:.3f}  survivors {h['survivors']}  "
-                      f"energy {h['energy_j']:.3f} J  tau {h['tau_s']*1e3:.1f} ms")
+            if console is not None:
+                console.emit(obs_sinks.make_record("fl_round", t, h))
             if target_accuracy and h["accuracy"] >= target_accuracy:
                 break
         return params, history
@@ -468,7 +517,8 @@ def resolve_collective(config: Config, collective: Optional[str]) -> str:
 
 def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                   collective: Optional[str] = None,
-                  device: DeviceLike = None) -> Optional[Callable]:
+                  device: DeviceLike = None,
+                  tap: Optional[Callable] = None) -> Optional[Callable]:
     """Build the cohort round over C = Π ``axis_sizes`` cohorts.
 
     collective: "paper" | "int" | "packed" | "ring" | "rsag" | "auto" |
@@ -497,6 +547,14 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     ``metrics`` holds the mean loss and the survivors (0-dim tensors),
     ``wire_bits_per_param`` and its per-phase split
     ``wire_phase_bits_per_param``.
+
+    ``tap`` (a host callable taking (metrics, round index), usually
+    ``obs.shard0_sink_tap(sink)``, or that wrapped in
+    ``obs.tap.DeferredTap`` so the round never waits for the device)
+    gets each round's metrics dict; a tapped round takes the keyword
+    ``step``, the round's absolute index, which stamps the record, and
+    raises ValueError without it.  The tap reads only the metrics.
+    ``tap=None`` adds nothing and ``step`` is then ignored.
     """
     fl, qcfg = config.fl, config.quant
     collective = resolve_collective(config, collective)
@@ -532,7 +590,12 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                  gen: Optional[torch.Generator] = None,
                  fleet: Optional[pop_fleet.FleetState] = None, *,
                  noise: Optional[RoundNoise] = None,
-                 fleet_draws: Optional[pop_fleet.RoundDraws] = None):
+                 fleet_draws: Optional[pop_fleet.RoundDraws] = None,
+                 step: Optional[int] = None):
+        if tap is not None and step is None:
+            raise ValueError(
+                "a tapped round needs its step index: call the round with "
+                "step= so each streamed record carries its true round")
         if (params.shape != (D,) or params.device.type != dev.type
                 or params.dtype != dtype):
             raise ValueError(f"params must be ({D},) {dtype} on {dev}, got "
@@ -551,8 +614,9 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                                                  draws=fleet_draws)
         batches = cohort_batches(batch)
         u_train = noise.u_train if noise is not None else None
-        p, losses, _ = local_sgd(model, config, params, batches, gen,
-                                 u_train=u_train)
+        with phase_span("fl/local_steps"):
+            p, losses, _ = local_sgd(model, config, params, batches, gen,
+                                     u_train=u_train)
         if with_fleet:
             lam = info.lam
         elif noise is not None:
@@ -573,7 +637,10 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
         if not with_fleet:
             metrics = telemetry.distributed_metrics(
                 plan, loss=losses.mean(), survivors=lam.sum())
-            return _apply(params, agg_delta), metrics
+            new = _apply(params, agg_delta)
+            if tap is not None:
+                tap(metrics, step)
+            return new, metrics
         if config.fleet.error_reweight:
             agg_delta = agg_delta * pop_errors.ipw_delta_scale(
                 info.lam, info.valid, info.rates_sel,
@@ -587,7 +654,10 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                 outage_sel=info.outage_sel, cost_sel=info.cost_sel,
                 harvest_j=info.harvest_j,
                 error_prob=config.channel.error_prob))
-        return _apply(params, agg_delta), metrics, fleet
+        new = _apply(params, agg_delta)
+        if tap is not None:
+            tap(metrics, step)
+        return new, metrics, fleet
 
     return round_fn
 
@@ -595,4 +665,5 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
 def _apply(params: torch.Tensor, agg_delta: torch.Tensor) -> torch.Tensor:
     """The reference's ``w + d.astype(w.dtype)``: the float32 aggregate
     rounded to the parameters' dtype, then added in it."""
-    return params + agg_delta.to(params.dtype)
+    with phase_span("fl/apply"):
+        return params + agg_delta.to(params.dtype)

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "aggregate", "pack", "qmatmul")
+SOURCES = ("quantize", "aggregate", "pack", "qmatmul", "sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -51,6 +51,8 @@ SIGNATURES = {
     "repro_null_kernel": (_i, _c),
     "repro_qmatmul": (_c, _c, _c, _i, _i, _i, _i, _f, _c),
     "repro_qmatmul_plan": (_c, _c, _i, _i, _i, _i, _c),
+    "repro_sgd_step_f32": (_c, _c, _ll, _ll, _ll, _ll, _f, _c),
+    "repro_sgd_plan": (_c, _c, _ll, _ll, _ll, _ll, _c),
 }
 
 _lock = threading.Lock()

@@ -4,7 +4,7 @@
 // (quantize_pack, quantize_pack_chunk, pack_sums, unpack_dequantize), so
 // the kernels that quantize round alike and share their L2 policies;
 // aggregate.cu (masked_aggregate) shares the geometry and the dependent
-// launch.
+// launch, sgd.cu (the float32 SGD step) the geometry.
 //
 // The step is the reference's multiply (src/repro/kernels/ref.py
 // stochastic_quantize_ref, src/repro/core/quantization.py quantize_codes):

@@ -22,7 +22,8 @@ def make_standard_train_step(model, config: Config, *,
                              device: DeviceLike = None) -> Callable:
     """Plain SGD step (paper eq. 3 at cohort level) on the flat (D,)
     parameters: ``w - eta * g`` in their dtype, eta rounded to it once, as
-    the reference's ``w - eta * g.astype(w.dtype)``.  A model that trains
+    the reference's ``w - eta * g.astype(w.dtype)`` (in float32 rounded
+    once, as XLA contracts it: one ``sgd_step_`` launch a leaf).  A model that trains
     quantized (the QNN) takes its fake-quant noise from ``gen``, as the
     reference's takes its key.  ``device=None`` means the CUDA device."""
     dev = resolve_device(device)
@@ -47,7 +48,8 @@ def make_standard_train_step(model, config: Config, *,
 def make_train_step(model, config: Config, mesh: Mesh, *,
                     collective: Optional[str] = None,
                     force_standard: bool = False,
-                    device: DeviceLike = None) -> Tuple[Callable, str]:
+                    device: DeviceLike = None,
+                    tap: Optional[Callable] = None) -> Tuple[Callable, str]:
     """Returns (step_fn, kind) with kind in {"fl_round", "fleet_fl_round",
     "standard"}.
 
@@ -55,11 +57,14 @@ def make_train_step(model, config: Config, mesh: Mesh, *,
     round runs the mesh's cohort axes stacked on one device
     (``core.fl.make_fl_round``); with ``config.fleet.enabled`` it threads
     a ``population.fleet.FleetState`` — (params, batch, gen, fleet) ->
-    (params, metrics, fleet) — and kind is "fleet_fl_round"."""
+    (params, metrics, fleet) — and kind is "fleet_fl_round".  ``tap``
+    gets each FL round's metrics (``make_fl_round``): a tapped FL step
+    takes the keyword ``step``; the standard step has no tap site."""
     if not force_standard:
         sizes = cohort_axis_sizes(mesh, config.fl.cohort_axes)
         fl_round = fl_mod.make_fl_round(model, config, sizes,
-                                        collective=collective, device=device)
+                                        collective=collective, device=device,
+                                        tap=tap)
         if fl_round is not None:
             kind = "fleet_fl_round" if config.fleet.enabled else "fl_round"
             return fl_round, kind

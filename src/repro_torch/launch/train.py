@@ -16,8 +16,24 @@ The fleet flags (``--fleet-size``, ``--selection``, ``--power-policy``,
 ``--power-max``) switch on the heterogeneous device population of
 ``population``: its ``FleetState`` threads through the step loop.
 
-``--checkpoint-dir`` and ``--telemetry-dir`` raise: checkpoints come with
-ROADMAP A12, streamed telemetry with A11.
+Checkpoints (``--checkpoint-dir D`` / ``--checkpoint-every N``), as the
+reference's: where ``D`` holds a checkpoint, the run restores the
+parameters from its latest step and, when a fleet runs and ``D/fleet``
+holds one, the ``FleetState`` (a legacy 6-leaf fleet is migrated), then
+runs from that step to ``--steps`` with a fresh generator seeded
+``fl.seed + 1``, as the reference restarts its key chain: a resumed run
+draws the batches and noise of steps 0, 1, ... again.  After each step
+with ``(step + 1) % N == 0`` it saves the parameters to ``D`` and the
+fleet to ``D/fleet`` (``checkpoint``, the reference's msgpack files: each
+package reads the other's).
+
+Streaming telemetry (``--telemetry-dir T`` / ``--telemetry-every N``):
+one versioned ``train_step`` record per FL round appended to
+``T/telemetry.jsonl``, stamped with the absolute step (so a resumed run
+appends a monotonic stream), every N-th step kept.  The records reach the
+file without the step waiting for the device (``obs.tap.DeferredTap``);
+at the end the run synchronizes and writes the rest.  The standard step
+has no FL round: its stream is closed and the run prints "stream off".
 
 ``main(argv, device=None)`` runs on the CUDA device and raises without
 one; pass ``device="cpu"`` to run on the CPU (the kernels' plain
@@ -28,11 +44,13 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 from typing import List, Optional
 
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.config.base import (COLLECTIVE_CHOICES, POWER_POLICIES,
                                      SELECTION_POLICIES, apply_overrides)
 from repro_torch.configs import get_config
@@ -42,6 +60,8 @@ from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import cohort_axis_sizes, mesh_for_devices
 from repro_torch.models import build_model
+from repro_torch.obs import sinks as obs_sinks
+from repro_torch.obs import tap as obs_tap
 from repro_torch.population import fleet as pop_fleet
 
 
@@ -73,26 +93,29 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "(power.p_max override)")
     ap.add_argument("--steps", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default="",
-                    help="not ported yet (ROADMAP A12): raises")
-    ap.add_argument("--checkpoint-every", type=int, default=50)
+                    help="resume from the latest checkpoint here (and the "
+                         "fleet's in its fleet/ directory), and save to it "
+                         "(off when empty)")
+    ap.add_argument("--checkpoint-every", type=int, default=50,
+                    help="save after every N-th step")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--telemetry-dir", default="",
-                    help="not ported yet (ROADMAP A11): raises")
-    ap.add_argument("--telemetry-every", type=int, default=1)
+                    help="stream one JSONL telemetry record per FL round "
+                         "here while the run goes on (off when empty)")
+    ap.add_argument("--telemetry-every", type=int, default=1,
+                    help="keep every N-th telemetry record (default 1)")
     ap.add_argument("overrides", nargs="*")
     return ap.parse_intermixed_args(argv)
 
 
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
-    """Run the trainer; returns the last step's metrics (host floats) and
-    the run's shape: {"kind", "mesh", "cohorts", "steps", "loss", ...}."""
+    """Run the trainer; returns the last step's metrics (host floats), the
+    run's shape {"kind", "mesh", "cohorts", "steps", "loss", ...}, the step
+    it started from ("start_step": the restored step, else 0), the final
+    "params" and "fleet" (None without one), and where it saved, restored
+    or streamed, the seconds that took ("save_s", "restore_s") and the
+    records written ("telemetry_records")."""
     args = parse_args(argv)
-    if args.checkpoint_dir:
-        raise NotImplementedError("--checkpoint-dir: checkpoints are not "
-                                  "ported yet (ROADMAP A12)")
-    if args.telemetry_dir:
-        raise NotImplementedError("--telemetry-dir: streamed telemetry is "
-                                  "not ported yet (ROADMAP A11)")
     dev = resolve_device(device)
 
     overrides = tuple(args.overrides)
@@ -112,9 +135,20 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
 
     steps = args.steps or cfg.train.steps
     collective = fl_mod.resolve_collective(cfg, args.collective)
+    sink = tap = None
+    if args.telemetry_dir:
+        sink = obs_sinks.JsonlSink(args.telemetry_dir)
+        tap = obs_tap.DeferredTap(obs_tap.shard0_sink_tap(
+            sink, kind="train_step", every=max(1, args.telemetry_every)))
     step_fn, kind = steps_mod.make_train_step(model, cfg, mesh,
                                               collective=collective,
-                                              device=dev)
+                                              device=dev, tap=tap)
+    if sink is not None and kind == "standard":
+        sink.close()
+        sink = tap = None
+        print("telemetry: no FL round on this mesh/config — stream off")
+    elif sink is not None:
+        print(f"telemetry: streaming train_step records -> {sink.path}")
     cohorts = (math.prod(cohort_axis_sizes(mesh, cfg.fl.cohort_axes))
                if kind != "standard" else 1)
     print(f"step kind: {kind} (collective={collective}, "
@@ -129,21 +163,44 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
               f"battery={cfg.fleet.battery_j}J")
 
     params = model.init_flat(cfg.fl.seed, device=dev)
+    out = {"kind": kind, "mesh": mesh, "cohorts": cohorts, "steps": 0,
+           "start_step": 0}
+    ckpt_dir = args.checkpoint_dir
+    fleet_dir = os.path.join(ckpt_dir, "fleet") if ckpt_dir else ""
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        t0 = time.perf_counter()
+        out["start_step"] = out["steps"] = ckpt.latest_step(ckpt_dir)
+        params = ckpt.restore_params(ckpt_dir, params, model.param_shapes)
+        print(f"restored checkpoint step {out['start_step']}")
+        if fleet is not None and ckpt.latest_step(fleet_dir) is not None:
+            # the same population goes on: drained batteries, fading
+            # chain and cursor, not a fresh round-0 fleet
+            fleet = pop_fleet.restore_fleet_checkpoint(fleet_dir, fleet)
+            print(f"restored fleet state step {ckpt.latest_step(fleet_dir)}")
+        out["restore_s"] = _seconds(t0, dev)
+    start = out["start_step"]
     gen = make_generator(cfg.fl.seed + 1, dev)
-    out = {"kind": kind, "mesh": mesh, "cohorts": cohorts, "steps": 0}
     t0 = time.perf_counter()
-    for step in range(steps):
+    for step in range(start, steps):
         batch = token_batch(gen, cfg.train.global_batch, cfg.train.seq_len,
                             cfg.model.vocab_size)
+        step_kw = {"step": step} if tap is not None else {}
         if fleet is not None:
-            params, metrics, fleet = step_fn(params, batch, gen, fleet)
+            params, metrics, fleet = step_fn(params, batch, gen, fleet,
+                                             **step_kw)
         else:
-            params, metrics = step_fn(params, batch, gen)
+            params, metrics = step_fn(params, batch, gen, **step_kw)
         out["steps"] = step + 1
+        if ckpt_dir and (step + 1) % args.checkpoint_every == 0:
+            ts = time.perf_counter()
+            ckpt.save_params(ckpt_dir, step + 1, params, model.param_shapes)
+            if fleet is not None:
+                ckpt.save_checkpoint(fleet_dir, step + 1, fleet)
+            out["save_s"] = out.get("save_s", 0.0) + _seconds(ts, dev)
         if step % args.log_every == 0 or step == steps - 1:
             loss = float(metrics["loss"])          # waits for the step
             tok_s = (cfg.train.global_batch * cfg.train.seq_len
-                     * (step + 1)) / (time.perf_counter() - t0)
+                     * (step - start + 1)) / (time.perf_counter() - t0)
             out.update(loss=loss, tok_s=tok_s)
             extra = ""
             if "survivors" in metrics:
@@ -166,8 +223,21 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     out["seconds"] = time.perf_counter() - t0
     out["params_finite"] = bool(torch.isfinite(params).all())
-    print(f"done: {out['steps']} steps in {out['seconds']:.1f}s")
+    out["params"], out["fleet"] = params, fleet
+    print(f"done: {out['steps'] - start} steps in {out['seconds']:.1f}s")
+    if sink is not None:
+        tap.flush()
+        sink.close()
+        out["telemetry_records"] = sink.emitted
+        print(f"telemetry: {sink.emitted} records -> {sink.path}")
     return out
+
+
+def _seconds(t0: float, device: torch.device) -> float:
+    """Host seconds since ``t0``, once the device has finished its work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
 
 
 if __name__ == "__main__":

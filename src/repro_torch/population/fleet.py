@@ -30,6 +30,7 @@ from repro_torch.config.base import SELECTION_POLICIES, Config
 from repro_torch.core import channel as ch
 from repro_torch.core import energy as energy_mod
 from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.obs.trace import phase_span
 from repro_torch.population import power as ppower
 
 GenLike = Union[int, torch.Generator]
@@ -136,6 +137,41 @@ def init_fleet(gen: GenLike, config: Config, *, device: DeviceLike = None,
                       p_last=torch.zeros(n, dtype=torch.float32, device=dev),
                       available=torch.ones(n, dtype=torch.float32, device=dev),
                       rr_cursor=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+class _LegacyFleetState(NamedTuple):
+    """``FleetState``'s layout before the power-control fields
+    (capacity_j, harvest_scale, p_last): older fleet checkpoints hold its
+    6 leaves in this field order."""
+    h_re: torch.Tensor
+    h_im: torch.Tensor
+    pathloss: torch.Tensor
+    battery_j: torch.Tensor
+    available: torch.Tensor
+    rr_cursor: torch.Tensor
+
+
+def restore_fleet_checkpoint(directory: str, template: FleetState,
+                             step: Optional[int] = None) -> FleetState:
+    """Restore a checkpointed ``FleetState`` onto the template's devices,
+    migrating a legacy 6-leaf state as the reference does: capacity is the
+    restored battery (harvesting can then never fill past the resume
+    point), the harvest scale 1 and ``p_last`` 0 (assigned afresh by the
+    next round).  A current checkpoint restores every field."""
+    from repro_torch.checkpoint import restore_checkpoint
+
+    try:
+        return restore_checkpoint(directory, template, step)
+    except ValueError:
+        legacy = restore_checkpoint(
+            directory,
+            _LegacyFleetState(**{f: getattr(template, f)
+                                 for f in _LegacyFleetState._fields}),
+            step)
+        return template._replace(
+            **legacy._asdict(), capacity_j=legacy.battery_j.clone(),
+            harvest_scale=torch.ones_like(legacy.battery_j),
+            p_last=torch.zeros_like(legacy.battery_j))
 
 
 def advance_channel(state: FleetState, gen: Optional[torch.Generator],
@@ -266,7 +302,7 @@ def round_update(state: FleetState, gen: Optional[torch.Generator],
     """The one per-round fleet state machine both runtimes share: advance
     the channel and availability → assign per-device power → rates →
     round cost → cohort selection → FBL-tied drops → battery debit →
-    harvest credit → cursor.
+    harvest credit → cursor, each phase in its ``fleet/*`` span.
 
     O(N) on the fleet's device with no host round-trip.  The draws come
     from ``gen`` or, all of them, from ``draws``.  The power vector and
@@ -280,31 +316,38 @@ def round_update(state: FleetState, gen: Optional[torch.Generator],
         if gen is None:
             raise ValueError("pass a generator, or the draws")
         draws = draw_round(gen, config, state.size, k)
-    state = advance_channel(state, None, config,
-                            normals=(draws.z_re, draws.z_im),
-                            u_avail=draws.u_avail)
-    power = ppower.assigned_power(config, state.gain2(), state.battery_j,
-                                  state.capacity_j, num_params)
-    state = state._replace(p_last=power)
-    rates = fleet_rates(state, config.channel, power)
-    cost = round_cost_j(config, rates, num_params, tx_power_w=power,
-                        wire_bits_per_param=wire_bits_per_param)
-    scores = psel.masked_scores(config.fleet.selection, state, rates, None,
-                                cost, lyapunov_v=config.power.lyapunov_v,
-                                u=draws.u_select)
-    idx, valid = psel.cohort_from_scores(scores, k)
+    with phase_span("fleet/advance_channel"):
+        state = advance_channel(state, None, config,
+                                normals=(draws.z_re, draws.z_im),
+                                u_avail=draws.u_avail)
+    with phase_span("fleet/power_assign"):
+        power = ppower.assigned_power(config, state.gain2(), state.battery_j,
+                                      state.capacity_j, num_params)
+        state = state._replace(p_last=power)
+    with phase_span("fleet/rates_cost"):
+        rates = fleet_rates(state, config.channel, power)
+        cost = round_cost_j(config, rates, num_params, tx_power_w=power,
+                            wire_bits_per_param=wire_bits_per_param)
+    with phase_span("fleet/select"):
+        scores = psel.masked_scores(config.fleet.selection, state, rates,
+                                    None, cost,
+                                    lyapunov_v=config.power.lyapunov_v,
+                                    u=draws.u_select)
+        idx, valid = psel.cohort_from_scores(scores, k)
     rates_sel = rates[idx]
-    # outage: the uplink cannot finish by the deadline at the assigned
-    # power — the one definition drops, IPW reach and telemetry share
-    r_min = ppower.min_rate(config, num_params)
-    outage_sel = valid * perrors.below(rates_sel, r_min)
-    lam = valid * perrors.realize_packet_success(
-        None, rates_sel, config.channel.error_prob, min_rate=r_min,
-        u=draws.u_drop)
-    cost_sel = cost[idx]
-    state, charge = debit_battery(state, idx, valid * cost_sel)
-    state, harvested = credit_harvest(state, config)
-    state = advance_cursor(state, k)
+    with phase_span("fleet/drop_realize"):
+        # outage: the uplink cannot finish by the deadline at the assigned
+        # power — the one definition drops, IPW reach and telemetry share
+        r_min = ppower.min_rate(config, num_params)
+        outage_sel = valid * perrors.below(rates_sel, r_min)
+        lam = valid * perrors.realize_packet_success(
+            None, rates_sel, config.channel.error_prob, min_rate=r_min,
+            u=draws.u_drop)
+    with phase_span("fleet/energy_ledger"):
+        cost_sel = cost[idx]
+        state, charge = debit_battery(state, idx, valid * cost_sel)
+        state, harvested = credit_harvest(state, config)
+        state = advance_cursor(state, k)
     return state, FleetRoundInfo(idx=idx, valid=valid, lam=lam,
                                  rates_sel=rates_sel, cost_sel=cost_sel,
                                  power_sel=power[idx], outage_sel=outage_sel,

@@ -12,7 +12,11 @@ measured (JAX 0.9.0, torch 2.13):
   step (1/128), at least 99.9 % within 1e-5, the loss within rtol 1e-4
   (measured: bit for bit, loss 1e-7 relative);
 * float32, bits = 0 and q = 0 (the float uplink): every parameter within
-  1e-6 (measured 7.5e-8);
+  1e-6 (measured 7.5e-8).  The float32 step now rounds once, as the
+  reference's (ROADMAP C5), and the measurement is unchanged: 34 % of the
+  parameters still differ, by up to 7.45e-8, because the LM's gradient
+  sums run in ATen's order and not XLA's (as C4 for the QNN), so the
+  bound stays;
 * bfloat16, int: the local steps' bfloat16 products sum in another order,
   so at least 99 % of the parameters equal and every one within a code
   step and one bfloat16 ulp, the loss within rtol 1e-3 (measured 99.4 %
@@ -302,14 +306,9 @@ def test_make_train_step_kinds():
                                   device="cpu")[1] == "standard"
 
 
-def test_entry_points_raise_without_cuda_and_on_unported_flags(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch):
     """Without a CUDA device the entry points raise and name the CPU
-    option; the checkpoint and telemetry flags raise and name their
-    ROADMAP items."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttrain.main(CLI + ["--checkpoint-dir", "x"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttrain.main(CLI + ["--telemetry-dir", "x"], device="cpu")
+    option."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _cfg()
     model = build_model(cfg)
