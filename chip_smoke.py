@@ -36,7 +36,7 @@ through the kernels at the paper's widths:
   kernels on its (2, D) operands, past flat index 2^31, on windows held
   to their plain versions; a reduced float32 LM round against the CPU;
   and the trainer ``repro_torch.launch.train.main`` for 2 steps;
-* the float32 local step ``kernels.ops.sgd_step_`` (``csrc/sgd.cu``, one
+* the float32 local step ``kernels.ops.fma_step_`` (``csrc/sgd.cu``, one
   fused multiply-add an element, as XLA contracts the reference's
   ``w - eta * g``), held to ``fma32`` and launched I times a QNN round;
 * checkpoints and streamed telemetry: the trainer on olmo-1b at full width
@@ -90,15 +90,12 @@ KERNELS = {
     "pack_sums": (PACK_SRC, "src/repro/kernels/pack.py:368"),
     "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
                 "src/repro/kernels/qmatmul.py:35"),
-    # no Pallas counterpart: XLA's fused w - eta*g of the local steps
-    # (src/repro/core/fl.py:185 and :620, src/repro/launch/steps.py:31)
-    "sgd_step": ("src/repro_torch/kernels/csrc/sgd.cu",
-                 "src/repro/core/fl.py:185"),
+    # replaces no Pallas kernel: a third entry says what it replaces
+    "fma_step": ("src/repro_torch/kernels/csrc/sgd.cu", None,
+                 "no Pallas counterpart: XLA's fused w - eta*g "
+                 "(src/repro/core/fl.py:185, :620, "
+                 "src/repro/launch/steps.py:31)"),
 }
-#: what each kernel's "replaces" points at, where that is not a Pallas kernel
-REPLACES_NOTE = {"sgd_step": "no Pallas counterpart: XLA's fused w - eta*g "
-                             "(src/repro/core/fl.py:185, :620, "
-                             "src/repro/launch/steps.py:31)"}
 #: the cohort round's layouts and modes: (label, collective, pipeline_hops)
 COHORT_MODES = {
     (10,): (("paper", "paper", True), ("int", "int", True),
@@ -151,7 +148,7 @@ LIBRARY_CALLS = {"dequantize_codes": "torch.mul",
                  "masked_aggregate_den": "w @ x / den",
                  "qmatmul": "torch._int_mm (int32, no scaling), the faster of "
                             "w row-major and w column-major",
-                 "sgd_step": "w.sub_(g, alpha=eta), counted only where it "
+                 "fma_step": "w.sub_(g, alpha=eta), counted only where it "
                              "rounds once on the card (sub_alpha_rounds_once)"}
 #: the wire phases each format's aggregate spans (as the reference's do)
 WIRE_SPANS = {"int": ("wire/psum", "wire/quantize_pack", "wire/unpack_dequant"),
@@ -313,16 +310,16 @@ def sgd_phase(torch, ops, tref):
         e = eta_c5 if label == "roadmap_c5" else eta
         want = tref.fma32(torch.tensor(-e, device="cuda"), g, w)
         sub_once &= torch.equal(w.clone().sub_(g, alpha=e), want)
-        plan = ops.sgd_plan(w, g)
-        check(plan.vector == vector, f"sgd_step {label}: plan {plan}")
-        before = ops.LAUNCHES["sgd_step"]
-        ops.sgd_step_(w, g, e)
+        plan = ops.fma_step_plan(w, g)
+        check(plan.vector == vector, f"fma_step {label}: plan {plan}")
+        before = ops.LAUNCHES["fma_step"]
+        ops.fma_step_(w, g, e)
         torch.cuda.synchronize()
-        check(ops.LAUNCHES["sgd_step"] == before + 1, f"sgd_step {label}: launch")
+        check(ops.LAUNCHES["fma_step"] == before + 1, f"fma_step {label}: launch")
         err = max(err, _max_diff(w, want))
-        check(torch.equal(w, want), f"sgd_step {label} differs from fma32")
+        check(torch.equal(w, want), f"fma_step {label} differs from fma32")
     two = w0 - eta_c5 * g0
-    print(json.dumps({"sgd_step": "torch.equal to fma32",
+    print(json.dumps({"fma_step": "torch.equal to fma32",
                       "cases": list(cases), "roadmap_c5_two_roundings_differ":
                       int((two != tref.fma32(torch.tensor(-eta_c5, device="cuda"),
                                              g0, w0)).sum()),
@@ -866,7 +863,7 @@ def main_path_phase(torch, ops, get_config, build_model, make_federated_digits,
     want = {k: 0 for k in ops.LAUNCHES}
     want.update({"stochastic_quantize_codes": (I + 1) * R,
                  "dequantize_codes": (I + 1) * R, "masked_aggregate": R,
-                 "sgd_step": I * R})
+                 "fma_step": I * R})
     print(f"launches on the main path ({R} rounds): {launches}")
     check(launches == want, f"launch counts {launches} != predicted {want}")
     return launches, sim, params
@@ -933,7 +930,7 @@ def predicted_cohort_launches(collective, hops, axis_sizes, ste_steps, R,
     ``_reduce_rsag``).  The STE takes one quantize and one dequantize per
     local step of a model that trains quantized (``ste_steps``: I for the
     QNN, 0 for the LM, ``model.quantizes_training``) in every mode, and the
-    QNN's float32 step one ``sgd_step`` over its (C, D) parameters (the
+    QNN's float32 step one ``fma_step`` over its (C, D) parameters (the
     bfloat16 LM's step launches none: also ``ste_steps``); the
     uplink as the wire format runs it, "auto" resolving to ``auto``
     (packed for the QNN at (10,) and at (2, 5), 8 bits; the ring at (2,)).
@@ -971,7 +968,7 @@ def predicted_cohort_launches(collective, hops, axis_sizes, ste_steps, R,
                    "pack_sums": sum(ks) - int(hops),
                    "unpack_dequantize": 1})
     per_round = {"stochastic_quantize_codes": ste_steps,
-                 "dequantize_codes": ste_steps, "sgd_step": ste_steps}
+                 "dequantize_codes": ste_steps, "fma_step": ste_steps}
     for k, v in up.items():
         per_round[k] = per_round.get(k, 0) + v
     return {k: v * R for k, v in per_round.items() if v}
@@ -1179,7 +1176,7 @@ def fleet_simulator_phase(torch, ops, sim0, get_config, FLSimulator, convert,
                               f"fleet {label}")
         want = {k: 0 for k in ops.LAUNCHES}
         want.update({"stochastic_quantize_codes": (I + 1) * R,
-                     "dequantize_codes": (I + 1) * R, "sgd_step": I * R,
+                     "dequantize_codes": (I + 1) * R, "fma_step": I * R,
                      "masked_aggregate_den" if reweight
                      else "masked_aggregate": R})
         check(launches == want,
@@ -2160,6 +2157,37 @@ def time_queued_ms(torch, fn, reps=50):
     return times[len(times) // 2], late
 
 
+def queued_quartiles_ms(torch, fns, reps=100):
+    """Quartiles [q1, median, q3] of each of ``fns``'s times as
+    ``time_queued_ms`` takes them (L2 flushed, the launch queued behind a
+    device sleep), the calls interleaved, in turns forward then backward,
+    so that a drift of the card's clock falls on all alike.  Returns
+    {name: quartiles} and the count of launches whose start event had run
+    before they were queued."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB
+    for fn in fns.values():
+        for _ in range(5):
+            fn()
+    pairs = {k: [] for k in fns}
+    late = 0
+    for i in range(reps):
+        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            flush.zero_()
+            torch.cuda._sleep(4 * 10 ** 6)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fns[k]()
+            e.record()
+            late += int(s.query())
+            pairs[k].append((s, e))
+    torch.cuda.synchronize()
+    out = {}
+    for k, ps in pairs.items():
+        t = sorted(s.elapsed_time(e) for s, e in ps)
+        out[k] = [t[len(t) // 4], t[len(t) // 2], t[3 * len(t) // 4]]
+    return out, late
+
+
 def host_ms(torch, fn, reps=50):
     """Median host time of one call of ``fn`` through the return of
     ``torch.cuda.synchronize()``, L2 warm: what a caller that waits for the
@@ -2299,10 +2327,11 @@ def timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once):
     (``launch_floor``) is timed at 1 block and at every grid these
     launches make, now and in the earlier design of one block per 256
     words (columns, for masked_aggregate), and each of their rows carries
-    the floor at its own grid.  The row ``sgd_step`` is the QNN's float32
+    the floor at its own grid.  The row ``fma_step`` is the QNN's float32
     local step over (K, D) in place; ``w.sub_(g, alpha=eta)`` is its
     library call where it rounds once on the card (``sgd_phase``), else its
-    same-bytes yardstick."""
+    same-bytes yardstick; the row also gives both one's queued quartiles,
+    interleaved (``queued_quartiles_ms``)."""
     K, D = SHAPES["main"]
     n = K * D
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2467,8 +2496,8 @@ def timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once):
             2.0 * 256 * 512 * 256, INT8_OPS_PER_S),
         # w read and written, g read; sub_ with alpha is the same function
         # only where it rounds once (sgd_phase)
-        "sgd_step": (
-            lambda: ops.sgd_step_(sw, sg, eta),
+        "fma_step": (
+            lambda: ops.fma_step_(sw, sg, eta),
             lambda: tref.fma32(neg_eta, sg, sw),
             {"": lambda: sw.sub_(sg, alpha=eta)} if sub_alpha_once else None,
             12.0 * n, 2.0 * n),
@@ -2482,7 +2511,7 @@ def timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once):
               "masked_aggregate_den"):
         yardsticks[k] = copy_yardstick(torch, rows[k][3])
     if not sub_alpha_once:
-        yardsticks["sgd_step"] = ("w.sub_(g, alpha=eta), two roundings",
+        yardsticks["fma_step"] = ("w.sub_(g, alpha=eta), two roundings",
                                   lambda: sw.sub_(sg, alpha=eta), 12.0 * n)
     shapes = {"pack_sums@rsag_hop": [K, chunk], "qmatmul": [960, 3136, 128],
               "qmatmul@256x512x256": [256, 512, 256],
@@ -2522,8 +2551,12 @@ def timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once):
                  "host_ms": host_ms(torch, kernel)}
         if name == "fake_quant_pair":
             extra["bound_ms_codes_through_hbm"] = 20.0 * n / HBM_BYTES_PER_S * 1e3
-        if name == "sgd_step":
+        if name == "fma_step":
             extra["sub_alpha_rounds_once"] = sub_alpha_once
+            quart, late_q = queued_quartiles_ms(
+                torch, {"kernel": kernel, "sub_": lambda: sw.sub_(sg, alpha=eta)})
+            extra.update(ms_queued_quartiles_interleaved=quart,
+                         ms_queued_quartiles_late=late_q)
         if name == "chunk_repack_pair":
             extra["bound_ms_codes_through_hbm"] = (
                 20.0 * n + 8.0 * K * Wn) / HBM_BYTES_PER_S * 1e3
@@ -2620,7 +2653,7 @@ def main() -> int:
     for k, v in wire_quantizer_paths_phase(torch, ops, tref).items():
         err[k] = max(err[k], v)
     err["qmatmul"], qmatmul_launches = qmatmul_phase(torch, ops, tref)
-    err["sgd_step"], sub_alpha_once = sgd_phase(torch, ops, tref)
+    err["fma_step"], sub_alpha_once = sgd_phase(torch, ops, tref)
     launches, sim, params = main_path_phase(torch, ops, get_config, build_model,
                                             make_federated_digits, FLSimulator,
                                             convert)
@@ -2664,9 +2697,8 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": path_launches[k], "max_abs_err": err[k],
                 **times[k], "launches_lm": lm[k],
-                **({"replaces_note": REPLACES_NOTE[k]}
-                   if k in REPLACES_NOTE else {})}
-               for k, (src, rep) in KERNELS.items()]
+                **({"replaces_note": note[0]} if note else {})}
+               for k, (src, rep, *note) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

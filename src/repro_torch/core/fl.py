@@ -99,7 +99,7 @@ def local_sgd(model, config: Config, params: torch.Tensor, batches: Batch,
     to it once, as the reference's ``w - eta * g.astype(w.dtype)`` (a
     Python float takes the array's dtype there); in float32 it rounds once,
     as XLA contracts the reference's into a fused multiply-add
-    (``kernels.ops.sgd_step_``: the QNN's step is one launch over (K, D)).
+    (``kernels.ops.fma_step_``: the QNN's step is one launch over (K, D)).
     Returns the K local
     parameter vectors (K, D) and each step's loss and accuracy, (I, K)
     each.
@@ -139,7 +139,7 @@ def sgd_step_(loss_fn: Callable, flat: torch.Tensor,
     each leaf steps ``w - eta * g`` in its dtype.  The gradients are taken
     by leaf (one of the whole flat vector would zero-fill a (..., D)
     tensor for each leaf), and the leaves step in place once the graph is
-    spent: a float32 leaf in one ``sgd_step_`` launch.  Returns (loss,
+    spent: a float32 leaf in one ``ops.fma_step_`` launch.  Returns (loss,
     aux)."""
     views = convert.unflatten_params(flat, shapes)
     live = {k: v.detach().requires_grad_(True) for k, v in views.items()}
@@ -156,7 +156,7 @@ def _step_(w: torch.Tensor, g: torch.Tensor, eta: float) -> None:
     reference's contracted update, ROADMAP C5), a product and a difference
     in bfloat16 (the reference's rounding there too)."""
     if w.dtype == torch.float32:
-        ops.sgd_step_(w, g, eta)
+        ops.fma_step_(w, g, eta)
     else:
         w.sub_(eta * g)
 

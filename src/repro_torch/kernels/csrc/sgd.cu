@@ -25,35 +25,15 @@
 // elements.  One wave of resident blocks walks the tiles, a tile within one
 // row; one row needs no division, and one row of fewer than 2^31 vectors
 // (the QNN's step) takes int indices.
-//
-// On the card (NVIDIA H100 80GB HBM3, 700 W) a first build, which divided
-// a 64-bit tile index by the row length in every block, took 24.1 us after
-// an L2 flush (chip_smoke.py's timing row) against 22.8 for PyTorch's
-// w.sub_(g, alpha=eta), which rounds once on the card: the same function.
-// Without the division the two are within 0.1 us of each other after a
-// flush, in every geometry tools/sgd_variants.py tries (2 or 4 vectors a
-// thread, 128 or 256 threads, one wave or a block a tile, g loaded plainly
-// or streaming), and back to back, L2 warm, the kernel as built (2
-// vectors, 256 threads, one wave, plain loads) takes about 9 us against
-// 11-12 for sub_; streaming loads of g or a block a tile give up that
-// lead.  -D REPRO_SGD_VECS, REPRO_SGD_THREADS, REPRO_SGD_NO_WAVE_CAP (a
-// block a tile) and REPRO_SGD_STREAM_LOADS (g loaded evict-first) rebuild
-// the variants.
+
 #include <cuda_runtime.h>
 
 #include "quantizer.cuh"
 
 namespace {
 
-// The geometry (build.variant rebuilds it with -D to compare variants).
-#ifndef REPRO_SGD_THREADS
-#define REPRO_SGD_THREADS 256
-#endif
-#ifndef REPRO_SGD_VECS
-#define REPRO_SGD_VECS 2
-#endif
-constexpr int kThreads = REPRO_SGD_THREADS;
-constexpr int kVecs = REPRO_SGD_VECS;
+constexpr int kThreads = 256;
+constexpr int kVecs = 2;
 constexpr long long kTile = (long long)kThreads * kVecs;
 
 __device__ __forceinline__ float step(float w, float g, float neg_eta) {
@@ -86,11 +66,7 @@ sgd_step_kernel(T* __restrict__ w, const T* __restrict__ g, I rows, I n,
       const I i = base + (I)j * kThreads;
       if (i < n) {
         a[j] = wr[i];
-#ifdef REPRO_SGD_STREAM_LOADS
-        b[j] = __ldcs(gr + i);
-#else
         b[j] = gr[i];
-#endif
       }
     }
 #pragma unroll
@@ -110,12 +86,8 @@ bool vector_path(const void* w, const void* g, long long n, long long ws,
 
 template <typename T, typename I>
 int wave_blocks(long long tiles) {
-#ifdef REPRO_SGD_NO_WAVE_CAP
-  return (int)(tiles < 1 ? 1 : tiles);
-#else
   static int cache[kMaxDevices];
   return one_wave((const void*)sgd_step_kernel<T, I>, kThreads, cache, tiles);
-#endif
 }
 
 long long tiles_of(long long rows, long long n) {

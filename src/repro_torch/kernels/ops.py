@@ -23,7 +23,7 @@ LAUNCHES: Dict[str, int] = {"stochastic_quantize_codes": 0,
                             "masked_aggregate_den": 0,
                             "quantize_pack": 0, "unpack_dequantize": 0,
                             "quantize_pack_chunk": 0, "repack": 0,
-                            "pack_sums": 0, "qmatmul": 0, "sgd_step": 0}
+                            "pack_sums": 0, "qmatmul": 0, "fma_step": 0}
 
 
 def reset_launch_counts() -> None:
@@ -510,7 +510,7 @@ def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, sx: float,
     return out
 
 
-def _sgd_rows(t: torch.Tensor, what: str) -> Tuple[int, int, int]:
+def _fma_rows(t: torch.Tensor, what: str) -> Tuple[int, int, int]:
     """(rows, n, row stride) of a float32 tensor whose elements lie in rows
     of n contiguous ones: a contiguous tensor is one row; a leaf of the flat
     (K, D) parameters, (K, *shape) with each row's leaf contiguous, is K."""
@@ -527,7 +527,7 @@ def _sgd_rows(t: torch.Tensor, what: str) -> Tuple[int, int, int]:
                      f"ones (strides {t.stride()})")
 
 
-class SgdPlan(NamedTuple):
+class FmaStepPlan(NamedTuple):
     vector: bool    # the 16-byte path: both pointers on a 16-byte boundary,
                     # n and the row strides multiples of 4; else one element
                     # at a time
@@ -535,21 +535,21 @@ class SgdPlan(NamedTuple):
     blocks: int     # blocks launched: one wave, capped by the tiles
 
 
-def sgd_plan(w: torch.Tensor, g: torch.Tensor) -> SgdPlan:
-    """The launch ``sgd_step_`` makes for these CUDA tensors."""
-    rows, n, ws = _sgd_rows(w, "w")
+def fma_step_plan(w: torch.Tensor, g: torch.Tensor) -> FmaStepPlan:
+    """The launch ``fma_step_`` makes for these CUDA tensors."""
+    rows, n, ws = _fma_rows(w, "w")
     g = g.contiguous()
     out = (ctypes.c_longlong * 3)()
     build.library("sgd").repro_sgd_plan(w.data_ptr(), g.data_ptr(), rows, n,
                                         ws, n, out)
-    return SgdPlan(bool(out[0]), out[1], out[2])
+    return FmaStepPlan(bool(out[0]), out[1], out[2])
 
 
-def sgd_step_(w: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
+def fma_step_(w: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
     """The float32 SGD step in place: ``w = fma(-eta, g, w)``, rounded once,
     as XLA:CPU contracts the reference's ``w - eta * g.astype(w.dtype)``.
     ``eta`` must be a float32 value (it is negated exactly).  ``w`` may be
-    a strided leaf of the flat parameters (``_sgd_rows``); ``g`` has its
+    a strided leaf of the flat parameters (``_fma_rows``); ``g`` has its
     shape.  Returns ``w``."""
     if w.shape != g.shape:
         raise ValueError(f"w {tuple(w.shape)} and g {tuple(g.shape)} differ")
@@ -560,12 +560,12 @@ def sgd_step_(w: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
     if not _on_cuda(w, "w"):
         neg = torch.tensor(-float(eta), dtype=torch.float32)
         return w.copy_(ref.fma32(neg, g, w))
-    rows, n, ws = _sgd_rows(w, "w")
+    rows, n, ws = _fma_rows(w, "w")
     g = g.contiguous()
     _check(g, torch.float32, w.device, "g")
     err = build.library("sgd").repro_sgd_step_f32(
         w.data_ptr(), g.data_ptr(), rows, n, ws, n, -float(eta),
         _stream(w.device))
-    _raise_on(err, "sgd_step")
-    LAUNCHES["sgd_step"] += 1
+    _raise_on(err, "fma_step")
+    LAUNCHES["fma_step"] += 1
     return w

@@ -23,9 +23,10 @@ def make_standard_train_step(model, config: Config, *,
     """Plain SGD step (paper eq. 3 at cohort level) on the flat (D,)
     parameters: ``w - eta * g`` in their dtype, eta rounded to it once, as
     the reference's ``w - eta * g.astype(w.dtype)`` (in float32 rounded
-    once, as XLA contracts it: one ``sgd_step_`` launch a leaf).  A model that trains
-    quantized (the QNN) takes its fake-quant noise from ``gen``, as the
-    reference's takes its key.  ``device=None`` means the CUDA device."""
+    once, as XLA contracts it: one ``ops.fma_step_`` launch a leaf).  A
+    model that trains quantized (the QNN) takes its fake-quant noise from
+    ``gen``, as the reference's takes its key.  ``device=None`` means the
+    CUDA device."""
     dev = resolve_device(device)
     fl_mod._full_fp32(dev)
 

@@ -7,7 +7,7 @@ the multiply and the subtraction into one fused multiply-add, so the new
 weight is the correctly rounded w - eta*g.  (With g a constant closed
 over, XLA folds eta*g first and rounds twice: the references below compute
 their gradient inside, as the round does.)  The port's step is
-``kernels.ops.sgd_step_``: ``fma32`` on the CPU, ``csrc/sgd.cu`` on the
+``kernels.ops.fma_step_``: ``fma32`` on the CPU, ``csrc/sgd.cu`` on the
 card.  On ROADMAP C5's input (200,000 weights N(0, 0.05²), gradients
 N(0, 1), ``default_rng(0)``, eta 0.001) a mul and a sub differ from the
 reference at 6,028 weights; the port must differ at none, at each of the
@@ -107,14 +107,14 @@ def _port_local(w, g, quantizes_training):
 
 def test_plain_step_differs_from_two_roundings_on_roadmap_input():
     """The input shows C5: two roundings differ from the exact step at
-    6,028 weights; ``sgd_step_`` on the CPU is ``fma32`` in place."""
+    6,028 weights; ``ops.fma_step_`` on the CPU is ``fma32`` in place."""
     w, g = _roadmap_input()
     exact = _exact(w, g[0])
     two = (torch.from_numpy(w) - float(np.float32(ETA))
            * torch.from_numpy(g[0])).numpy()
     assert int((two != exact).sum()) == 6028
     got = torch.from_numpy(w.copy())
-    assert ops.sgd_step_(got, torch.from_numpy(g[0]), float(np.float32(ETA))) is got
+    assert ops.fma_step_(got, torch.from_numpy(g[0]), float(np.float32(ETA))) is got
     assert np.array_equal(got.numpy(), exact)
 
 
@@ -209,18 +209,18 @@ def test_bfloat16_step_keeps_its_product_and_difference(jx):
 def test_sgd_step_checks_its_operands():
     w = torch.zeros(4, 6)
     with pytest.raises(ValueError):
-        ops.sgd_step_(w, torch.zeros(6, 4), 0.5)
+        ops.fma_step_(w, torch.zeros(6, 4), 0.5)
     with pytest.raises(ValueError, match="float32 value"):
-        ops.sgd_step_(w, torch.zeros(4, 6), 0.1)
+        ops.fma_step_(w, torch.zeros(4, 6), 0.1)
     with pytest.raises(TypeError):
-        ops.sgd_step_(w.double(), torch.zeros(4, 6).double(), 0.5)
+        ops.fma_step_(w.double(), torch.zeros(4, 6).double(), 0.5)
     flat = torch.zeros(3, 20)
     leaf = flat[:, 4:16].view(3, 3, 4)
-    assert ops._sgd_rows(leaf, "w") == (3, 12, 20)
-    assert ops._sgd_rows(flat, "w") == (1, 60, 60)
+    assert ops._fma_rows(leaf, "w") == (3, 12, 20)
+    assert ops._fma_rows(flat, "w") == (1, 60, 60)
     with pytest.raises(ValueError, match="rows"):
-        ops._sgd_rows(flat.t(), "w")
-    ops.sgd_step_(leaf, torch.ones(3, 3, 4), 0.5)
+        ops._fma_rows(flat.t(), "w")
+    ops.fma_step_(leaf, torch.ones(3, 3, 4), 0.5)
     assert float(flat.sum()) == -0.5 * 36 and float(flat[:, :4].abs().sum()) == 0
 
 
@@ -245,11 +245,11 @@ def test_cuda_sgd_step_matches_plain_version():
               torch.randn(1027, generator=gen, device=dev))]
     for w, g in cases:
         want = tref.fma32(neg, g, w)
-        plan = ops.sgd_plan(w, g)
-        before = ops.LAUNCHES["sgd_step"]
-        ops.sgd_step_(w, g, eta)
-        assert ops.LAUNCHES["sgd_step"] == before + 1
+        plan = ops.fma_step_plan(w, g)
+        before = ops.LAUNCHES["fma_step"]
+        ops.fma_step_(w, g, eta)
+        assert ops.LAUNCHES["fma_step"] == before + 1
         assert torch.equal(w, want), (tuple(w.shape), plan)
-    assert ops.sgd_plan(*cases[1]).vector
-    assert not ops.sgd_plan(*cases[3]).vector
+    assert ops.fma_step_plan(*cases[1]).vector
+    assert not ops.fma_step_plan(*cases[3]).vector
     torch.cuda.synchronize()
