@@ -44,7 +44,15 @@ through the kernels at the paper's widths:
   (``--checkpoint-dir``, ``--telemetry-dir``), held to a replay; the
   simulator over the 10^6-device fleet with the tap on and off; the
   ``wire/*``, ``fleet/*`` and ``fl/*`` spans of a profiled cohort fleet
-  round in each format.
+  round in each format;
+* serving: olmo-1b at full width through ``launch.serve.main`` at the
+  reference CLI's defaults with a telemetry stream, at prefill_32k's and
+  decode_32k's context (batch 2, a 32,704-token prompt, a 32,768 cache,
+  64 greedy decode steps), and in long_500k's 8,192-token window ring
+  (batch 1, a 16,384-token prompt, 64 steps), the decode steps under
+  ``torch.cuda.set_sync_debug_mode("error")``, each time beside the
+  analytic bound of ``utils.flops`` on ``utils.roofline``; and a reduced
+  float32 olmo-1b prefill and decode on the card against the CPU.
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -1378,6 +1386,237 @@ def checkpoint_phase(torch, train_main, get_config, apply_overrides,
     return {"bytes": sizes, "save_s": save_s, "restore_s": restore_s}
 
 
+#: the serving cuts of olmo-1b at full width: (b) prefill_32k's and
+#: decode_32k's context at batch 2 (from 32 and 128: the float32 chunked
+#: attention's time in prefill), (c) long_500k's window of 8,192 at its
+#: batch of 1 under a prompt of 2 windows; each then decodes SERVE_STEPS
+SERVE_LONG = {"batch": 2, "prompt": 32_704, "max_len": 32_768}
+SERVE_RING = {"batch": 1, "prompt": 16_384}
+SERVE_STEPS = 64
+#: the reduced float32 olmo-1b held to the CPU: a prompt of 32 into a cache
+#: of 40 (b) or into a window of 16 (c), then 4 decode steps
+SERVE_SMALL_STEPS = 4
+
+
+def serve_reference_check(torch, build_model, cfg, prompt, max_len, what):
+    """Prefill and SERVE_SMALL_STEPS greedy decode steps of ``cfg`` (a
+    reduced float32 olmo-1b) on the card against the same on the CPU, from
+    the same parameters and tokens: logits within 1e-4 (rtol and atol),
+    the cache's k and v within 1e-4, kv_pos and length equal."""
+    model = build_model(cfg)
+    params = model.init(3, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.model.vocab_size, (2, prompt), generator=gen,
+                         dtype=torch.int32)
+    steps = torch.randint(0, cfg.model.vocab_size,
+                          (SERVE_SMALL_STEPS, 2, 1), generator=gen,
+                          dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        logits, cache = model.prefill(p, toks.to(dev), max_len=max_len)
+        seen = [logits.cpu()]
+        for tok in steps:
+            logits, cache = model.decode_step(p, cache, tok.to(dev))
+            seen.append(logits.cpu())
+        out[dev] = seen, {k: v.cpu() for k, v in cache.items()}
+    err = max(float((a - b).abs().max())
+              for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+             for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    (gc, wc) = out["cuda"][1], out["cpu"][1]
+    cache_err = max(float((gc[k] - wc[k]).abs().max()) for k in ("k", "v"))
+    ok = ok and all(torch.allclose(gc[k], wc[k], rtol=1e-4, atol=1e-4)
+                    for k in ("k", "v"))
+    ok = ok and torch.equal(gc["kv_pos"], wc["kv_pos"]) and torch.equal(
+        gc["length"], wc["length"])
+    print(f"card vs CPU, reduced float32 olmo-1b serving ({what}): prefill "
+          f"and {SERVE_SMALL_STEPS} decode steps, max logits diff {err:.3g}, "
+          f"max cache diff {cache_err:.3g}, kv_pos and length equal: {ok}")
+    check(ok, f"serving {what}: the card disagrees with the CPU")
+
+
+def serve_cell(torch, model, params, cfg, batch, prompt, max_len, label,
+               prefill_shape, decode_shape, smi, profile=False):
+    """Prefill ``batch`` x ``prompt`` tokens into a cache for ``max_len``,
+    then SERVE_STEPS greedy decode steps: the first outside, the rest
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a synchronizing
+    call in ``decode_step`` fails the run, each timed by CUDA events.
+    Checks: finite logits, ``length`` advanced by the steps, ``kv_pos`` the
+    last C positions.  Prints the prefill time (and its host time until
+    ``prefill`` returns), the median decode step (and its host time until
+    ``decode_step`` returns), tokens/s and peak memory, each beside the
+    analytic bound of ``utils.flops.analytic_costs`` on ``utils.roofline``'s
+    H100 constants for the cut shape; with ``profile``, one more decode
+    step's device kernels and host operators (``profile_phase``)."""
+    from repro_torch.launch import inputs
+    from repro_torch.utils import flops, roofline
+
+    one_card = {"data": 1, "model": 1}
+
+    def bound(shape, kind):
+        c = flops.analytic_costs(cfg, shape, one_card, step_kind=kind)
+        return roofline.derive_terms(
+            flops_per_device=c.total_flops, bytes_per_device=c.total_bytes,
+            collective_bytes_per_device=c.total_collective, num_devices=1,
+            model_flops_global=roofline.model_flops(cfg, shape))
+
+    check(inputs.prefill_shape(prefill_shape) == (batch, prompt)
+          and inputs.decode_shape(decode_shape) == (batch, 1),
+          f"serving {label}: shapes {prefill_shape} {decode_shape}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    toks = inputs.random_tokens((batch, prompt), cfg.model.vocab_size, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, toks, max_len=max_len)
+    prefill_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated()
+    C = cache["k"].shape[2]
+    cache_gb = 2 * cache["k"].nbytes / 1e9
+    check(logits.shape == (batch, cfg.model.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"serving {label}: prefill logits {tuple(logits.shape)}")
+    tok = logits.argmax(-1)[:, None]
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    logits, cache = model.decode_step(params, cache, tok)   # first step
+    tok = logits[:, -1].argmax(-1)[:, None]
+    finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(SERVE_STEPS)]
+    host_ms = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        events[0].record()
+        for i in range(1, SERVE_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            finite &= torch.isfinite(logits).all()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            events[i].record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    decode_ms = step_ms[len(step_ms) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    length = prompt + SERVE_STEPS
+    check(bool(finite), f"serving {label}: non-finite decode logits")
+    check(int(cache["length"]) == length,
+          f"serving {label}: length {int(cache['length'])} != {length}")
+    pos = torch.arange(max(length - C, 0), length, dtype=torch.int32,
+                       device="cuda")
+    want = torch.full((C,), -1, dtype=torch.int32, device="cuda")
+    want[pos % C] = pos
+    check(torch.equal(cache["kv_pos"], want.expand(batch, C)),
+          f"serving {label}: kv_pos is not the last {C} positions")
+    if profile:
+        profile_phase(torch, f"decode_step {label}",
+                      lambda: model.decode_step(params, cache, tok), rounds=3,
+                      host_ops=12)
+    del cache, logits
+    bp, bd = bound(prefill_shape, "prefill"), bound(decode_shape, "decode")
+    print(json.dumps({
+        "serve": label, "arch": cfg.model.name, "D": model.num_params,
+        "dtype": cfg.model.dtype, "window": cfg.model.attention_window,
+        "batch": batch, "prompt": prompt, "cache_capacity": C,
+        "cache_gb": cache_gb,
+        "decode_steps": SERVE_STEPS, "length": length,
+        "prefill_ms": prefill_ms, "prefill_host_ms": prefill_host_ms,
+        "prefill_tok_s": batch * prompt / prefill_ms * 1e3,
+        "prefill_bound_ms": bp.bound_s * 1e3, "prefill_bound_by": bp.dominant,
+        "prefill_share_of_bound": bp.bound_s * 1e3 / prefill_ms,
+        "decode_ms_median": decode_ms, "decode_ms_quartiles": [
+            step_ms[len(step_ms) // 4], step_ms[3 * len(step_ms) // 4]],
+        "decode_host_ms_median": sorted(host_ms)[len(host_ms) // 2],
+        "decode_tok_s": batch / decode_ms * 1e3,
+        "decode_bound_ms": bd.bound_s * 1e3, "decode_bound_by": bd.dominant,
+        "decode_share_of_bound": bd.bound_s * 1e3 / decode_ms,
+        "prefill_peak_gb": prefill_peak / 1e9, "peak_gb": peak / 1e9,
+        "prefill_shape": dataclasses.asdict(prefill_shape),
+        "decode_shape": dataclasses.asdict(decode_shape),
+        "decode_ms_is": "median of the device time between CUDA events "
+                        f"around {SERVE_STEPS - 1} steps queued back to back",
+        "bound_is": "utils.roofline.derive_terms(utils.flops.analytic_costs"
+                    "(cut shape)) on the H100 SXM datasheet peaks",
+        "card": smi}))
+
+
+def serve_phase(torch, get_config, apply_overrides, build_model, smi):
+    """Serving olmo-1b at full width (bfloat16, D = 1,176,764,416, tied
+    embeddings): (a) ``launch.serve.main`` at the reference CLI's defaults
+    (batch 8, prompt 64, 16 new tokens) with ``--telemetry-dir``, one valid
+    ``serve_decode`` record a step; (b) prefill_32k's and decode_32k's
+    context at SERVE_LONG; (c) long_500k's window (``for_shape``) at
+    SERVE_RING, whose decode steps overwrite ring slots; after (b) and (c)
+    a reduced float32 olmo-1b on the card against the CPU."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import for_shape
+    from repro_torch.configs.shapes import SHAPES, InputShape
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.obs import validate_record
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="serve_smoke_", dir=ROOT / "build"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = serve_main(["--arch", "olmo-1b", "--telemetry-dir", str(d)])
+        with open(d / "telemetry.jsonl") as f:
+            records = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(out["telemetry_records"] == 16 and len(records) == 16
+          and [r["round"] for r in records] == list(range(16))
+          and all(r["kind"] == "serve_decode" and validate_record(r) == []
+                  for r in records), f"serve: records {records}")
+    check(out["length"] == 64 + 16 and tuple(out["tokens"].shape) == (8, 17),
+          f"serve: length {out['length']}, tokens {tuple(out['tokens'].shape)}")
+    print(json.dumps({"serve": "(a) launch.serve.main --arch olmo-1b "
+                               "--telemetry-dir (batch 8, prompt 64, 16 new)",
+                      **{k: out[k] for k in ("prefill_ms", "decode_ms",
+                                             "tok_s", "max_memory_allocated")},
+                      "records": len(records),
+                      "latency_s_median": sorted(
+                          r["latency_s"] for r in records)[8],
+                      "note": "with telemetry each step synchronizes; "
+                              "prefill_ms includes the first calls",
+                      "card": smi}))
+
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg)
+    check(model.num_params == LM_D and cfg.model.dtype == "bfloat16"
+          and cfg.model.tie_embeddings, f"serve: {cfg.model}")
+    params = model.init(0)
+    long = SERVE_LONG
+    serve_cell(torch, model, params, cfg, long["batch"], long["prompt"],
+               long["max_len"], "(b) 32k context",
+               dataclasses.replace(SHAPES["prefill_32k"],
+                                   global_batch=long["batch"],
+                                   seq_len=long["prompt"]),
+               dataclasses.replace(SHAPES["decode_32k"],
+                                   global_batch=long["batch"],
+                                   seq_len=long["max_len"]), smi, profile=True)
+    serve_reference_check(torch, build_model, apply_overrides(
+        get_config("olmo-1b"), LM_SMALL), 32, 40, "(b) max_len 40")
+    ring = for_shape(cfg, SHAPES["long_500k"])
+    check(ring.model.attention_window == 8192, f"serve: {ring.model}")
+    serve_cell(torch, build_model(ring), params, ring, SERVE_RING["batch"],
+               SERVE_RING["prompt"], 0, "(c) long_500k window ring",
+               InputShape("long_500k_prompt", SERVE_RING["prompt"],
+                          SERVE_RING["batch"], "prefill"),
+               SHAPES["long_500k"], smi, profile=True)
+    serve_reference_check(torch, build_model, apply_overrides(
+        get_config("olmo-1b"), LM_SMALL + ("model.attention_window=16",)),
+        32, 0, "(c) window 16")
+    del params
+
+
 def round_update_phase(torch, get_config, tfleet, smi):
     """``round_update`` alone at FLEET_SIZE devices and K = 10 (the first
     fleet run's policies): device time queued behind a sleep, and host time
@@ -2686,6 +2925,7 @@ def main() -> int:
     planner_phase(torch, get_config, optimize, smi)
     power_policy_phase(torch, get_config, tfleet, tpower, energy_mod, smi)
     round_update_phase(torch, get_config, tfleet, smi)
+    serve_phase(torch, get_config, apply_overrides, build_model, smi)
     times = timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once)
     # qmatmul is on no round: its entry point is the kernel API, driven by
     # qmatmul_phase with the counts reset just before

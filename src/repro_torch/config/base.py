@@ -8,11 +8,12 @@ The model and train sections are whole, so that every override the
 reference's trainer takes resolves here too; some of their fields are inert
 in the port:
 
-- ``ModelConfig`` has every field and the whole ``param_count`` (its MoE,
-  MLA, recurrent, hybrid and encoder branches included), and the MoE, MLA
-  and recurrent sub-configs are plain data: the port builds the dense
-  family and the cnn, and ``configs.check_ported`` raises for the rest
-  where a model is built (ROADMAP A13).  ``local_window`` and
+- ``ModelConfig`` has every field and the whole ``param_count`` and
+  ``active_param_count`` (their MoE, MLA, recurrent, hybrid and encoder
+  branches included), and the MoE, MLA and recurrent sub-configs are
+  plain data: the port builds the dense family and the cnn, and
+  ``configs.check_ported`` raises for the rest where a model is built
+  (ROADMAP A13).  ``local_window`` and
   ``encoder_seq_len`` belong to those families.
 - ``TrainConfig.learning_rate``, ``warmup_steps``, ``weight_decay`` and
   ``optimizer`` (the optimizer's fields) are read by neither trainer: both
@@ -177,6 +178,17 @@ class ModelConfig:
             enc = self.n_encoder_layers * (q + kv + o + 2 * d * ff)
             per_layer += q + kv + o  # cross attention in each decoder layer
         return emb + head + self.n_layers * per_layer + enc
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed-active experts)."""
+        if not self.moe.enabled:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        ff_e = self.moe.expert_d_ff or ff
+        total = self.param_count()
+        all_experts = self.moe.num_experts * 3 * d * ff_e
+        active_experts = self.moe.experts_per_token * 3 * d * ff_e
+        return total - self.n_layers * all_experts + self.n_layers * active_experts
 
 
 @dataclass(frozen=True)

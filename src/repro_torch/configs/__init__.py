@@ -1,13 +1,17 @@
 """Config registry: ``get_config("olmo-1b")`` returns the module's CONFIG;
 ``reduced(cfg)`` returns the CPU smoke-test variant of the same family
-(at most 2 layers, d_model at most 256), as the reference's."""
+(at most 2 layers, d_model at most 256), as the reference's;
+``for_shape(cfg, shape)`` adapts a config to one of the four input shapes
+of ``configs.shapes`` (a sliding window for full-attention archs on
+``long_500k``)."""
 from __future__ import annotations
 
 import importlib
 from dataclasses import replace
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.config import Config
+from repro_torch.configs.shapes import SHAPES, InputShape, get_shape  # noqa: F401 (re-exported)
 
 _ARCHS: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
@@ -17,11 +21,49 @@ _ARCHS: Dict[str, str] = {
 #: families ``reduced`` and ``models.build_model`` handle so far
 PORTED_FAMILIES = ("dense", "cnn")
 
+#: the sliding window ``for_shape`` gives full-attention archs on long_500k
+LONG_CONTEXT_WINDOW = 8192
+
+
+def list_archs() -> List[str]:
+    return list(_ARCHS)
+
 
 def get_config(name: str) -> Config:
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; valid: {sorted(_ARCHS)}")
     return importlib.import_module(_ARCHS[name]).CONFIG
+
+
+def is_subquadratic(cfg: Config) -> bool:
+    """True if the arch decodes 500k tokens without a full-attention cache."""
+    m = cfg.model
+    return m.recurrent.kind in ("rwkv6", "rglru") or m.attention_window > 0
+
+
+def supports_shape(cfg: Config, shape: InputShape) -> bool:
+    m = cfg.model
+    if m.family == "cnn":
+        return shape.kind == "train"
+    if shape.name == "long_500k":
+        # an encoder-decoder's short decoder has no 524k-token decode
+        return not m.is_encoder_decoder
+    return True
+
+
+def for_shape(cfg: Config, shape: InputShape) -> Config:
+    """Adapt a config to an input shape: its batch and sequence length, and
+    a sliding window of LONG_CONTEXT_WINDOW for a full-attention arch on
+    long_500k."""
+    if not supports_shape(cfg, shape):
+        raise ValueError(f"{cfg.model.name} does not support {shape.name}")
+    m = cfg.model
+    if (shape.name == "long_500k" and m.recurrent.kind == "none"
+            and m.attention_window == 0):
+        m = replace(m, attention_window=LONG_CONTEXT_WINDOW)
+    train = replace(cfg.train, global_batch=shape.global_batch,
+                    seq_len=shape.seq_len)
+    return replace(cfg, model=m, train=train)
 
 
 def check_ported(cfg: Config) -> None:

@@ -107,3 +107,29 @@ def fleet_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
 def fleet_to_numpy(fleet) -> Dict[str, np.ndarray]:
     """A ``FleetState``'s fields as numpy arrays, by name."""
     return {k: v.detach().cpu().numpy() for k, v in fleet._asdict().items()}
+
+
+def cache_from_reference(cache: Mapping, dtype: torch.dtype = torch.float32,
+                         device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The reference's decode cache of a dense LM, ``{"layers": (k, v),
+    "kv_pos", "length"}`` through ``np.asarray`` -> the port's ``{"k", "v",
+    "kv_pos", "length"}`` (``models.transformer``): k and v (L, B, C, KV,
+    hd) in ``dtype`` (a bfloat16 leaf passes through float32, which holds
+    it exactly), kv_pos (B, C) and the 0-d length int32."""
+    dev = resolve_device(device)
+    k, v = cache["layers"]
+    out = {name: torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+           for name, a in (("k", k), ("v", v))}
+    for name in ("kv_pos", "length"):
+        out[name] = torch.tensor(np.asarray(cache[name], np.int32), device=dev)
+    return out
+
+
+def cache_to_reference(cache: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's cache -> the reference's layout of numpy arrays: k and v
+    as float32 (cast to the reference's dtype on its side), kv_pos and
+    length int32."""
+    k, v = (cache[n].detach().float().cpu().numpy() for n in ("k", "v"))
+    return {"layers": (k, v),
+            "kv_pos": cache["kv_pos"].cpu().numpy().astype(np.int32),
+            "length": cache["length"].cpu().numpy().astype(np.int32)}

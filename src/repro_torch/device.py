@@ -1,6 +1,7 @@
 """Device and generator resolution shared by every entry point."""
 from __future__ import annotations
 
+import time
 from typing import Union
 
 import torch
@@ -29,3 +30,10 @@ def make_generator(seed_or_gen: Union[int, torch.Generator],
         return seed_or_gen
     return torch.Generator(device=device).manual_seed(int(seed_or_gen))
 
+
+def seconds_since(t0: float, device: torch.device) -> float:
+    """Host seconds since ``t0`` (``time.perf_counter``), once the device
+    has finished its work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0

@@ -56,7 +56,8 @@ from repro_torch.config.base import (COLLECTIVE_CHOICES, POWER_POLICIES,
 from repro_torch.configs import get_config
 from repro_torch.core import fl as fl_mod
 from repro_torch.data.synthetic import token_batch
-from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.device import (DeviceLike, make_generator, resolve_device,
+                                seconds_since)
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import cohort_axis_sizes, mesh_for_devices
 from repro_torch.models import build_model
@@ -177,7 +178,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
             # chain and cursor, not a fresh round-0 fleet
             fleet = pop_fleet.restore_fleet_checkpoint(fleet_dir, fleet)
             print(f"restored fleet state step {ckpt.latest_step(fleet_dir)}")
-        out["restore_s"] = _seconds(t0, dev)
+        out["restore_s"] = seconds_since(t0, dev)
     start = out["start_step"]
     gen = make_generator(cfg.fl.seed + 1, dev)
     t0 = time.perf_counter()
@@ -196,7 +197,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
             ckpt.save_params(ckpt_dir, step + 1, params, model.param_shapes)
             if fleet is not None:
                 ckpt.save_checkpoint(fleet_dir, step + 1, fleet)
-            out["save_s"] = out.get("save_s", 0.0) + _seconds(ts, dev)
+            out["save_s"] = out.get("save_s", 0.0) + seconds_since(ts, dev)
         if step % args.log_every == 0 or step == steps - 1:
             loss = float(metrics["loss"])          # waits for the step
             tok_s = (cfg.train.global_batch * cfg.train.seq_len
@@ -231,13 +232,6 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
         out["telemetry_records"] = sink.emitted
         print(f"telemetry: {sink.emitted} records -> {sink.path}")
     return out
-
-
-def _seconds(t0: float, device: torch.device) -> float:
-    """Host seconds since ``t0``, once the device has finished its work."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter() - t0
 
 
 if __name__ == "__main__":

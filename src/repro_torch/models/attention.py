@@ -1,9 +1,15 @@
-"""GQA self-attention layer: projections, rope and the full-sequence
-attention of training and prefill.  One-token decode against a cache comes
-with the serving slice (ROADMAP A13).
+"""GQA self-attention layer: projections, rope, the full-sequence
+attention of training and prefill, and one-token decode against a cache.
 
 Weights are (d, H·hd) matrices for one model or (C, d, H·hd) for C stacked
 cohorts, with x (B, S, d) or (C, B, S, d) (``common.linear``).
+
+Cache convention (per layer), as the reference's: k and v (B, C, KV, hd)
+in the model's dtype, C the capacity (the context, or the window of a
+sliding-window cache); ``kv_pos`` (B, C) int32 the absolute position each
+slot holds, −1 where it holds none, shared by every layer and kept by the
+model.  Decode writes the token's k and v at the slot ``length % C`` and
+attends over the cache with the token in it.
 """
 from __future__ import annotations
 
@@ -78,3 +84,30 @@ def self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                          causal=True, window=window)
     out = common.linear(o.reshape(*x.shape[:-1], -1), params["wo"])
     return out, (k, v)
+
+
+def decode_self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                          positions: torch.Tensor, cfg: ModelConfig, *,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          kv_pos: torch.Tensor, write_slot: torch.Tensor,
+                          window: int = 0, rope: bool = True) -> torch.Tensor:
+    """One-token decode. x (B, 1, d); positions (B, 1), the token's absolute
+    position; cache_k and cache_v (B, C, KV, hd); kv_pos (B, C) before the
+    write; write_slot a (1,) int64 tensor, the slot of every row (the
+    reference takes one a row: all rows share ``length % C``).
+
+    Writes k and v into the cache **in place**, where the reference returns
+    the written cache (its jitted step is donated the cache), and returns
+    the attention's output (B, 1, d); the model updates kv_pos once for
+    all layers."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, x, cfg)
+    if rope:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    cache_k.index_copy_(1, write_slot, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, write_slot, v.to(cache_v.dtype))
+    new_kv_pos = kv_pos.index_copy(1, write_slot, positions.to(kv_pos.dtype))
+    o = common.attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                         positions, new_kv_pos, causal=True, window=window)
+    return common.linear(o.reshape(B, 1, -1), params["wo"])

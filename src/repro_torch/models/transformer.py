@@ -2,9 +2,10 @@
 
 The reference's ``LM`` in PyTorch: layer-stacked leaves ((L, ...) each,
 as the reference's vmapped init builds them), a loop over the layers where
-the reference scans, tied or separate output head, and the cross-entropy
-loss.  MoE, MLA, recurrent and hybrid stacks and multi-token prediction
-raise (ROADMAP A13), as do prefill and decode, which come with serving.
+the reference scans, tied or separate output head, the cross-entropy
+loss, and serving: ``init_cache``, ``prefill`` and ``decode_step``.  MoE,
+MLA, recurrent and hybrid stacks and multi-token prediction raise
+(``configs.check_ported``, ROADMAP A13), their caches with them.
 
 Parameters are a dict keyed by the leaves' paths in the reference's tree
 ("blocks/attn/wq", "embed", ...): sorted, those keys are the reference's
@@ -15,12 +16,20 @@ the batch, and returns one loss per cohort (``core.fl.local_sgd``).
 
 Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass, the same numbers.
+
+The cache is a dict with the reference's fields: ``k`` and ``v`` (L, B,
+C, KV, hd) in the model's dtype, ``kv_pos`` (B, C) int32 and ``length``,
+a 0-d int32 tensor on the cache's device.  ``decode_step`` derives the
+positions and the ring slot from ``length`` on the device, so it makes no
+synchronizing call, and writes k and v into the cache in place, as the
+reference's jitted step writes into the cache it is donated.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +42,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
 
 Params = Dict[str, torch.Tensor]
+Cache = Dict[str, torch.Tensor]
 Shapes = Dict[str, Tuple[int, ...]]
 
 
@@ -159,8 +169,12 @@ class LM:
         return logits.float()
 
     def _backbone(self, params: Params, tokens: torch.Tensor, *,
-                  stacked: bool, remat: bool) -> torch.Tensor:
-        """tokens (B, S) or (C, B, S) -> the final normed hidden states."""
+                  stacked: bool, remat: bool,
+                  store_kv: Optional[Callable[[int, torch.Tensor, torch.Tensor],
+                                              None]] = None) -> torch.Tensor:
+        """tokens (B, S) or (C, B, S) -> the final normed hidden states.
+        ``store_kv(i, k, v)``, where given, takes layer i's rope'd k and v
+        (B, S, KV, hd) as the layers run (prefill fills its cache so)."""
         cfg = self.cfg
         B, S = tokens.shape[-2:]
         positions = torch.arange(S, dtype=torch.int32,
@@ -177,18 +191,25 @@ class LM:
                 x = checkpoint(self._block, layer, x, positions,
                                use_reentrant=False)
             else:
-                x = self._block(layer, x, positions)
+                x = self._block(layer, x, positions,
+                                None if store_kv is None
+                                else functools.partial(store_kv, i))
         return common.apply_norm(x, _sub(params, "final_norm"), cfg)
 
-    def _block(self, layer: Params, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+    def _block(self, layer: Params, x: torch.Tensor, positions: torch.Tensor,
+               store_kv: Optional[Callable] = None) -> torch.Tensor:
         cfg = self.cfg
         h = common.apply_norm(x, _sub(layer, "norm1"), cfg)
-        mix, _ = attn.self_attention(_sub(layer, "attn"), h, positions, cfg,
-                                     window=cfg.attention_window)
-        x = x + mix.to(x.dtype)
-        h = common.apply_norm(x, _sub(layer, "norm2"), cfg)
-        ff = mlp.mlp(_sub(layer, "mlp"), h, cfg)
+        mix, (k, v) = attn.self_attention(_sub(layer, "attn"), h, positions,
+                                          cfg, window=cfg.attention_window)
+        if store_kv is not None:
+            store_kv(k, v)
+        del k, v                # not held through the MLP
+        return self._mlp_residual(layer, x + mix.to(x.dtype))
+
+    def _mlp_residual(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
+        h = common.apply_norm(x, _sub(layer, "norm2"), self.cfg)
+        ff = mlp.mlp(_sub(layer, "mlp"), h, self.cfg)
         return x + ff.to(x.dtype)
 
     # -- training loss -------------------------------------------------------------
@@ -217,6 +238,93 @@ class LM:
             hit = logits.argmax(-1) == batch["labels"].long()
             acc = hit.float().mean(dim=(-2, -1))
         return ce, acc
+
+    # -- serving ---------------------------------------------------------------
+
+    def cache_capacity(self, seq_len: int) -> int:
+        """Slots a layer's cache holds for a ``seq_len`` context: the
+        window of a sliding-window model, else the context."""
+        w = self.cfg.attention_window
+        return min(w, seq_len) if w > 0 else seq_len
+
+    def init_cache(self, batch: int, seq_len: int, *,
+                   device: DeviceLike = None) -> Cache:
+        """Empty cache sized for a ``seq_len`` context."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        C = self.cache_capacity(seq_len)
+        shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "kv_pos": torch.full((batch, C), -1, dtype=torch.int32,
+                                     device=dev),
+                "length": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    @torch.no_grad()
+    def prefill(self, params: Params, tokens: torch.Tensor, *,
+                max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
+        """Process a prompt (B, S); return (the last position's logits (B, V)
+        in float32, the filled cache).
+
+        Logits are computed for the last position only, as the reference's.
+        ``max_len`` sizes the cache for the decode steps to come (default
+        the prompt; prompt + new tokens decodes without overwriting the
+        earliest positions).  Each layer's k and v land in the cache as the
+        layers run: the prompt's last min(C, S) positions in slots 0, 1,
+        ..., zeros past the prompt; a window keeps its last C positions,
+        and the ring's slot of position p is p % C, so that crop needs
+        S % C == 0."""
+        B, S = tokens.shape
+        C = self.cache_capacity(max(max_len, S))
+        if C < S and S % C:
+            raise ValueError(
+                f"windowed prefill->decode needs prompt length ({S}) to be "
+                f"a multiple of the window ({C})")
+        cache = self.init_cache(B, max(max_len, S), device=tokens.device)
+        n = min(C, S)           # the prompt's last n positions fill slots 0..n-1
+
+        def store(i, k, v):
+            cache["k"][i, :, :n].copy_(k[:, S - n:])
+            cache["v"][i, :, :n].copy_(v[:, S - n:])
+
+        h = self._backbone(params, tokens, stacked=False, remat=False,
+                           store_kv=store)
+        logits = self._logits(params, h[:, -1:])
+        cache["kv_pos"][:, :n] = torch.arange(S - n, S, dtype=torch.int32,
+                                              device=tokens.device)
+        cache["length"].fill_(S)
+        return logits[:, -1], cache
+
+    @torch.no_grad()
+    def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """tokens (B, 1): one decode step against the cache.  Returns (the
+        logits (B, 1, V) in float32, the cache after the step).  The cache's
+        k and v are written in place, and the returned cache shares them:
+        the one passed in is spent."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        length = cache["length"]
+        C = cache["k"].shape[2]
+        positions = length.expand(B, 1)
+        slot = torch.remainder(length, C).long().reshape(1)
+        kv_pos = cache["kv_pos"]
+        x = self._embed(params, tokens, False)
+        blocks = {k[len("blocks/"):]: v.unbind(0)
+                  for k, v in params.items() if k.startswith("blocks/")}
+        for i in range(cfg.n_layers):
+            layer = {k: v[i] for k, v in blocks.items()}
+            h = common.apply_norm(x, _sub(layer, "norm1"), cfg)
+            mix = attn.decode_self_attention(
+                _sub(layer, "attn"), h, positions, cfg,
+                cache_k=cache["k"][i], cache_v=cache["v"][i], kv_pos=kv_pos,
+                write_slot=slot, window=cfg.attention_window)
+            x = self._mlp_residual(layer, x + mix.to(x.dtype))
+        x = common.apply_norm(x, _sub(params, "final_norm"), cfg)
+        new_kv_pos = kv_pos.index_copy(1, slot, positions)
+        return self._logits(params, x), {
+            "k": cache["k"], "v": cache["v"], "kv_pos": new_kv_pos,
+            "length": length + 1}
 
 
 def _sub(params: Params, prefix: str) -> Params:
