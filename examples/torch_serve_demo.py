@@ -1,10 +1,9 @@
 """Batched serving demo on the PyTorch port: prefill a batch of prompts,
 then greedy-decode, the same flow as ``examples/serve_demo.py``.
 
-The reference's demo serves a reduced qwen2.5-14b.  Its rmsnorm keeps
-float32 scales beside bfloat16 weights, which the port does not hold yet
-(a dtype per leaf, ROADMAP A13), so this demo's default arch is olmo-1b,
-reduced the same way.  Runs on the CUDA device by default; ``--device
+Serves a reduced qwen2.5-14b by default, as the reference's demo: its
+rmsnorm scales in float32 beside bfloat16 weights (a dtype per leaf,
+``convert.Layout``).  Runs on the CUDA device by default; ``--device
 cpu`` runs on the CPU.
 
   PYTHONPATH=src python examples/torch_serve_demo.py [--batch 4 --prompt-len 32 --new-tokens 16] [--device cpu]
@@ -23,7 +22,7 @@ from repro_torch.models import build_model
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--arch", default="qwen2.5-14b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

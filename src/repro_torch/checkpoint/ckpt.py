@@ -18,13 +18,13 @@ that subset only.  It writes leaf by leaf to the file (a ``.tmp`` then
 once into one buffer that every leaf views (``np.frombuffer``).
 Retention keeps the ``keep`` newest steps.
 
-The port's flat parameters travel as the reference's tree of leaves:
-:func:`save_params` writes ``convert.unflatten_params(flat, shapes)``,
-:func:`restore_params` reads it back into the flat layout.
+The port's flat parameters travel as the reference's tree of leaves, each
+in its dtype: :func:`save_params` writes ``convert.unflatten_params(flat,
+shapes)``, :func:`restore_params` reads it back into the flat layout (a
+buffer per dtype where the leaves have more than one).
 """
 from __future__ import annotations
 
-import math
 import os
 import re
 import struct
@@ -321,24 +321,30 @@ def restore_checkpoint(directory: str, template: Any,
     return _unflatten(template, leaves, [0])
 
 
-def save_params(directory: str, step: int, flat: torch.Tensor,
-                shapes: convert.Shapes, *, keep: int = 3) -> str:
-    """Save the flat (D,) parameters as the reference's tree of leaves."""
+def save_params(directory: str, step: int, flat: convert.Flat,
+                layout: convert.Layout, *, keep: int = 3) -> str:
+    """Save the flat (D,) parameters as the reference's tree of leaves,
+    each leaf in its dtype (``layout`` the model's ``param_shapes``)."""
     return save_checkpoint(directory, step,
-                           convert.unflatten_params(flat, shapes), keep=keep)
+                           convert.unflatten_params(flat, layout), keep=keep)
 
 
-def restore_params(directory: str, flat: torch.Tensor, shapes: convert.Shapes,
-                   step: Optional[int] = None) -> torch.Tensor:
-    """A parameter checkpoint as a new flat vector of ``flat``'s dtype on its
-    device: the leaves restored against ``flat``'s, concatenated in leaf
-    order.  A leaf of another dtype raises ValueError."""
-    if flat.shape != (sum(math.prod(s) for s in shapes.values()),):
-        raise ValueError(f"flat must be (D,), got {tuple(flat.shape)}")
-    leaves = restore_checkpoint(directory,
-                                convert.unflatten_params(flat, shapes), step)
-    bad = {k: v.dtype for k, v in leaves.items() if v.dtype != flat.dtype}
+def restore_params(directory: str, flat: convert.Flat, layout: convert.Layout,
+                   step: Optional[int] = None) -> convert.Flat:
+    """A parameter checkpoint as new flat parameters in ``flat``'s layout
+    on its device: the leaves restored against ``flat``'s, concatenated in
+    leaf order, a buffer per dtype.  A leaf of another dtype than its
+    template's raises ValueError."""
+    bufs = convert.buffers(flat)
+    if any(b.dim() != 1 for b in bufs):
+        raise ValueError("flat must be (D,) (a buffer per dtype), got "
+                         f"{[tuple(b.shape) for b in bufs]}")
+    template = convert.unflatten_params(flat, layout)
+    leaves = restore_checkpoint(directory, template, step)
+    bad = {k: v.dtype for k, v in leaves.items()
+           if v.dtype != template[k].dtype}
     if bad:
+        want = sorted({str(template[k].dtype) for k in bad})
         raise ValueError(f"checkpoint leaves {bad} are not the parameters' "
-                         f"{flat.dtype}")
-    return torch.cat([leaves[k].reshape(-1) for k in sorted(shapes)])
+                         f"{', '.join(want)}")
+    return convert.flatten_params(leaves)

@@ -1,6 +1,7 @@
 """Config registry: ``get_config("olmo-1b")`` returns the module's CONFIG;
 ``reduced(cfg)`` returns the CPU smoke-test variant of the same family
-(at most 2 layers, d_model at most 256), as the reference's;
+(at most 2 layers, d_model at most 256, at most 4 experts), as the
+reference's;
 ``for_shape(cfg, shape)`` adapts a config to one of the four input shapes
 of ``configs.shapes`` (a sliding window for full-attention archs on
 ``long_500k``)."""
@@ -14,12 +15,16 @@ from repro_torch.config import Config
 from repro_torch.configs.shapes import SHAPES, InputShape, get_shape  # noqa: F401 (re-exported)
 
 _ARCHS: Dict[str, str] = {
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "mnist_cnn": "repro_torch.configs.mnist_cnn",
 }
 
 #: families ``reduced`` and ``models.build_model`` handle so far
-PORTED_FAMILIES = ("dense", "cnn")
+PORTED_FAMILIES = ("dense", "moe", "cnn")
 
 #: the sliding window ``for_shape`` gives full-attention archs on long_500k
 LONG_CONTEXT_WINDOW = 8192
@@ -67,39 +72,35 @@ def for_shape(cfg: Config, shape: InputShape) -> Config:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for a model the port cannot run yet: a family other than dense
-    and cnn, or a dense config with MoE, MLA, recurrent blocks, multi-token
-    prediction or an encoder (ROADMAP A13); or a dense config whose norms
-    carry parameters in another dtype than float32: the reference keeps
-    those leaves in float32 beside the others' dtype, and the port's flat
-    vector has one dtype (ROADMAP A13)."""
+    """Raise for a model the port cannot run yet: a family other than
+    dense, moe and cnn, or a config with MLA, recurrent blocks, multi-token
+    prediction or an encoder (ROADMAP A13)."""
     m = cfg.model
     extras = [name for name, on in (
-        ("moe", m.moe.enabled), ("mla", m.mla.enabled),
-        ("recurrent", m.recurrent.kind != "none"), ("mtp", m.mtp_depth > 0),
+        ("mla", m.mla.enabled), ("recurrent", m.recurrent.kind != "none"),
+        ("mtp", m.mtp_depth > 0),
         ("encoder-decoder", m.is_encoder_decoder)) if on]
     if m.family not in PORTED_FAMILIES or extras:
         what = f"family {m.family!r}" + (f" with {', '.join(extras)}"
                                          if extras else "")
         raise NotImplementedError(
             f"{m.name}: {what} is not ported yet (ROADMAP A13); the port "
-            f"runs the dense decoder-only LM and the cnn")
-    if (m.family == "dense" and m.norm_type != "nonparametric_ln"
-            and m.dtype != "float32"):
-        raise NotImplementedError(
-            f"{m.name}: {m.norm_type} scales in float32 beside {m.dtype} "
-            f"weights need a dtype per leaf, not ported yet (ROADMAP A13); "
-            f"set model.dtype=float32")
+            f"runs the dense and MoE decoder-only LMs and the cnn")
 
 
 def reduced(cfg: Config) -> Config:
     """Smoke-test variant: same family and block structure, tiny dims (the
-    reference's ``reduced`` for the dense and cnn families)."""
+    reference's ``reduced`` for the dense, moe and cnn families)."""
     check_ported(cfg)
     m = cfg.model
     d = min(m.d_model, 256)
     heads = min(m.n_heads, 4)
     kv = min(m.n_kv_heads, heads)
+    moe = m.moe
+    if moe.enabled:
+        moe = replace(moe, num_experts=min(moe.num_experts, 4),
+                      experts_per_token=min(moe.experts_per_token, 2),
+                      expert_d_ff=min(moe.expert_d_ff or m.d_ff, 128))
     m = replace(
         m,
         name=m.name + "-reduced",
@@ -115,6 +116,7 @@ def reduced(cfg: Config) -> Config:
         local_window=min(m.local_window, 16),
         attention_window=min(m.attention_window, 16) if m.attention_window else 0,
         max_seq_len=min(m.max_seq_len, 2048),
+        moe=moe,
     )
     train = replace(cfg.train, global_batch=2, seq_len=32, steps=2, fsdp=False)
     return replace(cfg, model=m, train=train)

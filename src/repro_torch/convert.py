@@ -12,18 +12,125 @@ dict's children by sorted key and empty dicts hold no leaf, so its
 ``tree_leaves`` order is the paths' order as long as "/" sorts below every
 character of a key: keys are letters, digits and "_", all above "/", so
 sorting the joined paths sorts first by the top key, then by the next.
+
+**A dtype per leaf.**  The reference keeps some leaves in float32 beside
+the model's dtype (norm scales and biases, the MoE router).  The port
+lays parameters out as one contiguous buffer per dtype (:class:`Layout`),
+each holding its leaves in leaf order, the buffers in the order their
+dtype first appears in leaf order.  Flat parameters (``Flat``) are that
+one tensor where every leaf has one dtype — today's flat (..., D) vector
+itself — and the tuple of the buffers otherwise.  The wire vector of the
+round stays one float32 (..., D) in leaf order (the reference's
+``tree_leaves`` concatenation): ``Layout.runs`` maps the buffers onto it.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-Shapes = Dict[str, Tuple[int, ...]]
+#: flat parameters: one tensor (..., D) where every leaf has one dtype,
+#: else one (..., n_b) buffer per dtype in ``Layout.buffer_dtypes`` order
+Flat = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+class Layout(Mapping):
+    """Every leaf's shape (the mapping: path -> shape, in leaf order) and
+    dtype (``dtypes``), and where each leaf lies: in buffer
+    ``buffer_dtypes.index(dtype)`` after the earlier leaves of its dtype.
+    ``runs`` lists (buffer, offset in it, offset in the (..., D) wire
+    vector, length) for each maximal run of consecutive leaves of one
+    dtype: a leaf-by-leaf copy between the two is one copy a run."""
+
+    def __init__(self, shapes: Mapping[str, Tuple[int, ...]],
+                 dtypes: Mapping[str, torch.dtype]):
+        self._shapes = {k: tuple(shapes[k]) for k in sorted(shapes)}
+        self.dtypes = {k: dtypes[k] for k in self._shapes}
+        order = []
+        for dt in self.dtypes.values():
+            if dt not in order:
+                order.append(dt)
+        self.buffer_dtypes: Tuple[torch.dtype, ...] = tuple(order)
+        sizes = [0] * len(order)
+        runs = []
+        wire = 0
+        for k, s in self._shapes.items():
+            b, n = order.index(self.dtypes[k]), math.prod(s)
+            if runs and runs[-1][0] == b:
+                runs[-1][3] += n
+            else:
+                runs.append([b, sizes[b], wire, n])
+            sizes[b] += n
+            wire += n
+        self.buffer_sizes: Tuple[int, ...] = tuple(sizes)
+        self.runs: Tuple[Tuple[int, int, int, int], ...] = tuple(
+            tuple(r) for r in runs)
+        self.numel = wire
+
+    @classmethod
+    def uniform(cls, shapes: Mapping[str, Tuple[int, ...]],
+                dtype: torch.dtype) -> "Layout":
+        return cls(shapes, {k: dtype for k in shapes})
+
+    def __getitem__(self, path: str) -> Tuple[int, ...]:
+        return self._shapes[path]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._shapes)
+
+    def __len__(self) -> int:
+        return len(self._shapes)
+
+    def __repr__(self) -> str:
+        bufs = ", ".join(f"{str(dt)[6:]} {n:,}" for dt, n in
+                         zip(self.buffer_dtypes, self.buffer_sizes))
+        return f"Layout({len(self)} leaves, D={self.numel:,}: {bufs})"
+
+    def buffer_of(self, path: str) -> int:
+        return self.buffer_dtypes.index(self.dtypes[path])
+
+    def empty(self, *, device: DeviceLike = None) -> Flat:
+        """Uninitialized flat (D,) parameters."""
+        dev = resolve_device(device)
+        return pack(tuple(torch.empty((n,), dtype=dt, device=dev)
+                          for dt, n in zip(self.buffer_dtypes,
+                                           self.buffer_sizes)))
+
+    def check(self, flat: Flat, device: torch.device = None) -> None:
+        """Raise ValueError unless ``flat`` is this layout's flat (D,)
+        parameters (on ``device``'s type, where given)."""
+        bufs = buffers(flat)
+        want = [((n,), dt) for dt, n in zip(self.buffer_dtypes,
+                                            self.buffer_sizes)]
+        got = [(tuple(b.shape), b.dtype) for b in bufs]
+        on = device is None or all(b.device.type == device.type for b in bufs)
+        if got != want or not on:
+            where = f" on {device}" if device is not None else ""
+            raise ValueError(
+                "params must be " + ", ".join(
+                    f"{s} {str(dt)[6:]}" for s, dt in want) + where +
+                ", got " + ", ".join(f"{s} {str(dt)[6:]} on {b.device}"
+                                     for (s, dt), b in zip(got, bufs)))
+
+
+def buffers(flat: Flat) -> Tuple[torch.Tensor, ...]:
+    """The flat parameters' buffers: (flat,) for one tensor."""
+    return (flat,) if isinstance(flat, torch.Tensor) else tuple(flat)
+
+
+def pack(bufs) -> Flat:
+    """Buffers back to flat parameters: the one tensor where there is one."""
+    bufs = tuple(bufs)
+    return bufs[0] if len(bufs) == 1 else bufs
+
+
+def map_buffers(fn: Callable[[torch.Tensor], torch.Tensor], flat: Flat) -> Flat:
+    """``fn`` on every buffer (a clone, a move), packed as ``flat`` is."""
+    return pack(fn(b) for b in buffers(flat))
 
 
 def params_from_numpy(d: Mapping[str, np.ndarray],
@@ -38,30 +145,45 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
 
 
 def param_shapes(params: Mapping[str, torch.Tensor],
-                 batch_dims: int = 0) -> Shapes:
-    """Per-leaf shapes in leaf order, without the leading batch dims."""
-    return {k: tuple(params[k].shape[batch_dims:]) for k in sorted(params)}
+                 batch_dims: int = 0) -> Layout:
+    """The :class:`Layout` of ``params``: each leaf's shape without the
+    leading batch dims, and its dtype."""
+    return Layout({k: v.shape[batch_dims:] for k, v in params.items()},
+                  {k: v.dtype for k, v in params.items()})
 
 
 def flatten_params(params: Mapping[str, torch.Tensor],
-                   batch_dims: int = 0) -> torch.Tensor:
-    """Concatenate the leaves in leaf order: (*batch, D)."""
+                   batch_dims: int = 0) -> Flat:
+    """Concatenate the leaves in leaf order: (*batch, D) where every leaf
+    has one dtype, else one (*batch, n_b) buffer per dtype in the order
+    the dtypes first appear (:class:`Layout`)."""
     leaves = [params[k] for k in sorted(params)]
     batch = leaves[0].shape[:batch_dims]
-    return torch.cat([v.reshape(*batch, -1) for v in leaves], dim=-1)
+    order = []
+    for v in leaves:
+        if v.dtype not in order:
+            order.append(v.dtype)
+    return pack(torch.cat([v.reshape(*batch, -1) for v in leaves
+                           if v.dtype == dt], dim=-1) for dt in order)
 
 
-def unflatten_params(flat: torch.Tensor, shapes: Shapes) -> Dict[str, torch.Tensor]:
-    """Views of ``flat`` (*batch, D) with each leaf's shape behind the batch
-    dims; ``shapes`` is in leaf order."""
-    batch = flat.shape[:-1]
-    out, off = {}, 0
-    for k in sorted(shapes):
-        n = math.prod(shapes[k])
-        out[k] = flat[..., off:off + n].reshape(*batch, *shapes[k])
-        off += n
-    if off != flat.shape[-1]:
-        raise ValueError(f"flat width {flat.shape[-1]} != {off} parameters")
+def unflatten_params(flat: Flat, layout: Layout) -> Dict[str, torch.Tensor]:
+    """Views of ``flat``'s buffers (*batch, n_b) with each leaf's shape
+    behind the batch dims, in ``layout``'s leaf order."""
+    bufs = buffers(flat)
+    nbuf = len(layout.buffer_dtypes)
+    if len(bufs) != nbuf:
+        raise ValueError(f"{len(bufs)} flat buffers for a layout of {nbuf}")
+    batch = bufs[0].shape[:-1]
+    out, offs = {}, [0] * nbuf
+    for k, shape in layout.items():
+        b = layout.buffer_of(k)
+        n = math.prod(shape)
+        out[k] = bufs[b][..., offs[b]:offs[b] + n].reshape(*batch, *shape)
+        offs[b] += n
+    for b, off in zip(bufs, offs):
+        if off != b.shape[-1]:
+            raise ValueError(f"flat width {b.shape[-1]} != {off} parameters")
     return out
 
 
@@ -78,16 +200,27 @@ def tree_paths(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
 def flat_from_tree(tree: Mapping, dtype: torch.dtype = torch.float32,
-                   device: DeviceLike = None) -> torch.Tensor:
+                   device: DeviceLike = None) -> Flat:
     """A nested dict of numpy leaves (the reference's parameters through
-    ``np.asarray``) -> the port's flat (D,) vector in leaf order.  A
-    bfloat16 leaf (``ml_dtypes.bfloat16``) passes through float32, which
-    holds it exactly, and is cast to ``dtype`` on the device."""
-    leaves = tree_paths(tree)
-    parts = [torch.from_numpy(np.array(leaves[k], np.float32).reshape(-1))
-             for k in sorted(leaves)]
-    return torch.cat(parts).to(device=resolve_device(device), dtype=dtype)
+    ``np.asarray``) -> the port's flat parameters in leaf order: with
+    ``dtype=None`` each leaf keeps its own dtype (a buffer per dtype,
+    :func:`flatten_params`), else every leaf is cast to ``dtype`` (one
+    (D,) vector).  A bfloat16 leaf (``ml_dtypes.bfloat16``) passes through
+    float32, which holds it exactly."""
+    dev = resolve_device(device)
+    leaves = {}
+    for k, v in tree_paths(tree).items():
+        a = np.asarray(v)
+        t = torch.from_numpy(np.array(a, np.float32).reshape(-1))
+        leaves[k] = t.to(dtype if dtype is not None else _torch_dtype(a))
+    return map_buffers(lambda b: b.to(dev), flatten_params(leaves))
 
 
 def fleet_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):

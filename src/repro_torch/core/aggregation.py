@@ -357,23 +357,24 @@ def _reduce_ring(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
         return quant.dequantize_codes(acc[0], qcfg.bits, clip=qcfg.clip)
 
 
-def _gather_chunks(vals: torch.Tensor, K: int, inner: int,
-                   n: int) -> torch.Tensor:
+def _gather_chunks(vals: torch.Tensor, K: int, inner: int, n: int,
+                   r: torch.Tensor) -> torch.Tensor:
     """The all-gather's layout: vals (R, C) holds, in the row at index idx
     on the axis, the finished chunk (idx + 1) mod K; every row of the group
-    takes chunk j from the row at index (j - 1) mod K.  Returns (R, n)."""
-    R, C = vals.shape
-    r = torch.arange(R, device=vals.device)
+    takes chunk j from the row at index (j - 1) mod K.  Returns the rows
+    ``r`` gather, (len(r), n)."""
+    C = vals.shape[1]
     base = r - ((r // inner) % K) * inner          # the group's index-0 row
     j = torch.arange(K, device=vals.device)
     src = base[:, None] + ((j - 1) % K * inner)[None, :]
-    return vals[src].reshape(R, K * C)[:, :n]
+    return vals[src].reshape(len(r), K * C)[:, :n]
 
 
 def rsag_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
     """Reduce-scatter + all-gather over every non-trivial cohort axis, in
-    plan order: (C, D) f32 where every row ends with the dequantized code
-    sum.
+    plan order: (1, D) f32, the dequantized code sum that every row holds
+    at the end.  The last gather moves row 0 alone (the aggregate reads
+    one row: a (C, D) float32 copy less at the round's peak).
 
     A level over an axis of K entries splits each row's vector of partial
     sums of ``unit`` codes into K chunks of ceil(D/K) (the pad tail rides
@@ -435,20 +436,21 @@ def rsag_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
             lane = quant.packed_lane_bits(bits, unit * K)
             bias = quant.lane_bias(lane)
             buf = ops.pack_sums(carry, bits, lane_bits=lane, bias=bias)
-            if li == len(levels) - 1:
+            last = li == len(levels) - 1
+            if last:
                 vals = ops.unpack_dequantize(buf, bits, C, clip=qcfg.clip,
                                              lane_bits=lane, bias=bias)
             else:
                 vals = ops.repack(buf, torch.zeros((R, C), dtype=torch.int32,
                                                    device=x.device),
                                   bits, C, hop=0, lane_bits=lane, bias=bias)
-            codes = _gather_chunks(vals, K, inner, n)
+            codes = _gather_chunks(vals, K, inner, n,
+                                   rows[:1] if last else rows)
         unit *= K
     return codes
 
 
 def _reduce_rsag(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
-    """Every row of rsag's result holds the same dequantized sum: row 0."""
     return rsag_sum(plan, x, u)[0]
 
 

@@ -29,12 +29,15 @@ wire-independent d·n payload, so the fleet trajectory, and through it the
 model, is identical under every wire format.
 
 Where the reference ``vmap``s a ``lax.scan`` over clients, the port writes
-the batch out: the clients' (or cohorts') parameters are one flat (K, D)
-tensor of the model's dtype (columns in leaf order), so every local step
-is one stacked forward (the QNN's grouped convolutions and ``bmm``, the
-LM's batched products), one backward of the summed loss, which gives
-each its own gradient, and for the QNN one fake-quant launch pair over
-all K.
+the batch out: the clients' (or cohorts') parameters are flat (K, D)
+tensors in the model's layout (``convert.Layout``: one tensor of the
+model's dtype, columns in leaf order, where every leaf has that dtype; a
+(K, n) buffer per dtype where the reference keeps some leaves in float32),
+so every local step is one stacked forward (the QNN's grouped convolutions
+and ``bmm``, the LM's batched products), one backward of the summed loss,
+which gives each its own gradient, and for the QNN one fake-quant launch
+pair over all K.  The uplink's wire vector is one float32 (K, D) in leaf
+order whatever the layout.
 """
 from __future__ import annotations
 
@@ -85,30 +88,29 @@ def _full_fp32(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def local_sgd(model, config: Config, params: torch.Tensor, batches: Batch,
+def local_sgd(model, config: Config, params: convert.Flat, batches: Batch,
               gen: Optional[torch.Generator] = None, *,
               u_train: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              ) -> Tuple[convert.Flat, torch.Tensor, torch.Tensor]:
     """I local steps of SGD (eq. 4) for K clients at once.
 
-    params (D,), of the model's dtype; batches leaves (K, I, B, ...).
+    params: flat (D,) in the model's layout (a buffer per dtype where its
+    leaves have more than one); batches leaves (K, I, B, ...).
     Where ``model.quantizes_training`` (the QNN), each step trains through
     the STE fake-quant with noise u_train (K, I, D) (drawn from ``gen``
     when None); the LM, like the reference's, trains on its raw weights.
-    The step is ``w - eta * g`` in the parameters' dtype with eta rounded
-    to it once, as the reference's ``w - eta * g.astype(w.dtype)`` (a
-    Python float takes the array's dtype there); in float32 it rounds once,
-    as XLA contracts the reference's into a fused multiply-add
+    Each leaf steps ``w - eta * g`` in its dtype with eta rounded to it
+    once, as the reference's ``w - eta * g.astype(w.dtype)`` (a Python
+    float takes the array's dtype there); in float32 it rounds once, as
+    XLA contracts the reference's into a fused multiply-add
     (``kernels.ops.fma_step_``: the QNN's step is one launch over (K, D)).
-    Returns the K local
-    parameter vectors (K, D) and each step's loss and accuracy, (I, K)
-    each.
+    Returns the K local flat parameters (K, D) and each step's loss and
+    accuracy, (I, K) each.
     """
     fl, qcfg = config.fl, config.quant
     K, I = batches["labels"].shape[:2]
-    D = params.shape[0]
-    eta = float(torch.tensor(fl.learning_rate, dtype=params.dtype))
-    p = params.detach().expand(K, D).clone()
+    p = convert.map_buffers(lambda b: b.detach().expand(K, *b.shape).clone(),
+                            params)
     losses, accs = [], []
     for i in range(I):
         batch = {k: v[:, i] for k, v in batches.items()}
@@ -116,45 +118,47 @@ def local_sgd(model, config: Config, params: torch.Tensor, batches: Batch,
             p.requires_grad_(True)
             with torch.enable_grad():
                 u = (u_train[:, i] if u_train is not None
-                     else _uniform(gen, (K, D), params.device))
+                     else _uniform(gen, p.shape, params.device))
                 pq = quant.fake_quant_ste(p, u, qcfg.bits, qcfg.clip,
                                           qcfg.stochastic)
                 ce, acc = model.loss_stacked(
                     convert.unflatten_params(pq, model.param_shapes), batch)
                 (grad,) = torch.autograd.grad(ce.sum(), p)
             p = p.detach()
-            _step_(p, grad, eta)
+            _step_(p, grad, fl.learning_rate)
         else:
             ce, acc = sgd_step_(lambda leaves: model.loss_stacked(leaves, batch),
-                                p, model.param_shapes, eta)
+                                p, model.param_shapes, fl.learning_rate)
         losses.append(ce.detach())
         accs.append(acc)
     return p, torch.stack(losses), torch.stack(accs)
 
 
-def sgd_step_(loss_fn: Callable, flat: torch.Tensor,
-              shapes: Dict[str, Tuple[int, ...]], eta: float):
-    """One SGD step on ``flat`` (..., D), in place: ``loss_fn`` maps the
-    leaves (views by path) to (loss, aux), loss one value or one per row;
-    each leaf steps ``w - eta * g`` in its dtype.  The gradients are taken
-    by leaf (one of the whole flat vector would zero-fill a (..., D)
-    tensor for each leaf), and the leaves step in place once the graph is
-    spent: a float32 leaf in one ``ops.fma_step_`` launch.  Returns (loss,
-    aux)."""
-    views = convert.unflatten_params(flat, shapes)
+def sgd_step_(loss_fn: Callable, flat: convert.Flat,
+              layout: convert.Layout, lr: float):
+    """One SGD step on the flat parameters ``flat`` (..., D), in place:
+    ``loss_fn`` maps the leaves (views by path) to (loss, aux), loss one
+    value or one per row; each leaf steps ``w - eta * g`` in its dtype,
+    eta the learning rate ``lr`` rounded to it.  The gradients are taken
+    by leaf (one of a whole buffer would zero-fill a (..., n) tensor for
+    each leaf), and the leaves step in place once the graph is spent: a
+    float32 leaf in one ``ops.fma_step_`` launch.  Returns (loss, aux)."""
+    views = convert.unflatten_params(flat, layout)
     live = {k: v.detach().requires_grad_(True) for k, v in views.items()}
     with torch.enable_grad():
         loss, aux = loss_fn(live)
         grads = torch.autograd.grad(loss.sum(), list(live.values()))
     for w, g in zip(views.values(), grads):
-        _step_(w, g, eta)
+        _step_(w, g, lr)
     return loss.detach(), aux
 
 
-def _step_(w: torch.Tensor, g: torch.Tensor, eta: float) -> None:
-    """``w - eta * g`` in place, in w's dtype: rounded once in float32 (the
-    reference's contracted update, ROADMAP C5), a product and a difference
-    in bfloat16 (the reference's rounding there too)."""
+def _step_(w: torch.Tensor, g: torch.Tensor, lr: float) -> None:
+    """``w - eta * g`` in place, in w's dtype, eta the learning rate
+    rounded to it: rounded once in float32 (the reference's contracted
+    update, ROADMAP C5), a product and a difference in bfloat16 (the
+    reference's rounding there too)."""
+    eta = float(torch.tensor(lr, dtype=w.dtype))
     if w.dtype == torch.float32:
         ops.fma_step_(w, g, eta)
     else:
@@ -538,7 +542,11 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     once with ``k`` = C, cohort c reads the fleet's ``lam[c]``, under
     ``fleet.error_reweight`` ``ipw_delta_scale`` multiplies the aggregated
     delta after the collective, and the metrics gain the fleet keys.
-    params is the flat (D,) float32 vector; ``batch`` leaves are (global_batch, ...), and cohort c takes rows
+    params are the model's flat (D,) parameters (``convert.Layout``: the
+    one vector of its dtype, or a buffer per dtype); the uplink's (C, D)
+    float32 wire vector holds each cohort's delta in leaf order, so the
+    noise, the codes and the wire bits map to the reference's one to one.
+    ``batch`` leaves are (global_batch, ...), and cohort c takes rows
     [c·b, (c+1)·b), b = global_batch / C, split into I microbatches with
     the remainder b mod I dropped.  Each cohort's data weight is α = 1/C.
     The draws come from the ``torch.Generator`` ``gen`` or, all of them,
@@ -567,8 +575,8 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     dev = resolve_device(device)
     _full_fp32(dev)
     I = fl.local_iters
-    D = sum(math.prod(s) for s in model.param_shapes.values())
-    dtype = model.dtype
+    layout = model.param_shapes
+    D = layout.numel
     quantize_up = qcfg.enabled and qcfg.quantize_uplink
     with_fleet = config.fleet.enabled
     if with_fleet and config.fleet.size < C:
@@ -596,11 +604,7 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
             raise ValueError(
                 "a tapped round needs its step index: call the round with "
                 "step= so each streamed record carries its true round")
-        if (params.shape != (D,) or params.device.type != dev.type
-                or params.dtype != dtype):
-            raise ValueError(f"params must be ({D},) {dtype} on {dev}, got "
-                             f"{tuple(params.shape)} {params.dtype} on "
-                             f"{params.device}")
+        layout.check(params, device=dev)
         if noise is None and gen is None:
             raise ValueError("pass a generator, or the noise tensors")
         if (fleet is not None) != with_fleet:
@@ -628,16 +632,14 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
             u_up = noise.u_up
         else:
             u_up = _uniform(gen, (C, D), dev) if quantize_up else None
-        # the reference's (p_local - params).astype(f32): XLA computes the
-        # difference of the two upcast operands, unrounded to their dtype
-        delta = p.to(torch.float32).sub_(params)
+        delta = _delta(p, params, layout)
         del p
         agg_delta = agg.aggregate(plan, delta, 1.0 / C, lam, u_up)
         del delta
         if not with_fleet:
             metrics = telemetry.distributed_metrics(
                 plan, loss=losses.mean(), survivors=lam.sum())
-            new = _apply(params, agg_delta)
+            new = _apply(params, agg_delta, layout)
             if tap is not None:
                 tap(metrics, step)
             return new, metrics
@@ -654,7 +656,7 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                 outage_sel=info.outage_sel, cost_sel=info.cost_sel,
                 harvest_j=info.harvest_j,
                 error_prob=config.channel.error_prob))
-        new = _apply(params, agg_delta)
+        new = _apply(params, agg_delta, layout)
         if tap is not None:
             tap(metrics, step)
         return new, metrics, fleet
@@ -662,8 +664,31 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     return round_fn
 
 
-def _apply(params: torch.Tensor, agg_delta: torch.Tensor) -> torch.Tensor:
-    """The reference's ``w + d.astype(w.dtype)``: the float32 aggregate
-    rounded to the parameters' dtype, then added in it."""
+def _delta(p: convert.Flat, params: convert.Flat,
+           layout: convert.Layout) -> torch.Tensor:
+    """The (C, D) float32 wire vector of the reference's ``(p_local -
+    params).astype(f32)`` leaf by leaf, in leaf order: XLA computes the
+    difference of the two upcast operands, unrounded to their dtype.  One
+    tensor in one subtraction; buffers one run of leaves at a time."""
+    if isinstance(p, torch.Tensor):
+        return p.to(torch.float32).sub_(params)
+    out = torch.empty((p[0].shape[0], layout.numel), dtype=torch.float32,
+                      device=p[0].device)
+    for b, o, w, n in layout.runs:
+        out[:, w:w + n].copy_(p[b][:, o:o + n]).sub_(params[b][o:o + n])
+    return out
+
+
+def _apply(params: convert.Flat, agg_delta: torch.Tensor,
+           layout: convert.Layout) -> convert.Flat:
+    """The reference's ``w + d.astype(w.dtype)`` leaf by leaf: the float32
+    aggregate (D,) rounded to each leaf's dtype, then added in it
+    (``layout`` maps it onto the buffers where ``params`` has several)."""
     with phase_span("fl/apply"):
-        return params + agg_delta.to(params.dtype)
+        if isinstance(params, torch.Tensor):
+            return params + agg_delta.to(params.dtype)
+        new = tuple(torch.empty_like(b) for b in params)
+        for b, o, w, n in layout.runs:
+            torch.add(params[b][o:o + n], agg_delta[w:w + n].to(new[b].dtype),
+                      out=new[b][o:o + n])
+        return new

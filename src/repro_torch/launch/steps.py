@@ -12,6 +12,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import convert
 from repro_torch.config.base import Config
 from repro_torch.core import fl as fl_mod
 from repro_torch.device import DeviceLike, resolve_device
@@ -21,26 +22,27 @@ from repro_torch.launch.mesh import Mesh, cohort_axis_sizes
 def make_standard_train_step(model, config: Config, *,
                              device: DeviceLike = None) -> Callable:
     """Plain SGD step (paper eq. 3 at cohort level) on the flat (D,)
-    parameters: ``w - eta * g`` in their dtype, eta rounded to it once, as
-    the reference's ``w - eta * g.astype(w.dtype)`` (in float32 rounded
-    once, as XLA contracts it: one ``ops.fma_step_`` launch a leaf).  A
-    model that trains quantized (the QNN) takes its fake-quant noise from
-    ``gen``, as the reference's takes its key.  ``device=None`` means the
-    CUDA device."""
+    parameters (``convert.Flat``): each leaf ``w - eta * g`` in its dtype,
+    eta rounded to it once, as the reference's ``w - eta *
+    g.astype(w.dtype)`` (in float32 rounded once, as XLA contracts it: one
+    ``ops.fma_step_`` launch a leaf).  A model that trains quantized (the
+    QNN) takes its fake-quant noise from ``gen``, as the reference's takes
+    its key.  ``device=None`` means the CUDA device."""
     dev = resolve_device(device)
     fl_mod._full_fp32(dev)
 
-    def step(params: torch.Tensor, batch: Dict[str, torch.Tensor],
+    def step(params: convert.Flat, batch: Dict[str, torch.Tensor],
              gen: Optional[torch.Generator] = None):
-        if params.device.type != dev.type:
-            raise ValueError(f"params on {params.device}, step on {dev}")
+        for b in convert.buffers(params):
+            if b.device.type != dev.type:
+                raise ValueError(f"params on {b.device}, step on {dev}")
         u = None
         if model.quantizes_training:
             u = fl_mod._uniform(gen, params.shape, params.device)
-        eta = float(torch.tensor(config.fl.learning_rate, dtype=params.dtype))
-        new = params.detach().clone()
+        new = convert.map_buffers(lambda b: b.detach().clone(), params)
         loss, _ = fl_mod.sgd_step_(lambda leaves: model.loss(leaves, batch, u),
-                                   new, model.param_shapes, eta)
+                                   new, model.param_shapes,
+                                   config.fl.learning_rate)
         return new, {"loss": loss}
 
     return step

@@ -51,6 +51,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch import convert
 from repro_torch.config.base import (COLLECTIVE_CHOICES, POWER_POLICIES,
                                      SELECTION_POLICIES, apply_overrides)
 from repro_torch.configs import get_config
@@ -223,7 +224,8 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
         torch.cuda.synchronize(dev)
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     out["seconds"] = time.perf_counter() - t0
-    out["params_finite"] = bool(torch.isfinite(params).all())
+    out["params_finite"] = all(bool(torch.isfinite(b).all())
+                               for b in convert.buffers(params))
     out["params"], out["fleet"] = params, fleet
     print(f"done: {out['steps'] - start} steps in {out['seconds']:.1f}s")
     if sink is not None:

@@ -1,11 +1,13 @@
 """Model factory: ``build_model(config)`` returns the family's model.
 
-The paper's QNN (family ``cnn``) and the dense decoder-only LM (family
-``dense``, e.g. olmo-1b) are ported; the rest of the reference's zoo
-raises (ROADMAP A13).  Every model exposes ``param_shapes`` (leaf shapes in
-leaf order), ``init``, ``loss`` for one model and ``loss_stacked`` for
-several stacked on a leading dimension, and ``quantizes_training``: whether
-its local steps run the STE fake-quant.
+The paper's QNN (family ``cnn``) and the decoder-only LM of families
+``dense`` (olmo-1b, qwen2.5-14b, yi-9b, nemotron-4-340b) and ``moe``
+(granite-moe-1b-a400m) are ported; the rest of the reference's zoo raises
+(ROADMAP A13).  Every model exposes ``param_shapes`` (leaf shapes in leaf
+order; the LM's is a ``convert.Layout``, which also holds each leaf's
+dtype), ``dtype``, ``init``, ``loss`` for one model and ``loss_stacked``
+for several stacked on a leading dimension, and ``quantizes_training``:
+whether its local steps run the STE fake-quant.
 """
 from __future__ import annotations
 

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch import convert
 from repro_torch.config.base import Config
 from repro_torch.core import quantization as quant
 from repro_torch.device import DeviceLike, make_generator, resolve_device
@@ -78,7 +79,7 @@ def _conv_relu_pool(x: torch.Tensor, w_hwio: torch.Tensor, b: torch.Tensor,
 class CNNModel:
     config: Config
 
-    param_shapes = PARAM_SHAPES
+    param_shapes = convert.Layout.uniform(PARAM_SHAPES, torch.float32)
     dtype = torch.float32
 
     @property

@@ -1,18 +1,25 @@
-"""Decoder-only LM for the homogeneous dense stack (olmo-1b and its kin).
+"""Decoder-only LM for the homogeneous stacks: dense (olmo-1b, qwen2.5-14b,
+yi-9b, nemotron-4-340b and their kin) and MoE (granite-moe-1b-a400m).
 
 The reference's ``LM`` in PyTorch: layer-stacked leaves ((L, ...) each,
 as the reference's vmapped init builds them), a loop over the layers where
 the reference scans, tied or separate output head, the cross-entropy
-loss, and serving: ``init_cache``, ``prefill`` and ``decode_step``.  MoE,
-MLA, recurrent and hybrid stacks and multi-token prediction raise
-(``configs.check_ported``, ROADMAP A13), their caches with them.
+loss plus the MoE's load-balance loss summed over the layers (the
+reference's ``total``), and serving: ``init_cache``, ``prefill`` and
+``decode_step``.  MLA, recurrent and hybrid stacks and multi-token
+prediction raise (``configs.check_ported``, ROADMAP A13), their caches
+with them.
 
 Parameters are a dict keyed by the leaves' paths in the reference's tree
 ("blocks/attn/wq", "embed", ...): sorted, those keys are the reference's
-``jax.tree_util.tree_leaves`` order, so ``convert.flatten_params`` gives
-the flat vector both packages agree on.  ``loss`` runs one model;
-``loss_stacked`` runs C cohorts at once, a leading C on every leaf and on
-the batch, and returns one loss per cohort (``core.fl.local_sgd``).
+``jax.tree_util.tree_leaves`` order.  Each leaf has the reference's dtype:
+norm scales and biases and the MoE router in float32, every other leaf in
+the model's dtype; ``param_shapes`` is the :class:`convert.Layout` of
+both, whose flat parameters both packages agree on (one tensor where
+every leaf has one dtype, a buffer per dtype otherwise).  ``loss`` runs
+one model; ``loss_stacked`` runs C cohorts at once, a leading C on every
+leaf and on the batch, and returns one loss per cohort
+(``core.fl.local_sgd``).
 
 Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass, the same numbers.
@@ -27,7 +34,6 @@ reference's jitted step writes into the cache it is donated.
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -51,21 +57,31 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def block_param_shapes(cfg: ModelConfig) -> Shapes:
-    """One layer's leaves by path: norm1, norm2, attn, mlp."""
+    """One layer's leaves by path: norm1, norm2, attn, and mlp or moe."""
     shapes: Shapes = {}
     for norm in ("norm1", "norm2"):
         for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
             shapes[f"{norm}/{k}"] = s
     for k, s in attn.attention_param_shapes(cfg).items():
         shapes[f"attn/{k}"] = s
-    for k, s in mlp.mlp_param_shapes(cfg).items():
-        shapes[f"mlp/{k}"] = s
+    if cfg.moe.enabled:
+        for k, s in mlp.moe_param_shapes(cfg).items():
+            shapes[f"moe/{k}"] = s
+    else:
+        for k, s in mlp.mlp_param_shapes(cfg).items():
+            shapes[f"mlp/{k}"] = s
     return shapes
 
 
-def lm_param_shapes(cfg: ModelConfig) -> Shapes:
-    """Every leaf of the LM by path, in sorted (leaf) order; the layer
-    leaves are stacked (L, ...)."""
+#: the leaves the reference keeps in float32 whatever the model's dtype:
+#: the norms' scales and biases (``make_norm_params``) and the MoE router
+FLOAT32_LEAVES = ("final_norm/", "blocks/norm1/", "blocks/norm2/",
+                  "blocks/moe/router")
+
+
+def lm_param_shapes(cfg: ModelConfig) -> convert.Layout:
+    """Every leaf of the LM by path, in sorted (leaf) order, with its
+    dtype; the layer leaves are stacked (L, ...)."""
     shapes: Shapes = {"embed": (cfg.vocab_size, cfg.d_model)}
     for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
         shapes[f"final_norm/{k}"] = s
@@ -73,7 +89,10 @@ def lm_param_shapes(cfg: ModelConfig) -> Shapes:
         shapes["head"] = (cfg.d_model, cfg.vocab_size)
     for k, s in block_param_shapes(cfg).items():
         shapes[f"blocks/{k}"] = (cfg.n_layers,) + s
-    return {k: shapes[k] for k in sorted(shapes)}
+    dt = torch_dtype(cfg)
+    return convert.Layout(shapes, {
+        k: torch.float32 if k.startswith(FLOAT32_LEAVES) else dt
+        for k in shapes})
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -86,13 +105,14 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class LM:
-    """Decoder-only language model, dense family; ``models.build_model``
-    checks the config (``configs.check_ported``) before it builds one."""
+    """Decoder-only language model, dense and MoE families;
+    ``models.build_model`` checks the config (``configs.check_ported``)
+    before it builds one."""
     config: Config
 
     def __post_init__(self):
         self.param_shapes = lm_param_shapes(self.cfg)
-        self.num_params = sum(math.prod(s) for s in self.param_shapes.values())
+        self.num_params = self.param_shapes.numel
 
     @property
     def cfg(self) -> ModelConfig:
@@ -100,6 +120,8 @@ class LM:
 
     @property
     def dtype(self) -> torch.dtype:
+        """The model's dtype: its activations' and cache's, and every
+        leaf's but those of ``FLOAT32_LEAVES``."""
         return torch_dtype(self.cfg)
 
     #: the reference's ``LM.loss`` ignores its rng: no fake-quant in the
@@ -109,18 +131,20 @@ class LM:
     # -- init ------------------------------------------------------------------
 
     def init_flat(self, seed: Union[int, torch.Generator] = 0, *,
-                  device: DeviceLike = None) -> torch.Tensor:
-        """The flat (D,) parameter vector of the config's dtype from one
-        generator, as the reference's ``init`` lays it out: embeddings
-        N(0, 0.02²); then layer by layer its attention and MLP matrices
-        N(0, 1/fan_in) (``init_attention_params``, ``init_mlp_params``) and
-        its norms (``make_norm_params``); the final norm; a separate head.
-        The draws are the port's own: a parity test converts the
-        reference's parameters instead (``convert.flat_from_tree``)."""
+                  device: DeviceLike = None) -> convert.Flat:
+        """The flat parameters (``param_shapes``' layout: the (D,) vector of
+        the config's dtype where every leaf has it) from one generator, as
+        the reference's ``init`` lays them out: embeddings N(0, 0.02²);
+        then layer by layer its attention and MLP (or MoE) matrices
+        N(0, 1/fan_in) (``init_attention_params``, ``init_mlp_params``,
+        ``init_moe_params``) and its norms (``make_norm_params``, float32);
+        the final norm; a separate head.  The draws are the port's own: a
+        parity test converts the reference's parameters instead
+        (``convert.flat_from_tree``)."""
         cfg, dt = self.cfg, self.dtype
         dev = resolve_device(device)
         gen = make_generator(seed, dev)
-        flat = torch.empty(self.num_params, dtype=dt, device=dev)
+        flat = self.param_shapes.empty(device=dev)
         views = convert.unflatten_params(flat, self.param_shapes)
 
         def fill(prefix, leaves, layer=None):
@@ -135,7 +159,10 @@ class LM:
             fill("blocks/norm1", norm, i)
             fill("blocks/norm2", norm, i)
             fill("blocks/attn", attn.init_attention_params(gen, cfg, dtype=dt), i)
-            fill("blocks/mlp", mlp.init_mlp_params(gen, cfg, dtype=dt), i)
+            if cfg.moe.enabled:
+                fill("blocks/moe", mlp.init_moe_params(gen, cfg, dtype=dt), i)
+            else:
+                fill("blocks/mlp", mlp.init_mlp_params(gen, cfg, dtype=dt), i)
         fill("final_norm", norm)
         if not cfg.tie_embeddings:
             views["head"].copy_(common.dense_init(
@@ -144,7 +171,7 @@ class LM:
 
     def init(self, seed: Union[int, torch.Generator] = 0, *,
              device: DeviceLike = None) -> Params:
-        """:meth:`init_flat`'s leaves by path (views of one flat vector)."""
+        """:meth:`init_flat`'s leaves by path (views of its buffers)."""
         return convert.unflatten_params(self.init_flat(seed, device=device),
                                         self.param_shapes)
 
@@ -171,10 +198,13 @@ class LM:
     def _backbone(self, params: Params, tokens: torch.Tensor, *,
                   stacked: bool, remat: bool,
                   store_kv: Optional[Callable[[int, torch.Tensor, torch.Tensor],
-                                              None]] = None) -> torch.Tensor:
-        """tokens (B, S) or (C, B, S) -> the final normed hidden states.
-        ``store_kv(i, k, v)``, where given, takes layer i's rope'd k and v
-        (B, S, KV, hd) as the layers run (prefill fills its cache so)."""
+                                              None]] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """tokens (B, S) or (C, B, S) -> (the final normed hidden states,
+        the MoE's load-balance loss summed over the layers in layer order,
+        () or (C,), or None for a dense stack).  ``store_kv(i, k, v)``,
+        where given, takes layer i's rope'd k and v (B, S, KV, hd) as the
+        layers run (prefill fills its cache so)."""
         cfg = self.cfg
         B, S = tokens.shape[-2:]
         positions = torch.arange(S, dtype=torch.int32,
@@ -185,19 +215,23 @@ class LM:
         # and add into it once a layer
         blocks = {k[len("blocks/"):]: v.unbind(1 if stacked else 0)
                   for k, v in params.items() if k.startswith("blocks/")}
+        aux = None
         for i in range(cfg.n_layers):
             layer = {k: v[i] for k, v in blocks.items()}
             if remat and torch.is_grad_enabled():
-                x = checkpoint(self._block, layer, x, positions,
-                               use_reentrant=False)
+                x, aux_l = checkpoint(self._block, layer, x, positions,
+                                      use_reentrant=False)
             else:
-                x = self._block(layer, x, positions,
-                                None if store_kv is None
-                                else functools.partial(store_kv, i))
-        return common.apply_norm(x, _sub(params, "final_norm"), cfg)
+                x, aux_l = self._block(layer, x, positions,
+                                       None if store_kv is None
+                                       else functools.partial(store_kv, i))
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
+        return common.apply_norm(x, _sub(params, "final_norm"), cfg), aux
 
     def _block(self, layer: Params, x: torch.Tensor, positions: torch.Tensor,
-               store_kv: Optional[Callable] = None) -> torch.Tensor:
+               store_kv: Optional[Callable] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
         h = common.apply_norm(x, _sub(layer, "norm1"), cfg)
         mix, (k, v) = attn.self_attention(_sub(layer, "attn"), h, positions,
@@ -205,39 +239,52 @@ class LM:
         if store_kv is not None:
             store_kv(k, v)
         del k, v                # not held through the MLP
-        return self._mlp_residual(layer, x + mix.to(x.dtype))
+        return self._ff_residual(layer, x + mix.to(x.dtype))
 
-    def _mlp_residual(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
-        h = common.apply_norm(x, _sub(layer, "norm2"), self.cfg)
-        ff = mlp.mlp(_sub(layer, "mlp"), h, self.cfg)
-        return x + ff.to(x.dtype)
+    def _ff_residual(self, layer: Params, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The norm2 branch: x plus the MLP's (or MoE's) output, and the
+        MoE's load-balance loss (None for the MLP)."""
+        cfg = self.cfg
+        h = common.apply_norm(x, _sub(layer, "norm2"), cfg)
+        if cfg.moe.enabled:
+            ff, aux = mlp.moe(_sub(layer, "moe"), h, cfg)
+        else:
+            ff, aux = mlp.mlp(_sub(layer, "mlp"), h, cfg), None
+        return x + ff.to(x.dtype), aux
 
     # -- training loss -------------------------------------------------------------
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], rng=None,
              *, remat: Optional[bool] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One model's mean cross-entropy over the batch's tokens and labels
-        (B, S); ``rng`` is ignored, as the reference's."""
+        """One model's loss over the batch's tokens and labels (B, S): the
+        mean cross-entropy plus the MoE's load-balance loss (the
+        reference's ``total``), with both in the metrics; ``rng`` is
+        ignored, as the reference's."""
         remat = self.config.train.remat if remat is None else remat
-        x = self._backbone(params, batch["tokens"], stacked=False, remat=remat)
+        x, aux = self._backbone(params, batch["tokens"], stacked=False,
+                                remat=remat)
         ce = _cross_entropy(self._logits(params, x), batch["labels"])
-        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        if aux is None:
+            return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def loss_stacked(self, params: Params, batch: Dict[str, torch.Tensor], *,
                      remat: Optional[bool] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """C cohorts at once: leaves (C, ...), tokens and labels (C, B, S).
-        Returns each cohort's cross-entropy and token accuracy, (C,) each
-        (the accuracy computed without gradient)."""
+        Returns each cohort's loss (:meth:`loss`'s) and token accuracy,
+        (C,) each (the accuracy computed without gradient)."""
         remat = self.config.train.remat if remat is None else remat
-        x = self._backbone(params, batch["tokens"], stacked=True, remat=remat)
+        x, aux = self._backbone(params, batch["tokens"], stacked=True,
+                                remat=remat)
         logits = self._logits(params, x)
         ce = _cross_entropy(logits, batch["labels"])
         with torch.no_grad():
             hit = logits.argmax(-1) == batch["labels"].long()
             acc = hit.float().mean(dim=(-2, -1))
-        return ce, acc
+        return (ce if aux is None else ce + aux), acc
 
     # -- serving ---------------------------------------------------------------
 
@@ -287,8 +334,8 @@ class LM:
             cache["k"][i, :, :n].copy_(k[:, S - n:])
             cache["v"][i, :, :n].copy_(v[:, S - n:])
 
-        h = self._backbone(params, tokens, stacked=False, remat=False,
-                           store_kv=store)
+        h, _ = self._backbone(params, tokens, stacked=False, remat=False,
+                              store_kv=store)
         logits = self._logits(params, h[:, -1:])
         cache["kv_pos"][:, :n] = torch.arange(S - n, S, dtype=torch.int32,
                                               device=tokens.device)
@@ -319,7 +366,7 @@ class LM:
                 _sub(layer, "attn"), h, positions, cfg,
                 cache_k=cache["k"][i], cache_v=cache["v"][i], kv_pos=kv_pos,
                 write_slot=slot, window=cfg.attention_window)
-            x = self._mlp_residual(layer, x + mix.to(x.dtype))
+            x, _ = self._ff_residual(layer, x + mix.to(x.dtype))
         x = common.apply_norm(x, _sub(params, "final_norm"), cfg)
         new_kv_pos = kv_pos.index_copy(1, slot, positions)
         return self._logits(params, x), {

@@ -225,7 +225,7 @@ def test_a_wrong_template_raises(tmp_path):
         tckpt.restore_checkpoint(d, {"a": torch.zeros(3)})
     with pytest.raises(ValueError, match="shape"):
         tckpt.restore_checkpoint(d, {"a": torch.zeros(3), "b": torch.zeros(4)})
-    shapes = {"a": (3,), "b": (2,)}
+    shapes = convert.Layout.uniform({"a": (3,), "b": (2,)}, torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
         tckpt.restore_params(d, torch.zeros(5, dtype=torch.bfloat16), shapes)
     assert torch.equal(tckpt.restore_params(d, torch.ones(5), shapes),

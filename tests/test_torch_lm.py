@@ -31,7 +31,7 @@ from repro.models import build_model as jbuild_model
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
 from repro_torch import convert
-from repro_torch.config import apply_overrides
+from repro_torch.config import MLAConfig, RecurrentConfig, apply_overrides
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import fl as tfl
 from repro_torch.data.synthetic import token_batch
@@ -336,12 +336,13 @@ def test_bfloat16_step_delta_and_apply_are_bit_exact():
     tg = _t(_np(g)).to(torch.bfloat16)
     new = tw.clone()
     teta = float(torch.tensor(eta, dtype=torch.bfloat16))
-    tfl.sgd_step_(lambda p: ((p["w"] * tg).sum(), None), new, {"w": (n,)}, teta)
+    layout = convert.Layout.uniform({"w": (n,)}, torch.bfloat16)
+    tfl.sgd_step_(lambda p: ((p["w"] * tg).sum(), None), new, layout, teta)
     assert np.array_equal(new.float().numpy(), _np(step))
     tdelta = new.to(torch.float32).sub_(tw)
     assert np.array_equal(tdelta.numpy(), np.asarray(delta))
-    assert np.array_equal(tfl._apply(tw, _t(np.asarray(d))).float().numpy(),
-                          _np(apply))
+    assert np.array_equal(
+        tfl._apply(tw, _t(np.asarray(d)), layout).float().numpy(), _np(apply))
 
 
 def test_token_batch_is_the_references_stream():
@@ -361,8 +362,10 @@ def test_token_batch_is_the_references_stream():
 
 def test_other_families_raise_naming_a13():
     cfg = get_config("olmo-1b")
-    for field, value in (("family", "moe"), ("mtp_depth", 1),
-                         ("is_encoder_decoder", True)):
+    for field, value in (("family", "vlm"), ("mtp_depth", 1),
+                         ("is_encoder_decoder", True),
+                         ("mla", MLAConfig(enabled=True)),
+                         ("recurrent", RecurrentConfig(kind="rwkv6"))):
         bad = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, **{field: value}))
         with pytest.raises(NotImplementedError, match="A13"):
@@ -374,13 +377,17 @@ def test_other_families_raise_naming_a13():
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
 def test_parametric_norm_outside_float32_raises_naming_a13(norm):
     """The reference keeps norm scales and biases in float32 beside
-    bfloat16 weights; one flat vector of one dtype cannot, so such a
-    config raises until the vector holds a dtype per leaf."""
+    bfloat16 weights.  Such a config raised while the port's flat vector
+    had one dtype; with a dtype per leaf it builds, its norm leaves in a
+    float32 buffer beside the bfloat16 one, and in float32 it is one
+    flat vector again."""
     cfg = apply_overrides(get_config("olmo-1b"), (f"model.norm_type={norm}",))
     assert cfg.model.dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match="A13"):
-        reduced(cfg)
+    for c in (cfg, reduced(cfg)):
+        layout = build_model(c).param_shapes
+        assert layout.buffer_dtypes == (torch.bfloat16, torch.float32)
+        assert {k for k, dt in layout.dtypes.items()
+                if dt == torch.float32} == {k for k in layout if "norm" in k}
     ok = apply_overrides(cfg, ("model.dtype=float32",))
     assert build_model(ok).dtype == torch.float32
+    assert build_model(ok).param_shapes.buffer_dtypes == (torch.float32,)

@@ -143,4 +143,4 @@ def test_unported_family_raises():
     import dataclasses
     cfg = get_config("mnist_cnn")
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, family="moe")))
+        build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, family="vlm")))

@@ -156,7 +156,8 @@ def test_aggregate_at_clip_0_3_modes_equal_and_within_2_ulp(jx, sizes):
 @pytest.mark.parametrize("sizes", [(5,), (2, 3), (3, 2), (2, 5)], ids=str)
 def test_every_row_holds_the_sum_and_the_plan_counts_launches(sizes, hops,
                                                               monkeypatch):
-    """Every cohort row of rsag's and the ring's stacked result holds the
+    """Every cohort row of the ring's stacked result, and the one row that
+    rsag's last gather moves (row 0, what the aggregate reads), holds the
     same sum, and each wrapper is called as often as the reference's
     schedule launches its kernel: per axis of K entries the ring takes
     K - 1 repacks and, after the first axis, one pack_sums; rsag takes
@@ -193,7 +194,8 @@ def test_every_row_holds_the_sum_and_the_plan_counts_launches(sizes, hops,
         calls.clear()
         out = summed(tagg.make_wire_plan(mode, q, axes, sizes), x, u)
         assert calls == {k: v for k, v in expected[mode].items() if v}, mode
-        for r in range(C):
+        assert out.shape == ((C, n) if mode == "ring" else (1, n)), mode
+        for r in range(out.shape[0]):
             got = out[r].float() / 128 if mode == "ring" else out[r]
             assert torch.equal(got, want), (mode, r)
 

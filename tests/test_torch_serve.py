@@ -128,8 +128,8 @@ def test_prefill_and_decode_match_reference(case):
 
 def _forward_logits(model, params, toks):
     """Full-sequence logits (B, S, V) of the training forward."""
-    return model._logits(params, model._backbone(params, toks, stacked=False,
-                                                 remat=False))
+    h, _ = model._backbone(params, toks, stacked=False, remat=False)
+    return model._logits(params, h)
 
 
 def _olmo(seed):

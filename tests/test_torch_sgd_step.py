@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import fl as tfl
 from repro_torch.kernels import ops
@@ -78,7 +79,7 @@ class _LinearModel:
 
     def __init__(self, quantizes_training):
         self.quantizes_training = quantizes_training
-        self.param_shapes = dict(SHAPES)
+        self.param_shapes = convert.Layout.uniform(SHAPES, torch.float32)
 
     @staticmethod
     def _dot(leaves, g):
