@@ -56,6 +56,16 @@ through the kernels at the paper's widths:
   layout's step, delta and apply and its serving in float32; qwen2.5-14b (D = 14,770,033,664) served at full width at the
   CLI's defaults and at a 16,384-token prompt with 64 decode steps, and
   reduced in float32 against the CPU; yi-9b served at full width;
+* the recurrent families: rwkv6-7b (RWKV-6, D = 7,576,756,224) and
+  recurrentgemma-2b (the Griffin hybrid, D = 3,549,934,080) served at full
+  width through ``launch.serve.main`` at the CLI's defaults and natively
+  on long_500k (batch 1, a 4,096- and a 16,384-token prompt, 64 decode
+  steps under sync debug "error", a state cache of the same bytes at any
+  context), reduced float32 serving against the CPU (the hybrid at 3
+  layers, a local-attention layer in it); each through the cohort round
+  at a depth cut (3 and 1 layers) in every wire format, its uplink
+  kernels on (2, D) windows, the trainer for 2 rsag steps and a reduced
+  float32 round against the CPU in int and rsag;
 * serving: olmo-1b at full width through ``launch.serve.main`` at the
   reference CLI's defaults with a telemetry stream, at prefill_32k's and
   decode_32k's context (batch 2, a 32,704-token prompt, a 32,768 cache,
@@ -1404,47 +1414,55 @@ def checkpoint_phase(torch, train_main, get_config, apply_overrides,
 SERVE_LONG = {"batch": 2, "prompt": 32_704, "max_len": 32_768}
 SERVE_RING = {"batch": 1, "prompt": 16_384}
 SERVE_STEPS = 64
-#: the reduced float32 olmo-1b held to the CPU: a prompt of 32 into a cache
-#: of 40 (b) or into a window of 16 (c), then 4 decode steps
+#: the reduced float32 models held to the CPU: a prompt of 32 into a cache
+#: of 40 (olmo-1b's (c) into a window of 16), then 4 decode steps, every
+#: float entry within SERVE_TOL of its largest CPU value
 SERVE_SMALL_STEPS = 4
+SERVE_TOL = 1e-5
 
 
 def serve_reference_check(torch, build_model, cfg, prompt, max_len, what):
     """Prefill and SERVE_SMALL_STEPS greedy decode steps of ``cfg`` (a
-    reduced float32 olmo-1b, qwen2.5-14b or granite-moe-1b-a400m) on the
-    card against the same on the CPU, from
-    the same parameters and tokens: logits within 1e-4 (rtol and atol),
-    the cache's k and v within 1e-4, kv_pos and length equal."""
+    reduced float32 olmo-1b, qwen2.5-14b, granite-moe-1b-a400m, rwkv6-7b
+    or recurrentgemma-2b) on the card against the same on the CPU, from
+    the same parameters and tokens: the logits and the cache's float
+    entries (k and v, the recurrent states) each within SERVE_TOL of its
+    largest CPU value; kv_pos and length equal."""
     model = build_model(cfg)
     params = model.init(3, device="cpu")
     gen = torch.Generator().manual_seed(7)
     toks = torch.randint(0, cfg.model.vocab_size, (2, prompt), generator=gen,
                          dtype=torch.int32)
-    steps = torch.randint(0, cfg.model.vocab_size,
-                          (SERVE_SMALL_STEPS, 2, 1), generator=gen,
-                          dtype=torch.int32)
+    toks_steps = torch.randint(0, cfg.model.vocab_size,
+                               (SERVE_SMALL_STEPS, 2, 1), generator=gen,
+                               dtype=torch.int32)
     out = {}
     for dev in ("cpu", "cuda"):
         p = {k: v.to(dev) for k, v in params.items()}
         logits, cache = model.prefill(p, toks.to(dev), max_len=max_len)
         seen = [logits.cpu()]
-        for tok in steps:
+        for tok in toks_steps:
             logits, cache = model.decode_step(p, cache, tok.to(dev))
             seen.append(logits.cpu())
         out[dev] = seen, {k: v.cpu() for k, v in cache.items()}
+
+    def close(a, b):
+        return float((a - b).abs().max()) <= SERVE_TOL * float(b.abs().max())
+
     err = max(float((a - b).abs().max())
               for a, b in zip(out["cuda"][0], out["cpu"][0]))
-    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
-             for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    ok = all(close(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
     (gc, wc) = out["cuda"][1], out["cpu"][1]
-    cache_err = max(float((gc[k] - wc[k]).abs().max()) for k in ("k", "v"))
-    ok = ok and all(torch.allclose(gc[k], wc[k], rtol=1e-4, atol=1e-4)
-                    for k in ("k", "v"))
-    ok = ok and torch.equal(gc["kv_pos"], wc["kv_pos"]) and torch.equal(
-        gc["length"], wc["length"])
-    print(f"card vs CPU, {cfg.model.name} float32 serving ({what}): prefill "
-          f"and {SERVE_SMALL_STEPS} decode steps, max logits diff {err:.3g}, "
-          f"max cache diff {cache_err:.3g}, kv_pos and length equal: {ok}")
+    floats = [k for k in wc if wc[k].is_floating_point()]
+    check(set(gc) == set(wc) and floats, f"serving {what}: cache {set(gc)}")
+    cache_err = {k: float((gc[k] - wc[k]).abs().max()) for k in floats}
+    ok = ok and all(close(gc[k], wc[k]) for k in floats)
+    ok = ok and all(torch.equal(gc[k], wc[k]) for k in wc if k not in floats)
+    print(f"card vs CPU, {cfg.model.name} ({cfg.model.n_layers} layers) "
+          f"float32 serving ({what}): prefill and {SERVE_SMALL_STEPS} decode "
+          f"steps, max logits diff {err:.3g}, max cache diff {cache_err}, "
+          f"within {SERVE_TOL:g} of each entry's largest value, kv_pos and "
+          f"length equal: {ok}")
     check(ok, f"serving {what}: the card disagrees with the CPU")
 
 
@@ -1486,8 +1504,8 @@ def serve_cell(torch, model, params, cfg, batch, prompt, max_len, label,
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_peak = torch.cuda.max_memory_allocated()
-    C = cache["k"].shape[2]
-    cache_gb = 2 * cache["k"].nbytes / 1e9
+    C = cache["k"].shape[2] if "k" in cache else None
+    cache_gb = sum(v.nbytes for v in cache.values()) / 1e9
     check(logits.shape == (batch, cfg.model.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"serving {label}: prefill logits {tuple(logits.shape)}")
@@ -1519,12 +1537,22 @@ def serve_cell(torch, model, params, cfg, batch, prompt, max_len, label,
     check(bool(finite), f"serving {label}: non-finite decode logits")
     check(int(cache["length"]) == length,
           f"serving {label}: length {int(cache['length'])} != {length}")
-    pos = torch.arange(max(length - C, 0), length, dtype=torch.int32,
-                       device="cuda")
-    want = torch.full((C,), -1, dtype=torch.int32, device="cuda")
-    want[pos % C] = pos
-    check(torch.equal(cache["kv_pos"], want.expand(batch, C)),
-          f"serving {label}: kv_pos is not the last {C} positions")
+    if C is not None:
+        pos = torch.arange(max(length - C, 0), length, dtype=torch.int32,
+                           device="cuda")
+        want = torch.full((C,), -1, dtype=torch.int32, device="cuda")
+        want[pos % C] = pos
+        check(torch.equal(cache["kv_pos"], want.expand(batch, C)),
+              f"serving {label}: kv_pos is not the last {C} positions")
+    # a recurrent state or a window's ring: the same bytes at any context
+    bounded = C is None or C < length
+    cache_bytes_per_seq = sum(v.nbytes for k, v in cache.items()
+                              if k != "length") / batch
+    if bounded:
+        longer = model.init_cache(batch, 2 * length, device="meta")
+        check(sum(v.nbytes for k, v in longer.items() if k != "length")
+              / batch == cache_bytes_per_seq,
+              f"serving {label}: the cache grows with the context")
     if profile:
         profile_phase(torch, f"decode_step {label}",
                       lambda: model.decode_step(params, cache, tok), rounds=3,
@@ -1535,7 +1563,10 @@ def serve_cell(torch, model, params, cfg, batch, prompt, max_len, label,
         "serve": label, "arch": cfg.model.name, "D": model.num_params,
         "dtype": cfg.model.dtype, "window": cfg.model.attention_window,
         "batch": batch, "prompt": prompt, "cache_capacity": C,
-        "cache_gb": cache_gb,
+        "cache_gb": cache_gb, "cache_bytes_per_sequence": cache_bytes_per_seq,
+        "cache_bounded_in_context": bounded,
+        "cache_entries": sorted(k for k in model.init_cache(
+            1, 1, device="meta") if k != "length"),
         "decode_steps": SERVE_STEPS, "length": length,
         "prefill_ms": prefill_ms, "prefill_host_ms": prefill_host_ms,
         "prefill_tok_s": batch * prompt / prefill_ms * 1e3,
@@ -1683,6 +1714,103 @@ def zoo_serve_phase(torch, get_config, apply_overrides, build_model, smi):
     yi = build_model(get_config("yi-9b"))
     check(yi.num_params == YI_D, f"yi-9b: {yi.param_shapes}")
     serve_cli_phase(torch, "yi-9b", smi)
+
+
+def recurrent_serve_phase(torch, get_config, apply_overrides, build_model,
+                          smi, arch):
+    """Serving a recurrent family at full width (rwkv6-7b: D =
+    7,576,756,224, its S, x_tm and x_cm states; recurrentgemma-2b: D =
+    3,549,934,080, RG-LRU states and the local-attention layers' 2,048-slot
+    ring): (a) ``launch.serve.main`` at the CLI's defaults with
+    ``--telemetry-dir``; (b) long_500k natively (``for_shape`` adds no
+    window) at its batch of 1, a RECURRENT_PROMPT-token prompt and 64
+    decode steps through ``serve_cell`` (no synchronizing call in decode,
+    the cache's bytes a sequence RECURRENT_CACHE_BYTES at this context and
+    at twice it, bounds from ``utils.flops`` on ``utils.roofline``, a
+    profiled decode step); rwkv6-7b's prefill memory flat in the prompt
+    (``rwkv_prefill_memory_check``); then the reduced float32 model
+    (RECURRENT_SERVE_SMALL) on the card against the CPU
+    (``serve_reference_check``)."""
+    from repro_torch.configs import for_shape, reduced
+    from repro_torch.configs.shapes import SHAPES, InputShape
+
+    cfg = for_shape(get_config(arch), SHAPES["long_500k"])
+    check(cfg.model.attention_window == 0 and cfg.train.global_batch == 1,
+          f"{arch} on long_500k: {cfg.model}")
+    model = build_model(cfg)
+    check(model.num_params == RECURRENT_FULL_DS[arch],
+          f"{arch}: {model.param_shapes}")
+    meta = model.init_cache(1, 524_288, device="meta")
+    state = sum(v.nbytes for k, v in meta.items() if k != "length")
+    check(state == RECURRENT_CACHE_BYTES[arch],
+          f"{arch}: {state} cache bytes a sequence at 524,288 tokens")
+    print(json.dumps({"recurrent_layout": arch, "D": model.num_params,
+                      "kinds": sorted(set(model.kinds)),
+                      "buffers": [[str(dt)[6:], n] for dt, n in zip(
+                          model.param_shapes.buffer_dtypes,
+                          model.param_shapes.buffer_sizes)],
+                      "float32_leaves": len(float32_leaves(torch, model)),
+                      "cache_bytes_per_sequence_at_524288": state,
+                      "cache_shapes": {k: list(v.shape)
+                                       for k, v in meta.items()}}))
+    serve_cli_phase(torch, arch, smi)
+    torch.cuda.empty_cache()
+    params = model.init(0)
+    P = RECURRENT_PROMPT[arch]
+    serve_cell(torch, model, params, cfg, 1, P, 0,
+               f"({arch} b) long_500k native",
+               InputShape("long_500k_prompt", P, 1, "prefill"),
+               SHAPES["long_500k"], smi, profile=True)
+    del params
+    torch.cuda.empty_cache()
+    if arch == RWKV:
+        rwkv_prefill_memory_check(torch, get_config, apply_overrides,
+                                  build_model, smi)
+    serve_reference_check(torch, build_model, apply_overrides(
+        reduced(get_config(arch)),
+        ("model.dtype=float32",) + RECURRENT_SERVE_SMALL[arch]), 32, 40,
+        "max_len 40")
+
+
+def rwkv_prefill_memory_check(torch, get_config, apply_overrides,
+                              build_model, smi):
+    """rwkv6-7b at full width and 2 of its 32 layers: prefill of 1 x
+    RWKV_PREFILL_PROMPTS tokens, each prompt's peak memory above what was
+    allocated before it (the parameters, the prompt).  The prefill runs
+    ``models.transformer.PREFILL_CHUNK`` tokens at a time, so the peaks
+    differ by less than PREFILL_FLAT_BYTES; a state held a token of the
+    whole prompt would take 1 MiB a token a layer (32 GiB a layer at
+    32,768).  Prints each prompt's prefill time and peak."""
+    from repro_torch.models.transformer import PREFILL_CHUNK
+
+    cfg = apply_overrides(get_config(RWKV), ("model.n_layers=2",))
+    model = build_model(cfg)
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    peaks, rows = [], []
+    for P in RWKV_PREFILL_PROMPTS:
+        toks = torch.randint(0, cfg.model.vocab_size, (1, P), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, toks)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(logits).all()) and int(cache["length"]) == P,
+              f"rwkv prefill of {P}: logits or length")
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        rows.append({"prompt": P, "prefill_ms": ms,
+                     "peak_above_params_bytes": peaks[-1]})
+        del logits, cache, toks
+    print(json.dumps({"rwkv_prefill_memory": f"{RWKV} 2 layers",
+                      "chunk": PREFILL_CHUNK, "runs": rows,
+                      "growth_bytes": peaks[-1] - peaks[0], "card": smi}))
+    check(peaks[-1] - peaks[0] <= PREFILL_FLAT_BYTES,
+          f"rwkv prefill memory grows with the prompt: {rows}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def granite_fma_phase(torch, ops, tref, build_model, get_config):
@@ -1978,8 +2106,48 @@ QWEN_D, YI_D = 14_770_033_664, 8_829_407_232
 QWEN_LONG = {"batch": 1, "prompt": 16_384, "max_len": 16_384 + 64}
 
 
+#: the recurrent families at full width through the cohort round at
+#: olmo-1b's cut, each cut in depth as far as the card's 80 GB force (two
+#: stacked replicas, their (2, D) float32 uplink and rsag's buffers take
+#: about 52 bytes a parameter): rwkv6-7b at 3 of 32 layers, and
+#: recurrentgemma-2b, whose untied 256,000-token embedding and head are
+#: 1.31e9 parameters alone, at 1 of 26 (a recurrent layer; at 2 layers,
+#: D = 1,494,274,560, rsag's gather ran out of the card's memory).  D at
+#: the cut from ``models.transformer.lm_param_shapes``
+RWKV, GRIFFIN = "rwkv6-7b", "recurrentgemma-2b"
+RECURRENT = (RWKV, GRIFFIN)
+RECURRENT_LAYERS = {RWKV: 3, GRIFFIN: 1}
+LM_DS.update({RWKV: 1_196_867_584, GRIFFIN: 1_402_498_560})
+#: the full models served: D, and the state cache's bytes a sequence
+RECURRENT_FULL_DS = {RWKV: 7_576_756_224, GRIFFIN: 3_549_934_080}
+RECURRENT_CACHE_BYTES = {RWKV: 34_078_720, GRIFFIN: 17_246_208}
+#: long_500k natively (``for_shape`` adds no window) at its batch of 1, the
+#: prompt cut from 524,288 to what the per-token scan allows in the run's
+#: time (recurrentgemma's a multiple of its 2,048 window)
+RECURRENT_PROMPT = {RWKV: 4_096, GRIFFIN: 16_384}
+#: rwkv6-7b's prefill at 2 layers, a prompt of 4,096 and one of 32,768:
+#: their peaks above the parameters within PREFILL_FLAT_BYTES
+RWKV_PREFILL_PROMPTS = (4_096, 32_768)
+PREFILL_FLAT_BYTES = 64 << 20
+#: the reduced float32 models held to the CPU, each where float32 agrees
+#: (ROADMAP C7, ``tools/rwkv_conditioning.py``): the hybrid at 3 layers, so
+#: that a local-attention layer is in it; rwkv served at 1 layer (a float32
+#: ulp on every parameter moves its 2-layer outputs by 7e-5 of their
+#: largest, its 1-layer ones and every other model's by under 2.2e-6: the
+#: first layer's per-head group norm amplifies a near-zero variance, and a
+#: second layer carries it into the state) and its round at lr 0.01 (at
+#: 0.5 its first local step moves bonus_u by up to ~114 and the second
+#: parts two float32 orders)
+RECURRENT_SERVE_SMALL = {RWKV: ("model.n_layers=1",),
+                         GRIFFIN: ("model.n_layers=3",)}
+RECURRENT_ROUND_SMALL = {RWKV: ("fl.learning_rate=0.01",),
+                         GRIFFIN: ("model.n_layers=3",)}
+
+
 def lm_config(get_config, apply_overrides, arch="olmo-1b"):
-    return apply_overrides(get_config(arch), LM_OVERRIDES)
+    cut = ((f"model.n_layers={RECURRENT_LAYERS[arch]}",)
+           if arch in RECURRENT_LAYERS else ())
+    return apply_overrides(get_config(arch), LM_OVERRIDES + cut)
 
 
 def float32_leaves(torch, model):
@@ -1994,7 +2162,8 @@ def lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
                    token_batch, make_fl_round, tmesh, smi, arch="olmo-1b"):
     """The cohort round over ``arch`` at full width (olmo-1b: D =
     1,176,764,416 bfloat16 parameters, one flat vector; granite: D =
-    1,384,963,072, a bfloat16 buffer and a float32 one), C = 2 cohorts
+    1,384,963,072, a bfloat16 buffer and a float32 one; rwkv6-7b and
+    recurrentgemma-2b at their RECURRENT_LAYERS cut), C = 2 cohorts
     (the (2, 4) mesh of 8 devices), I = 3, in each wire format of
     LM_MODES, LM_ROUNDS rounds each from the same parameters, batches and
     generator seed.  The launch counts are set to 0 just before each
@@ -2006,8 +2175,8 @@ def lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
     with each round's host time until ``make_fl_round``'s function returns
     (the round reads nothing back, so a host time near the round's time
     says the host, not the card, bounds it).  The rsag round's profile
-    adds its host operators.  Returns the launches summed over the
-    formats."""
+    adds its host operators (LM_ROUNDS unprofiled rounds before it).
+    Returns the launches summed over the formats."""
     from repro_torch import convert
 
     cfg = lm_config(get_config, apply_overrides, arch)
@@ -2081,6 +2250,7 @@ def lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
         check(abs(hist[0][2] - LM_WIRE_BITS[mode]) < 1e-9,
               f"LM {mode}: wire bits {hist[0][2]} != {LM_WIRE_BITS[mode]}")
         print(json.dumps({"lm_round": mode, "arch": cfg.model.name,
+                          "n_layers": cfg.model.n_layers,
                           "D": model.num_params, "dtype": cfg.model.dtype,
                           "buffers": [[str(dt)[6:], n] for dt, n in zip(
                               layout.buffer_dtypes, layout.buffer_sizes)],
@@ -2104,7 +2274,8 @@ def lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
     fn = make_fl_round(model, cfg, sizes, collective="rsag")
     g = torch.Generator(device="cuda").manual_seed(3)
     profile_phase(torch, f"make_fl_round rsag {cfg.model.name} {sizes}",
-                  lambda: fn(params0, batches[0], g), rounds=3, host_ops=12)
+                  lambda: fn(params0, batches[0], g), rounds=LM_ROUNDS,
+                  host_ops=12)
     return total
 
 
@@ -2249,7 +2420,7 @@ def lm_windows_phase(torch, ops, tref, quant, agg, D=LM_D):
 
 def lm_reference_phase(torch, get_config, apply_overrides, build_model,
                        make_fl_round, RoundNoise, arch="olmo-1b",
-                       dtype="float32"):
+                       dtype="float32", extra=()):
     """A reduced LM round on the card against the same round on the CPU
     (the reference trainer test's size, C = 4, I = 2, lr 0.5, q = 0.3), in
     int and rsag.  olmo-1b is LM_SMALL, the others ``reduced``.  In
@@ -2265,7 +2436,10 @@ def lm_reference_phase(torch, get_config, apply_overrides, build_model,
     equal and the loss within rtol 1e-3; its parameters' agreement is
     printed, not bounded: a bfloat16 ulp in the first step's weights
     flips a few picks of the second (4-5 of 512 on the card), and a
-    flipped pick moves its tokens' rows by several code steps."""
+    flipped pick moves its tokens' rows by several code steps.
+    recurrentgemma-2b and rwkv6-7b in float32 (``extra``,
+    RECURRENT_ROUND_SMALL: the hybrid at 3 layers, rwkv at lr 0.01) within
+    the float32 bound."""
     from repro_torch import convert
     from repro_torch.configs import reduced
     from repro_torch.models import mlp as tmlp
@@ -2277,7 +2451,7 @@ def lm_reference_phase(torch, get_config, apply_overrides, build_model,
         cfg = apply_overrides(get_config(arch), LM_SMALL + run)
     else:
         cfg = apply_overrides(reduced(get_config(arch)), run + (
-            "train.seq_len=32", f"model.dtype={dtype}"))
+            "train.seq_len=32", f"model.dtype={dtype}") + tuple(extra))
     model = build_model(cfg)
     mixed = dtype != "float32"
     moe = cfg.model.moe.enabled
@@ -2328,8 +2502,9 @@ def lm_reference_phase(torch, get_config, apply_overrides, build_model,
         steps = float(diff.max()) * 128
         flips = [int((a[0] != b[0]).sum()) for a, b in zip(first["cuda"],
                                                             first["cpu"])]
-        print(f"card vs CPU, one reduced {dtype} {arch} round ({C},) I={I} "
-              f"({mode}): max param diff {float(diff.max()):.3g} ({steps:.3g} "
+        print(f"card vs CPU, one reduced {dtype} {arch} "
+              f"({cfg.model.n_layers} layers) round ({C},) I={I} "
+              f"lr {cfg.fl.learning_rate:g} ({mode}): max param diff {float(diff.max()):.3g} ({steps:.3g} "
               f"code steps; moved up to {moved:.3g}), {equal:.6f} equal, "
               f"{within:.6f} within 1e-5, loss {out['cuda'][1]:.6f} vs "
               f"{out['cpu'][1]:.6f}" + (
@@ -2397,13 +2572,46 @@ def mixed_layout_phase(torch, get_config, apply_overrides, build_model):
     check(all(same.values()), f"mixed layout: the card differs {same}")
 
 
-def lm_train_phase(torch, ops, train_main, smi):
+def recurrent_phases(torch, ops, tref, quant, agg, err, get_config,
+                     apply_overrides, build_model, token_batch, make_fl_round,
+                     tmesh, train_main, RoundNoise, smi, arch):
+    """A recurrent family on the card: serving at full width
+    (``recurrent_serve_phase``); the cohort round at RECURRENT_LAYERS in
+    every format (``lm_round_phase``); the uplink kernels on its (2, D) windows (their errors
+    into ``err``); the trainer, 2 rsag steps; a reduced float32 round on
+    the card against the CPU in int and rsag.  Returns the launches of its
+    round and trainer paths."""
+    recurrent_serve_phase(torch, get_config, apply_overrides, build_model,
+                          smi, arch)
+    launches = lm_round_phase(torch, ops, get_config, apply_overrides,
+                              build_model, token_batch, make_fl_round, tmesh,
+                              smi, arch=arch)
+    for k, v in lm_windows_phase(torch, ops, tref, quant, agg,
+                                 D=LM_DS[arch]).items():
+        err[k] = max(err[k], v)
+    n32 = len(float32_leaves(torch, build_model(
+        lm_config(get_config, apply_overrides, arch))))
+    for k, v in lm_train_phase(torch, ops, train_main, smi, arch,
+                               n32).items():
+        launches[k] += v
+    lm_reference_phase(torch, get_config, apply_overrides, build_model,
+                       make_fl_round, RoundNoise, arch, "float32",
+                       extra=RECURRENT_ROUND_SMALL[arch])
+    return launches
+
+
+def lm_train_phase(torch, ops, train_main, smi, arch="olmo-1b", n32=0):
     """The reference's trainer entry point on the card:
-    ``repro_torch.launch.train.main`` for 2 steps of olmo-1b at full width
-    on the 8-device mesh in rsag, the counts set to 0 just before and read
-    just after.  Returns the launches."""
-    argv = ["--arch", "olmo-1b", "--devices", "8", "--collective", "rsag",
-            "--steps", "2", "--log-every", "1", *LM_OVERRIDES]
+    ``repro_torch.launch.train.main`` for 2 steps of ``arch`` at full width
+    (a recurrent arch at its RECURRENT_LAYERS cut) on the 8-device mesh in
+    rsag, the counts set to 0 just before and read just after, with one
+    ``fma_step`` a float32 leaf (``n32`` of them) a local step.  Returns
+    the launches."""
+    cut = ((f"model.n_layers={RECURRENT_LAYERS[arch]}",)
+           if arch in RECURRENT_LAYERS else ())
+    argv = ["--arch", arch, "--devices", "8", "--collective", "rsag",
+            "--steps", "2", "--log-every", "1", *LM_OVERRIDES, *cut]
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2412,6 +2620,7 @@ def lm_train_phase(torch, ops, train_main, smi):
     launches = dict(ops.LAUNCHES)
     want = {k: 0 for k in ops.LAUNCHES}
     want.update(predicted_cohort_launches("rsag", True, (2,), 0, 2))
+    want["fma_step"] += 2 * 3 * n32         # 2 steps, I = 3 local steps each
     check(launches == want, f"trainer: launches {launches} != predicted {want}")
     check(out["kind"] == "fl_round" and out["cohorts"] == 2
           and out["steps"] == 2, f"trainer ran {out}")
@@ -3183,6 +3392,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it needs a card")
+    started = time.perf_counter()
     from repro_torch import convert
     from repro_torch.config import apply_overrides
     from repro_torch.configs import get_config, reduced
@@ -3270,11 +3480,17 @@ def main() -> int:
     round_update_phase(torch, get_config, tfleet, smi)
     serve_phase(torch, get_config, apply_overrides, build_model, smi)
     zoo_serve_phase(torch, get_config, apply_overrides, build_model, smi)
+    rec = {arch: recurrent_phases(torch, ops, tref, quant, agg, err,
+                                  get_config, apply_overrides, build_model,
+                                  token_batch, make_fl_round, tmesh,
+                                  train_main, RoundNoise, smi, arch)
+           for arch in RECURRENT}
     times = timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once)
     # qmatmul is on no round: its entry point is the kernel API, driven by
     # qmatmul_phase with the counts reset just before
     path_launches = {k: launches[k] + cohort[k] + fleet_sim[k] + fleet_cohort[k]
-                     + lm[k] + granite[k] for k in KERNELS}
+                     + lm[k] + granite[k] + sum(r[k] for r in rec.values())
+                     for k in KERNELS}
     path_launches["qmatmul"] = qmatmul_launches
     for k, n in path_launches.items():
         check(n > 0, f"{k} was not launched on its path")
@@ -3282,8 +3498,10 @@ def main() -> int:
                 "launches": path_launches[k], "max_abs_err": err[k],
                 **times[k], "launches_lm": lm[k],
                 "launches_granite": granite[k],
+                **{f"launches_{arch}": rec[arch][k] for arch in RECURRENT},
                 **({"replaces_note": note[0]} if note else {})}
                for k, (src, rep, *note) in KERNELS.items()]
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

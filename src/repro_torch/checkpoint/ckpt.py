@@ -19,9 +19,11 @@ once into one buffer that every leaf views (``np.frombuffer``).
 Retention keeps the ``keep`` newest steps.
 
 The port's flat parameters travel as the reference's tree of leaves, each
-in its dtype: :func:`save_params` writes ``convert.unflatten_params(flat,
-shapes)``, :func:`restore_params` reads it back into the flat layout (a
-buffer per dtype where the leaves have more than one).
+in its dtype: :func:`save_params` writes the leaves of
+``convert.unflatten_params(flat, layout)`` in the layout's leaf order (a
+hybrid's "blocks/2" before "blocks/10"), :func:`restore_params` reads them
+back into the flat layout (a buffer per dtype where the leaves have more
+than one).
 """
 from __future__ import annotations
 
@@ -325,8 +327,8 @@ def save_params(directory: str, step: int, flat: convert.Flat,
                 layout: convert.Layout, *, keep: int = 3) -> str:
     """Save the flat (D,) parameters as the reference's tree of leaves,
     each leaf in its dtype (``layout`` the model's ``param_shapes``)."""
-    return save_checkpoint(directory, step,
-                           convert.unflatten_params(flat, layout), keep=keep)
+    leaves = convert.unflatten_params(flat, layout)
+    return save_checkpoint(directory, step, list(leaves.values()), keep=keep)
 
 
 def restore_params(directory: str, flat: convert.Flat, layout: convert.Layout,
@@ -340,7 +342,8 @@ def restore_params(directory: str, flat: convert.Flat, layout: convert.Layout,
         raise ValueError("flat must be (D,) (a buffer per dtype), got "
                          f"{[tuple(b.shape) for b in bufs]}")
     template = convert.unflatten_params(flat, layout)
-    leaves = restore_checkpoint(directory, template, step)
+    leaves = dict(zip(template, restore_checkpoint(
+        directory, list(template.values()), step)))
     bad = {k: v.dtype for k, v in leaves.items()
            if v.dtype != template[k].dtype}
     if bad:

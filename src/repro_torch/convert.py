@@ -6,12 +6,13 @@ flat order of a parameter dict is its sorted key order — the JAX pytree
 leaf order — so a flat vector means the same in both packages.  Leading
 batch dimensions (the K clients of a round) ride in front of each leaf.
 
-A nested tree (the LM's ``{"blocks": {"attn": {"wq": ...}}, ...}``) is
-keyed by its leaves' paths joined with "/" (``tree_paths``).  JAX orders a
-dict's children by sorted key and empty dicts hold no leaf, so its
-``tree_leaves`` order is the paths' order as long as "/" sorts below every
-character of a key: keys are letters, digits and "_", all above "/", so
-sorting the joined paths sorts first by the top key, then by the next.
+A nested tree (the LM's ``{"blocks": {"attn": {"wq": ...}}, ...}``, or a
+hybrid's ``{"blocks": [{...}, {...}, ...]}``) is keyed by its leaves'
+paths joined with "/" (``tree_paths``; a list's child by its index).  JAX
+orders a dict's children by sorted key, a list's by index, and empty dicts
+hold no leaf, so its ``tree_leaves`` order is the paths' order compared
+part by part, an index as a number (``leaf_order``): "blocks/2" before
+"blocks/10", which a string sort would put after it.
 
 **A dtype per leaf.**  The reference keeps some leaves in float32 beside
 the model's dtype (norm scales and biases, the MoE router).  The port
@@ -26,7 +27,7 @@ round stays one float32 (..., D) in leaf order (the reference's
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterator, Mapping, Tuple, Union
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +37,17 @@ from repro_torch.device import DeviceLike, resolve_device
 #: flat parameters: one tensor (..., D) where every leaf has one dtype,
 #: else one (..., n_b) buffer per dtype in ``Layout.buffer_dtypes`` order
 Flat = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+def _leaf_key(path: str):
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in path.split("/"))
+
+
+def leaf_order(paths) -> list:
+    """``paths`` in the reference's ``tree_leaves`` order: part by part,
+    a list index (all digits) by its number."""
+    return sorted(paths, key=_leaf_key)
 
 
 class Layout(Mapping):
@@ -48,7 +60,7 @@ class Layout(Mapping):
 
     def __init__(self, shapes: Mapping[str, Tuple[int, ...]],
                  dtypes: Mapping[str, torch.dtype]):
-        self._shapes = {k: tuple(shapes[k]) for k in sorted(shapes)}
+        self._shapes = {k: tuple(shapes[k]) for k in leaf_order(shapes)}
         self.dtypes = {k: dtypes[k] for k in self._shapes}
         order = []
         for dt in self.dtypes.values():
@@ -157,7 +169,7 @@ def flatten_params(params: Mapping[str, torch.Tensor],
     """Concatenate the leaves in leaf order: (*batch, D) where every leaf
     has one dtype, else one (*batch, n_b) buffer per dtype in the order
     the dtypes first appear (:class:`Layout`)."""
-    leaves = [params[k] for k in sorted(params)]
+    leaves = [params[k] for k in leaf_order(params)]
     batch = leaves[0].shape[:batch_dims]
     order = []
     for v in leaves:
@@ -187,13 +199,17 @@ def unflatten_params(flat: Flat, layout: Layout) -> Dict[str, torch.Tensor]:
     return out
 
 
-def tree_paths(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """A nested dict's leaves keyed by their "/"-joined paths; an empty
-    dict (a non-parametric norm's) has no leaf."""
+def tree_paths(tree: Union[Mapping, list, tuple],
+               prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested tree's leaves keyed by their "/"-joined paths, a list's or
+    tuple's child by its index; an empty dict (a non-parametric norm's)
+    has no leaf."""
     out: Dict[str, np.ndarray] = {}
-    for k, v in tree.items():
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
+    for k, v in items:
         path = f"{prefix}{k}"
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list, tuple)):
             out.update(tree_paths(v, path + "/"))
         else:
             out[path] = v
@@ -244,25 +260,74 @@ def fleet_to_numpy(fleet) -> Dict[str, np.ndarray]:
 
 def cache_from_reference(cache: Mapping, dtype: torch.dtype = torch.float32,
                          device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The reference's decode cache of a dense LM, ``{"layers": (k, v),
-    "kv_pos", "length"}`` through ``np.asarray`` -> the port's ``{"k", "v",
-    "kv_pos", "length"}`` (``models.transformer``): k and v (L, B, C, KV,
-    hd) in ``dtype`` (a bfloat16 leaf passes through float32, which holds
-    it exactly), kv_pos (B, C) and the 0-d length int32."""
+    """The reference's decode cache through ``np.asarray`` -> the port's
+    (``models.transformer``).  A dense LM's ``{"layers": (k, v), "kv_pos",
+    "length"}`` -> ``{"k", "v", "kv_pos", "length"}``, k and v (L, B, C,
+    KV, hd); RWKV-6's ``{"layers": {"S", "x_tm", "x_cm"}, "length"}`` ->
+    ``{"S", "x_tm", "x_cm", "length"}``; the hybrid's list of per-layer
+    entries (``{"h", "conv"}`` or (k, v)) -> h and conv stacked over the
+    recurrent layers, k and v over the attention layers, in layer order.
+    The states S and h float32, every other float entry in ``dtype`` (a
+    bfloat16 leaf passes through float32, which holds it exactly), kv_pos
+    (B, C) and the 0-d length int32."""
     dev = resolve_device(device)
-    k, v = cache["layers"]
-    out = {name: torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
-           for name, a in (("k", k), ("v", v))}
+
+    def tensor(arrays, dt):
+        a = np.stack([np.asarray(x, np.float32) for x in arrays])
+        return torch.from_numpy(a).to(dev, dt)
+
+    layers, out = cache["layers"], {}
+    if isinstance(layers, Mapping):                 # RWKV-6, layer-stacked
+        out["S"] = tensor([layers["S"]], torch.float32)[0]
+        out["x_tm"] = tensor([layers["x_tm"]], dtype)[0]
+        out["x_cm"] = tensor([layers["x_cm"]], dtype)[0]
+    elif isinstance(layers, list):                  # the hybrid's layers
+        rec = [e for e in layers if isinstance(e, Mapping)]
+        att = [e for e in layers if not isinstance(e, Mapping)]
+        if rec:
+            out["h"] = tensor([e["h"] for e in rec], torch.float32)
+            out["conv"] = tensor([e["conv"] for e in rec], dtype)
+        if att:
+            out["k"] = tensor([e[0] for e in att], dtype)
+            out["v"] = tensor([e[1] for e in att], dtype)
+    else:                                           # (k, v), layer-stacked
+        out["k"] = tensor([layers[0]], dtype)[0]
+        out["v"] = tensor([layers[1]], dtype)[0]
     for name in ("kv_pos", "length"):
-        out[name] = torch.tensor(np.asarray(cache[name], np.int32), device=dev)
+        if cache.get(name) is not None:
+            out[name] = torch.tensor(np.asarray(cache[name], np.int32),
+                                     device=dev)
     return out
 
 
-def cache_to_reference(cache: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's cache -> the reference's layout of numpy arrays: k and v
-    as float32 (cast to the reference's dtype on its side), kv_pos and
-    length int32."""
-    k, v = (cache[n].detach().float().cpu().numpy() for n in ("k", "v"))
-    return {"layers": (k, v),
-            "kv_pos": cache["kv_pos"].cpu().numpy().astype(np.int32),
-            "length": cache["length"].cpu().numpy().astype(np.int32)}
+def cache_to_reference(cache: Mapping[str, torch.Tensor],
+                       kinds: Optional[Tuple[str, ...]] = None) -> Dict:
+    """The port's cache -> the reference's layout of numpy arrays, every
+    float entry as float32 (cast to the reference's dtype on its side),
+    kv_pos and length int32.  ``kinds``, the hybrid's block kinds in layer
+    order (``LM.kinds``), lays its states and k/v out as the reference's
+    list of layers (its kv_pos None without an attention layer); without
+    it the cache is a stack's."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {"length": cache["length"].cpu().numpy().astype(np.int32)}
+    if "kv_pos" in cache or kinds is not None:
+        out["kv_pos"] = (cache["kv_pos"].cpu().numpy().astype(np.int32)
+                         if "kv_pos" in cache else None)
+    if "S" in cache:
+        out["layers"] = {n: arr(cache[n]) for n in ("S", "x_tm", "x_cm")}
+    elif kinds is None:
+        out["layers"] = (arr(cache["k"]), arr(cache["v"]))
+    else:
+        layers, r, a = [], 0, 0
+        for kind in kinds:
+            if kind == "recurrent":
+                layers.append({"h": arr(cache["h"][r]),
+                               "conv": arr(cache["conv"][r])})
+                r += 1
+            else:
+                layers.append((arr(cache["k"][a]), arr(cache["v"][a])))
+                a += 1
+        out["layers"] = layers
+    return out

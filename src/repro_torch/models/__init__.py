@@ -1,8 +1,9 @@
 """Model factory: ``build_model(config)`` returns the family's model.
 
 The paper's QNN (family ``cnn``) and the decoder-only LM of families
-``dense`` (olmo-1b, qwen2.5-14b, yi-9b, nemotron-4-340b) and ``moe``
-(granite-moe-1b-a400m) are ported; the rest of the reference's zoo raises
+``dense`` (olmo-1b, qwen2.5-14b, yi-9b, nemotron-4-340b), ``moe``
+(granite-moe-1b-a400m), ``ssm`` (rwkv6-7b) and ``hybrid``
+(recurrentgemma-2b) are ported; the rest of the reference's zoo raises
 (ROADMAP A13).  Every model exposes ``param_shapes`` (leaf shapes in leaf
 order; the LM's is a ``convert.Layout``, which also holds each leaf's
 dtype), ``dtype``, ``init``, ``loss`` for one model and ``loss_stacked``

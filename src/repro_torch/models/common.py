@@ -53,6 +53,13 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def promoted_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` at x's dtype, the weight cast to it (exactly, from
+    bfloat16 to float32): JAX promotes a product of float32 activations
+    and a bfloat16 weight so, where torch refuses mixed dtypes."""
+    return linear(x, w.to(x.dtype))
+
+
 def add_bias(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x + b with b (out,), or (C, out) against x (C, ..., out)."""
     if b.dim() == 1:
@@ -65,12 +72,13 @@ def add_bias(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _per_cohort(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A (d,) norm parameter as is, a stacked (C, d) one shaped to broadcast
-    against x (C, ..., d)."""
-    if p.dim() == 1:
+def per_cohort(p: torch.Tensor, x: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """A parameter whose last ``k`` axes align with x's last ``k`` (a (d,)
+    norm scale: k = 1): as is for one model, a stacked (C, ...) one shaped
+    (C, 1, ..., 1, ...) to broadcast against x (C, ...)."""
+    if p.dim() == k:
         return p
-    return p.reshape(p.shape[0], *([1] * (x.dim() - 2)), p.shape[-1])
+    return p.reshape(p.shape[0], *([1] * (x.dim() - 1 - k)), *p.shape[1:])
 
 
 def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -79,7 +87,7 @@ def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
     var = (x32 * x32).mean(-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     if scale is not None:
-        out = out * (1.0 + _per_cohort(scale, x).float())
+        out = out * (1.0 + per_cohort(scale, x).float())
     return out.to(x.dtype)
 
 
@@ -90,9 +98,9 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     if scale is not None:
-        out = out * _per_cohort(scale, x).float()
+        out = out * per_cohort(scale, x).float()
     if bias is not None:
-        out = out + _per_cohort(bias, x).float()
+        out = out + per_cohort(bias, x).float()
     return out.to(x.dtype)
 
 

@@ -1,41 +1,50 @@
-"""Decoder-only LM for the homogeneous stacks: dense (olmo-1b, qwen2.5-14b,
-yi-9b, nemotron-4-340b and their kin) and MoE (granite-moe-1b-a400m).
+"""Decoder-only LM: dense (olmo-1b, qwen2.5-14b, yi-9b, nemotron-4-340b
+and their kin), MoE (granite-moe-1b-a400m), RWKV-6 (rwkv6-7b, family
+ssm) and the Griffin hybrid (recurrentgemma-2b).
 
-The reference's ``LM`` in PyTorch: layer-stacked leaves ((L, ...) each,
-as the reference's vmapped init builds them), a loop over the layers where
-the reference scans, tied or separate output head, the cross-entropy
-loss plus the MoE's load-balance loss summed over the layers (the
-reference's ``total``), and serving: ``init_cache``, ``prefill`` and
-``decode_step``.  MLA, recurrent and hybrid stacks and multi-token
-prediction raise (``configs.check_ported``, ROADMAP A13), their caches
-with them.
+The reference's ``LM`` in PyTorch: a homogeneous stack's leaves
+layer-stacked ((L, ...) each, as the reference's vmapped init builds them)
+and run by a loop over the layers where the reference scans; the hybrid's
+layers a list, each its own leaves (recurrent layers an RG-LRU block and an
+MLP, local-attention layers MQA over ``local_window`` and an MLP, along
+``recurrent.block_pattern``); tied or separate output head; the
+cross-entropy loss plus the MoE's load-balance loss summed over the layers
+(the reference's ``total``); and serving: ``init_cache``, ``prefill`` and
+``decode_step``.  MLA and multi-token prediction raise
+(``configs.check_ported``, ROADMAP A13).
 
 Parameters are a dict keyed by the leaves' paths in the reference's tree
-("blocks/attn/wq", "embed", ...): sorted, those keys are the reference's
-``jax.tree_util.tree_leaves`` order.  Each leaf has the reference's dtype:
-norm scales and biases and the MoE router in float32, every other leaf in
-the model's dtype; ``param_shapes`` is the :class:`convert.Layout` of
-both, whose flat parameters both packages agree on (one tensor where
-every leaf has one dtype, a buffer per dtype otherwise).  ``loss`` runs
-one model; ``loss_stacked`` runs C cohorts at once, a leading C on every
-leaf and on the batch, and returns one loss per cohort
-(``core.fl.local_sgd``).
+("blocks/attn/wq", "blocks/3/rec/w_a", "embed", ...); in leaf order
+(``convert.leaf_order``: a list's children by index) those keys are the
+reference's ``jax.tree_util.tree_leaves`` order.  Each leaf has the
+reference's dtype: the model's, or float32 where the reference's init
+makes it so (``block_leaves``); ``param_shapes`` is the
+:class:`convert.Layout` of both, whose flat parameters both packages agree
+on (one tensor where every leaf has one dtype, a buffer per dtype
+otherwise).  ``loss`` runs one model; ``loss_stacked`` runs C cohorts at
+once, a leading C on every leaf and on the batch, and returns one loss per
+cohort (``core.fl.local_sgd``).
 
 Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass, the same numbers.
 
-The cache is a dict with the reference's fields: ``k`` and ``v`` (L, B,
-C, KV, hd) in the model's dtype, ``kv_pos`` (B, C) int32 and ``length``,
-a 0-d int32 tensor on the cache's device.  ``decode_step`` derives the
-positions and the ring slot from ``length`` on the device, so it makes no
-synchronizing call, and writes k and v into the cache in place, as the
-reference's jitted step writes into the cache it is donated.
+The cache is a dict of tensors: the attention layers' ``k`` and ``v``
+(L_att, B, C, KV, hd) in the model's dtype and one ``kv_pos`` (B, C)
+int32; RWKV-6's ``S``, ``x_tm`` and ``x_cm``, the RG-LRU's ``h`` and
+``conv`` (``init_cache``); and ``length``, a 0-d int32 tensor on the
+cache's device.  ``decode_step`` derives the positions and the ring slot
+from ``length`` on the device, so it makes no synchronizing call, and
+writes k, v and the states into the cache in place, as the reference's
+jitted step writes into the cache it is donated.  An RWKV-6 stack's
+``prefill`` runs the prompt PREFILL_CHUNK tokens at a time through the
+same loop, each chunk from the states the last one left, so that its
+memory does not grow with the prompt.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,54 +54,98 @@ from repro_torch import convert
 from repro_torch.config.base import Config, ModelConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import common, mlp
+from repro_torch.models import common, griffin, mlp, rwkv
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
-Shapes = Dict[str, Tuple[int, ...]]
+
+#: tokens an RWKV-6 stack's prefill runs through its layers at a time: the
+#: scan holds a (H, hd, hd) float32 state a token of its chunk (1 MiB at
+#: rwkv6-7b's widths), where the whole prompt at once would hold them all
+PREFILL_CHUNK = 512
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def block_param_shapes(cfg: ModelConfig) -> Shapes:
-    """One layer's leaves by path: norm1, norm2, attn, and mlp or moe."""
-    shapes: Shapes = {}
+#: the block kinds that hold an attention layer (and a k/v cache)
+ATTENTION = ("attention", "local_attention")
+
+
+def block_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    """The reference's kind of layer ``layer_idx``: "rwkv6" throughout an
+    RWKV-6 stack, "recurrent" or "local_attention" along a hybrid's block
+    pattern, else "attention"."""
+    if cfg.recurrent.kind == "rwkv6":
+        return "rwkv6"
+    if cfg.family == "hybrid" and cfg.recurrent.block_pattern:
+        pat = cfg.recurrent.block_pattern
+        return ("recurrent" if pat[layer_idx % len(pat)] == "recurrent"
+                else "local_attention")
+    return "attention"
+
+
+def block_window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.local_window if kind == "local_attention" else cfg.attention_window
+
+
+def block_leaves(cfg: ModelConfig, kind: str
+                 ) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
+    """One layer's leaves by path -> (shape, whether the reference keeps it
+    in float32 whatever the model's dtype): the norms' scales and biases
+    (``make_norm_params``), the MoE router, RWKV-6's ``rwkv.FLOAT32`` and
+    the RG-LRU's ``griffin.FLOAT32``, as the reference's inits make them.
+    An RWKV-6 layer holds its norms and "rwkv"; any other its norms, "rec"
+    (recurrent) or "attn", and "mlp" or "moe"."""
+    out = {}
     for norm in ("norm1", "norm2"):
         for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
-            shapes[f"{norm}/{k}"] = s
-    for k, s in attn.attention_param_shapes(cfg).items():
-        shapes[f"attn/{k}"] = s
+            out[f"{norm}/{k}"] = (s, True)
+    if kind == "rwkv6":
+        for k, s in rwkv.rwkv_param_shapes(cfg).items():
+            out[f"rwkv/{k}"] = (s, k in rwkv.FLOAT32)
+        return out
+    if kind == "recurrent":
+        for k, s in griffin.recurrent_param_shapes(cfg).items():
+            out[f"rec/{k}"] = (s, k in griffin.FLOAT32)
+    else:
+        for k, s in attn.attention_param_shapes(cfg).items():
+            out[f"attn/{k}"] = (s, False)
     if cfg.moe.enabled:
         for k, s in mlp.moe_param_shapes(cfg).items():
-            shapes[f"moe/{k}"] = s
+            out[f"moe/{k}"] = (s, k == "router")
     else:
         for k, s in mlp.mlp_param_shapes(cfg).items():
-            shapes[f"mlp/{k}"] = s
-    return shapes
+            out[f"mlp/{k}"] = (s, False)
+    return out
 
 
-#: the leaves the reference keeps in float32 whatever the model's dtype:
-#: the norms' scales and biases (``make_norm_params``) and the MoE router
-FLOAT32_LEAVES = ("final_norm/", "blocks/norm1/", "blocks/norm2/",
-                  "blocks/moe/router")
+def homogeneous(cfg: ModelConfig) -> bool:
+    """Layer-stacked (L, ...) leaves under "blocks/", as the reference's
+    vmapped init; a hybrid holds a list, each layer's leaves under
+    "blocks/{i}/"."""
+    return cfg.family != "hybrid"
 
 
 def lm_param_shapes(cfg: ModelConfig) -> convert.Layout:
-    """Every leaf of the LM by path, in sorted (leaf) order, with its
-    dtype; the layer leaves are stacked (L, ...)."""
-    shapes: Shapes = {"embed": (cfg.vocab_size, cfg.d_model)}
+    """Every leaf of the LM by path, in leaf order, with its dtype."""
+    leaves = {"embed": ((cfg.vocab_size, cfg.d_model), False)}
     for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
-        shapes[f"final_norm/{k}"] = s
+        leaves[f"final_norm/{k}"] = (s, True)
     if not cfg.tie_embeddings:
-        shapes["head"] = (cfg.d_model, cfg.vocab_size)
-    for k, s in block_param_shapes(cfg).items():
-        shapes[f"blocks/{k}"] = (cfg.n_layers,) + s
+        leaves["head"] = ((cfg.d_model, cfg.vocab_size), False)
+    if homogeneous(cfg):
+        for k, (s, f32) in block_leaves(cfg, block_kind(cfg, 0)).items():
+            leaves[f"blocks/{k}"] = ((cfg.n_layers,) + s, f32)
+    else:
+        for i in range(cfg.n_layers):
+            for k, v in block_leaves(cfg, block_kind(cfg, i)).items():
+                leaves[f"blocks/{i}/{k}"] = v
     dt = torch_dtype(cfg)
-    return convert.Layout(shapes, {
-        k: torch.float32 if k.startswith(FLOAT32_LEAVES) else dt
-        for k in shapes})
+    return convert.Layout({k: s for k, (s, _) in leaves.items()},
+                          {k: torch.float32 if f32 else dt
+                           for k, (_, f32) in leaves.items()})
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -105,14 +158,24 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class LM:
-    """Decoder-only language model, dense and MoE families;
-    ``models.build_model`` checks the config (``configs.check_ported``)
-    before it builds one."""
+    """Decoder-only language model, dense, MoE, RWKV-6 and Griffin hybrid
+    families; ``models.build_model`` checks the config
+    (``configs.check_ported``) before it builds one."""
     config: Config
 
     def __post_init__(self):
         self.param_shapes = lm_param_shapes(self.cfg)
         self.num_params = self.param_shapes.numel
+        self.kinds = tuple(block_kind(self.cfg, i)
+                           for i in range(self.cfg.n_layers))
+        # each layer's index in its cache stack: k/v, the RWKV-6 state or
+        # the RG-LRU state
+        seen: Dict[str, int] = {}
+        self._slot = []
+        for kind in self.kinds:
+            group = "kv" if kind in ATTENTION else kind
+            self._slot.append(seen.get(group, 0))
+            seen[group] = self._slot[-1] + 1
 
     @property
     def cfg(self) -> ModelConfig:
@@ -121,7 +184,8 @@ class LM:
     @property
     def dtype(self) -> torch.dtype:
         """The model's dtype: its activations' and cache's, and every
-        leaf's but those of ``FLOAT32_LEAVES``."""
+        leaf's that the reference does not keep in float32
+        (``block_leaves``)."""
         return torch_dtype(self.cfg)
 
     #: the reference's ``LM.loss`` ignores its rng: no fake-quant in the
@@ -135,11 +199,11 @@ class LM:
         """The flat parameters (``param_shapes``' layout: the (D,) vector of
         the config's dtype where every leaf has it) from one generator, as
         the reference's ``init`` lays them out: embeddings N(0, 0.02²);
-        then layer by layer its attention and MLP (or MoE) matrices
-        N(0, 1/fan_in) (``init_attention_params``, ``init_mlp_params``,
-        ``init_moe_params``) and its norms (``make_norm_params``, float32);
-        the final norm; a separate head.  The draws are the port's own: a
-        parity test converts the reference's parameters instead
+        then layer by layer its mixer's matrices N(0, 1/fan_in) (attention,
+        RWKV-6 or RG-LRU, with their float32 constants) and its MLP's (or
+        MoE's), and its norms (``make_norm_params``, float32); the final
+        norm; a separate head.  The draws are the port's own: a parity test
+        converts the reference's parameters instead
         (``convert.flat_from_tree``)."""
         cfg, dt = self.cfg, self.dtype
         dev = resolve_device(device)
@@ -155,14 +219,25 @@ class LM:
         views["embed"].copy_(common.embed_init(
             gen, (cfg.vocab_size, cfg.d_model)))
         norm = common.make_norm_params(cfg, cfg.d_model, device=dev)
-        for i in range(cfg.n_layers):
-            fill("blocks/norm1", norm, i)
-            fill("blocks/norm2", norm, i)
-            fill("blocks/attn", attn.init_attention_params(gen, cfg, dtype=dt), i)
-            if cfg.moe.enabled:
-                fill("blocks/moe", mlp.init_moe_params(gen, cfg, dtype=dt), i)
+        for i, kind in enumerate(self.kinds):
+            pre, at = (("blocks", i) if homogeneous(cfg)
+                       else (f"blocks/{i}", None))
+            fill(f"{pre}/norm1", norm, at)
+            fill(f"{pre}/norm2", norm, at)
+            if kind == "rwkv6":
+                fill(f"{pre}/rwkv", rwkv.init_rwkv_params(gen, cfg, dtype=dt),
+                     at)
+                continue
+            if kind == "recurrent":
+                fill(f"{pre}/rec", griffin.init_recurrent_params(
+                    gen, cfg, dtype=dt), at)
             else:
-                fill("blocks/mlp", mlp.init_mlp_params(gen, cfg, dtype=dt), i)
+                fill(f"{pre}/attn", attn.init_attention_params(
+                    gen, cfg, dtype=dt), at)
+            if cfg.moe.enabled:
+                fill(f"{pre}/moe", mlp.init_moe_params(gen, cfg, dtype=dt), at)
+            else:
+                fill(f"{pre}/mlp", mlp.init_mlp_params(gen, cfg, dtype=dt), at)
         fill("final_norm", norm)
         if not cfg.tie_embeddings:
             views["head"].copy_(common.dense_init(
@@ -195,50 +270,79 @@ class LM:
             logits = common.linear(x, params["head"])
         return logits.float()
 
+    def _layers(self, params: Params, stacked: bool) -> List[Params]:
+        """Each layer's leaves, keyed by their path below the layer.  A
+        stacked leaf is unbound once: its backward stacks the layers'
+        gradients in one write, where a select a layer would zero-fill the
+        whole leaf and add into it once a layer."""
+        if homogeneous(self.cfg):
+            blocks = {k[len("blocks/"):]: v.unbind(1 if stacked else 0)
+                      for k, v in params.items() if k.startswith("blocks/")}
+            return [{k: v[i] for k, v in blocks.items()}
+                    for i in range(self.cfg.n_layers)]
+        out: List[Params] = [{} for _ in range(self.cfg.n_layers)]
+        for k, v in params.items():
+            if k.startswith("blocks/"):
+                i, rest = k[len("blocks/"):].split("/", 1)
+                out[int(i)][rest] = v
+        return out
+
     def _backbone(self, params: Params, tokens: torch.Tensor, *,
                   stacked: bool, remat: bool,
-                  store_kv: Optional[Callable[[int, torch.Tensor, torch.Tensor],
-                                              None]] = None
+                  store: Optional[Callable[[int, Any], None]] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """tokens (B, S) or (C, B, S) -> (the final normed hidden states,
         the MoE's load-balance loss summed over the layers in layer order,
-        () or (C,), or None for a dense stack).  ``store_kv(i, k, v)``,
-        where given, takes layer i's rope'd k and v (B, S, KV, hd) as the
-        layers run (prefill fills its cache so)."""
+        () or (C,), or None without a MoE).  Each layer starts from an
+        empty state (zeros), as the reference's full-sequence blocks do.
+        ``store(i, entry)``, where given, takes layer i's cache entry as
+        the layers run (prefill fills its cache so): the rope'd (k, v)
+        (B, S, KV, hd) of an attention layer, the final state of a
+        recurrent one."""
         cfg = self.cfg
         B, S = tokens.shape[-2:]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         x = self._embed(params, tokens, stacked)
-        # one unbind a leaf: its backward stacks the layers' gradients in
-        # one write, where a select a layer would zero-fill the whole leaf
-        # and add into it once a layer
-        blocks = {k[len("blocks/"):]: v.unbind(1 if stacked else 0)
-                  for k, v in params.items() if k.startswith("blocks/")}
         aux = None
-        for i in range(cfg.n_layers):
-            layer = {k: v[i] for k, v in blocks.items()}
+        for i, (kind, layer) in enumerate(zip(self.kinds,
+                                              self._layers(params, stacked))):
             if remat and torch.is_grad_enabled():
-                x, aux_l = checkpoint(self._block, layer, x, positions,
+                x, aux_l = checkpoint(self._block, kind, layer, x, positions,
                                       use_reentrant=False)
             else:
-                x, aux_l = self._block(layer, x, positions,
-                                       None if store_kv is None
-                                       else functools.partial(store_kv, i))
+                x, aux_l = self._block(kind, layer, x, positions,
+                                       None if store is None
+                                       else functools.partial(store, i))
             if aux_l is not None:
                 aux = aux_l if aux is None else aux + aux_l
         return common.apply_norm(x, _sub(params, "final_norm"), cfg), aux
 
-    def _block(self, layer: Params, x: torch.Tensor, positions: torch.Tensor,
-               store_kv: Optional[Callable] = None
+    def _block(self, kind: str, layer: Params, x: torch.Tensor,
+               positions: torch.Tensor, store: Optional[Callable] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One full-sequence layer (the reference's ``apply_block_full``)."""
         cfg = self.cfg
+        lead = x.shape[:-2]
+        if kind == "rwkv6":
+            x, state = rwkv.rwkv_block(
+                _sub(layer, "rwkv"), x, _sub(layer, "norm1"),
+                _sub(layer, "norm2"),
+                rwkv.init_rwkv_state(lead, cfg, x.dtype, x.device), cfg)
+            if store is not None:
+                store(state)
+            return x, None
         h = common.apply_norm(x, _sub(layer, "norm1"), cfg)
-        mix, (k, v) = attn.self_attention(_sub(layer, "attn"), h, positions,
-                                          cfg, window=cfg.attention_window)
-        if store_kv is not None:
-            store_kv(k, v)
-        del k, v                # not held through the MLP
+        if kind == "recurrent":
+            mix, entry = griffin.recurrent_block(
+                _sub(layer, "rec"), h,
+                griffin.init_recurrent_state(lead, cfg, x.dtype, x.device), cfg)
+        else:
+            mix, entry = attn.self_attention(_sub(layer, "attn"), h, positions,
+                                             cfg, window=block_window(cfg, kind))
+        if store is not None:
+            store(entry)
+        del entry               # not held through the MLP
         return self._ff_residual(layer, x + mix.to(x.dtype))
 
     def _ff_residual(self, layer: Params, x: torch.Tensor
@@ -289,23 +393,42 @@ class LM:
     # -- serving ---------------------------------------------------------------
 
     def cache_capacity(self, seq_len: int) -> int:
-        """Slots a layer's cache holds for a ``seq_len`` context: the
-        window of a sliding-window model, else the context."""
-        w = self.cfg.attention_window
+        """Slots an attention layer's cache holds for a ``seq_len``
+        context: its window (a hybrid's local window, a sliding-window
+        model's), else the context."""
+        kind = next((k for k in self.kinds if k in ATTENTION), "attention")
+        w = block_window(self.cfg, kind)
         return min(w, seq_len) if w > 0 else seq_len
 
     def init_cache(self, batch: int, seq_len: int, *,
                    device: DeviceLike = None) -> Cache:
-        """Empty cache sized for a ``seq_len`` context."""
+        """Empty cache sized for a ``seq_len`` context: k and v (L_att, B,
+        C, KV, hd) and ``kv_pos`` (B, C) for the attention layers; RWKV-6's
+        S (L, B, H, hd, hd) float32, x_tm and x_cm (L, B, d); the RG-LRU's
+        h (L_rec, B, d_rnn) float32 and conv (L_rec, B, w−1, d_rnn); and
+        ``length``.  A recurrent state's size does not depend on
+        ``seq_len``."""
         cfg = self.cfg
         dev = resolve_device(device)
-        C = self.cache_capacity(seq_len)
-        shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "kv_pos": torch.full((batch, C), -1, dtype=torch.int32,
-                                     device=dev),
-                "length": torch.zeros((), dtype=torch.int32, device=dev)}
+        cache: Cache = {}
+        n_kv = sum(k in ATTENTION for k in self.kinds)
+        n_rwkv, n_rec = self.kinds.count("rwkv6"), self.kinds.count("recurrent")
+        if n_rwkv:
+            cache.update(rwkv.init_rwkv_state((n_rwkv, batch), cfg,
+                                              self.dtype, dev))
+        if n_rec:
+            cache.update(griffin.init_recurrent_state((n_rec, batch), cfg,
+                                                      self.dtype, dev))
+        if n_kv:
+            C = self.cache_capacity(seq_len)
+            shape = (n_kv, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
+            cache.update(
+                k=torch.zeros(shape, dtype=self.dtype, device=dev),
+                v=torch.zeros(shape, dtype=self.dtype, device=dev),
+                kv_pos=torch.full((batch, C), -1, dtype=torch.int32,
+                                  device=dev))
+        cache["length"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return cache
 
     @torch.no_grad()
     def prefill(self, params: Params, tokens: torch.Tensor, *,
@@ -316,29 +439,46 @@ class LM:
         Logits are computed for the last position only, as the reference's.
         ``max_len`` sizes the cache for the decode steps to come (default
         the prompt; prompt + new tokens decodes without overwriting the
-        earliest positions).  Each layer's k and v land in the cache as the
-        layers run: the prompt's last min(C, S) positions in slots 0, 1,
+        earliest positions).  Each layer's entry lands in the cache as the
+        layers run: a recurrent layer's final state; an attention layer's
+        k and v of the prompt's last min(C, S) positions in slots 0, 1,
         ..., zeros past the prompt; a window keeps its last C positions,
         and the ring's slot of position p is p % C, so that crop needs
-        S % C == 0."""
+        S % C == 0.  An RWKV-6 stack runs the prompt PREFILL_CHUNK tokens
+        at a time through :meth:`_extend`, the states carried in the
+        cache."""
         B, S = tokens.shape
-        C = self.cache_capacity(max(max_len, S))
-        if C < S and S % C:
-            raise ValueError(
-                f"windowed prefill->decode needs prompt length ({S}) to be "
-                f"a multiple of the window ({C})")
         cache = self.init_cache(B, max(max_len, S), device=tokens.device)
-        n = min(C, S)           # the prompt's last n positions fill slots 0..n-1
+        if set(self.kinds) == {"rwkv6"}:
+            for chunk in tokens.split(PREFILL_CHUNK, 1):
+                h = self._extend(params, cache, chunk)
+            cache["length"].fill_(S)
+            return self._logits(params, h[:, -1:])[:, -1], cache
+        n = S
+        if "k" in cache:
+            C = cache["k"].shape[2]
+            if C < S and S % C:
+                raise ValueError(
+                    f"windowed prefill->decode needs prompt length ({S}) to "
+                    f"be a multiple of the window ({C})")
+            n = min(C, S)   # the prompt's last n positions fill slots 0..n-1
 
-        def store(i, k, v):
-            cache["k"][i, :, :n].copy_(k[:, S - n:])
-            cache["v"][i, :, :n].copy_(v[:, S - n:])
+        def store(i, entry):
+            j = self._slot[i]
+            if self.kinds[i] in ATTENTION:
+                k, v = entry
+                cache["k"][j, :, :n].copy_(k[:, S - n:])
+                cache["v"][j, :, :n].copy_(v[:, S - n:])
+                return
+            for name, t in entry.items():
+                cache[name][j].copy_(t)
 
         h, _ = self._backbone(params, tokens, stacked=False, remat=False,
-                              store_kv=store)
+                              store=store)
         logits = self._logits(params, h[:, -1:])
-        cache["kv_pos"][:, :n] = torch.arange(S - n, S, dtype=torch.int32,
-                                              device=tokens.device)
+        if "kv_pos" in cache:
+            cache["kv_pos"][:, :n] = torch.arange(
+                S - n, S, dtype=torch.int32, device=tokens.device)
         cache["length"].fill_(S)
         return logits[:, -1], cache
 
@@ -346,32 +486,56 @@ class LM:
     def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, 1): one decode step against the cache.  Returns (the
-        logits (B, 1, V) in float32, the cache after the step).  The cache's
-        k and v are written in place, and the returned cache shares them:
-        the one passed in is spent."""
-        cfg = self.cfg
+        logits (B, 1, V) in float32, the cache after the step).  The
+        cache's k and v and its recurrent states are written in place, and
+        the returned cache shares them: the one passed in is spent."""
         B = tokens.shape[0]
         length = cache["length"]
-        C = cache["k"].shape[2]
         positions = length.expand(B, 1)
-        slot = torch.remainder(length, C).long().reshape(1)
-        kv_pos = cache["kv_pos"]
+        new = dict(cache, length=length + 1)
+        slot = None
+        if "k" in cache:
+            slot = torch.remainder(length, cache["k"].shape[2]).long().reshape(1)
+            new["kv_pos"] = cache["kv_pos"].index_copy(1, slot, positions)
+        x = self._extend(params, cache, tokens, positions, slot)
+        return self._logits(params, x), new
+
+    def _extend(self, params: Params, cache: Cache, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Run tokens (B, T) through the layers from the cache's states,
+        each layer's new state written into the cache in place (an
+        attention layer's k and v at ``slot``, which takes T = 1 and
+        ``positions`` (B, 1)).  Returns the final normed hidden states
+        (B, T, d)."""
+        cfg = self.cfg
         x = self._embed(params, tokens, False)
-        blocks = {k[len("blocks/"):]: v.unbind(0)
-                  for k, v in params.items() if k.startswith("blocks/")}
-        for i in range(cfg.n_layers):
-            layer = {k: v[i] for k, v in blocks.items()}
+        for i, (kind, layer) in enumerate(zip(self.kinds,
+                                              self._layers(params, False))):
+            j = self._slot[i]
+            if kind == "rwkv6":
+                state = {n: cache[n][j] for n in ("S", "x_tm", "x_cm")}
+                x, entry = rwkv.rwkv_block(
+                    _sub(layer, "rwkv"), x, _sub(layer, "norm1"),
+                    _sub(layer, "norm2"), state, cfg)
+                for n, t in entry.items():
+                    state[n].copy_(t)
+                continue
             h = common.apply_norm(x, _sub(layer, "norm1"), cfg)
-            mix = attn.decode_self_attention(
-                _sub(layer, "attn"), h, positions, cfg,
-                cache_k=cache["k"][i], cache_v=cache["v"][i], kv_pos=kv_pos,
-                write_slot=slot, window=cfg.attention_window)
+            if kind == "recurrent":
+                state = {n: cache[n][j] for n in ("h", "conv")}
+                mix, entry = griffin.recurrent_block(_sub(layer, "rec"), h,
+                                                     state, cfg)
+                for n, t in entry.items():
+                    state[n].copy_(t)
+            else:
+                mix = attn.decode_self_attention(
+                    _sub(layer, "attn"), h, positions, cfg,
+                    cache_k=cache["k"][j], cache_v=cache["v"][j],
+                    kv_pos=cache["kv_pos"], write_slot=slot,
+                    window=block_window(cfg, kind))
             x, _ = self._ff_residual(layer, x + mix.to(x.dtype))
-        x = common.apply_norm(x, _sub(params, "final_norm"), cfg)
-        new_kv_pos = kv_pos.index_copy(1, slot, positions)
-        return self._logits(params, x), {
-            "k": cache["k"], "v": cache["v"], "kv_pos": new_kv_pos,
-            "length": length + 1}
+        return common.apply_norm(x, _sub(params, "final_norm"), cfg)
 
 
 def _sub(params: Params, prefix: str) -> Params:

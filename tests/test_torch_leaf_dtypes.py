@@ -103,12 +103,15 @@ def test_check_ported_still_refuses_the_rest():
     cfg = tconfigs.get_config("qwen2.5-14b")
     for field, value in (("family", "vlm"), ("mtp_depth", 1),
                          ("is_encoder_decoder", True),
-                         ("mla", MLAConfig(enabled=True)),
-                         ("recurrent", RecurrentConfig(kind="rwkv6"))):
+                         ("mla", MLAConfig(enabled=True))):
         bad = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, **{field: value}))
         with pytest.raises(NotImplementedError, match="A13"):
             tconfigs.check_ported(bad)
+    # recurrent blocks are ported: an RWKV-6 stack, whatever the family
+    rec = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, recurrent=RecurrentConfig(kind="rwkv6")))
+    tconfigs.check_ported(rec)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -364,14 +364,17 @@ def test_other_families_raise_naming_a13():
     cfg = get_config("olmo-1b")
     for field, value in (("family", "vlm"), ("mtp_depth", 1),
                          ("is_encoder_decoder", True),
-                         ("mla", MLAConfig(enabled=True)),
-                         ("recurrent", RecurrentConfig(kind="rwkv6"))):
+                         ("mla", MLAConfig(enabled=True))):
         bad = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, **{field: value}))
         with pytest.raises(NotImplementedError, match="A13"):
             build_model(bad)
         with pytest.raises(NotImplementedError, match="A13"):
             reduced(bad)
+    # recurrent blocks are ported: olmo-1b's widths as an RWKV-6 stack
+    rec = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, recurrent=RecurrentConfig(kind="rwkv6")))
+    assert build_model(reduced(rec)).kinds == ("rwkv6", "rwkv6")
 
 
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])

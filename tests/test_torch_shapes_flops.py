@@ -33,7 +33,8 @@ from repro_torch.utils import flops as tflops
 from repro_torch.utils import roofline as troofline
 
 ARCHS = ("olmo-1b", "mnist_cnn", "qwen2.5-14b", "yi-9b",
-         "nemotron-4-340b", "granite-moe-1b-a400m")
+         "nemotron-4-340b", "granite-moe-1b-a400m", "rwkv6-7b",
+         "recurrentgemma-2b")
 MESHES = (((1, 1), ("data", "model")), ((2, 4), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model")))
 
