@@ -73,7 +73,18 @@ through the kernels at the paper's widths:
   (batch 1, a 16,384-token prompt, 64 steps), the decode steps under
   ``torch.cuda.set_sync_debug_mode("error")``, each time beside the
   analytic bound of ``utils.flops`` on ``utils.roofline``; and a reduced
-  float32 olmo-1b prefill and decode on the card against the CPU.
+  float32 olmo-1b prefill and decode on the card against the CPU;
+* the rest of the zoo: whisper-base (the encoder-decoder, D =
+  97,182,720) served at full width (the CLI's defaults with 1,500 frames
+  of 512; 8 × 32,704 tokens into a 32,768 cache, 64 steps) and through
+  the cohort round at C = 2, I = 3, 12 × 448 tokens with their frames in
+  every format, its uplink kernels held whole to their plain versions,
+  ``fma_step`` on its float32 layernorms, the trainer's refusal;
+  deepseek-v3-671b (MLA, a shared expert, MTP) at full width and 1 of 61
+  layers and chameleon-34b (vlm) at full width and depth, served at the
+  CLI's defaults and at a 16,384-token prompt with 64 decode steps; the
+  three reduced against the CPU: serving, float32 rounds in every format
+  and deepseek's and chameleon's rounds in bfloat16.
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -1423,11 +1434,13 @@ SERVE_TOL = 1e-5
 
 def serve_reference_check(torch, build_model, cfg, prompt, max_len, what):
     """Prefill and SERVE_SMALL_STEPS greedy decode steps of ``cfg`` (a
-    reduced float32 olmo-1b, qwen2.5-14b, granite-moe-1b-a400m, rwkv6-7b
-    or recurrentgemma-2b) on the card against the same on the CPU, from
-    the same parameters and tokens: the logits and the cache's float
-    entries (k and v, the recurrent states) each within SERVE_TOL of its
-    largest CPU value; kv_pos and length equal."""
+    reduced float32 olmo-1b, qwen2.5-14b, granite-moe-1b-a400m, rwkv6-7b,
+    recurrentgemma-2b, deepseek-v3-671b, chameleon-34b or whisper-base,
+    whose prefill also takes normal frames) on the card against the same
+    on the CPU, from the same parameters and tokens: the logits and the
+    cache's float entries (k and v, the MLA latent, whisper's cross k and
+    v, the recurrent states) each within SERVE_TOL of its largest CPU
+    value; kv_pos and length equal."""
     model = build_model(cfg)
     params = model.init(3, device="cpu")
     gen = torch.Generator().manual_seed(7)
@@ -1436,10 +1449,14 @@ def serve_reference_check(torch, build_model, cfg, prompt, max_len, what):
     toks_steps = torch.randint(0, cfg.model.vocab_size,
                                (SERVE_SMALL_STEPS, 2, 1), generator=gen,
                                dtype=torch.int32)
+    frames = (torch.randn((2, cfg.model.encoder_seq_len, cfg.model.d_model),
+                          generator=gen),) if cfg.model.is_encoder_decoder else ()
     out = {}
     for dev in ("cpu", "cuda"):
         p = {k: v.to(dev) for k, v in params.items()}
-        logits, cache = model.prefill(p, toks.to(dev), max_len=max_len)
+        logits, cache = model.prefill(p, toks.to(dev),
+                                      *(f.to(dev) for f in frames),
+                                      max_len=max_len)
         seen = [logits.cpu()]
         for tok in toks_steps:
             logits, cache = model.decode_step(p, cache, tok.to(dev))
@@ -1473,7 +1490,8 @@ def serve_cell(torch, model, params, cfg, batch, prompt, max_len, label,
     under ``torch.cuda.set_sync_debug_mode("error")``, so a synchronizing
     call in ``decode_step`` fails the run, each timed by CUDA events.
     Checks: finite logits, ``length`` advanced by the steps, ``kv_pos`` the
-    last C positions.  Prints the prefill time (and its host time until
+    last C positions.  An encoder-decoder prefills from normal frames
+    (``launch.inputs.random_frames``) beside the prompt.  Prints the prefill time (and its host time until
     ``prefill`` returns), the median decode step (and its host time until
     ``decode_step`` returns), tokens/s and peak memory, each beside the
     analytic bound of ``utils.flops.analytic_costs`` on ``utils.roofline``'s
@@ -1496,15 +1514,17 @@ def serve_cell(torch, model, params, cfg, batch, prompt, max_len, label,
           f"serving {label}: shapes {prefill_shape} {decode_shape}")
     gen = torch.Generator(device="cuda").manual_seed(5)
     toks = inputs.random_tokens((batch, prompt), cfg.model.vocab_size, gen)
+    frames = ((inputs.random_frames(cfg, batch, gen),)
+              if cfg.model.is_encoder_decoder else ())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, toks, max_len=max_len)
+    logits, cache = model.prefill(params, toks, *frames, max_len=max_len)
     prefill_host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_peak = torch.cuda.max_memory_allocated()
-    C = cache["k"].shape[2] if "k" in cache else None
+    C = cache["kv_pos"].shape[1] if "kv_pos" in cache else None
     cache_gb = sum(v.nbytes for v in cache.values()) / 1e9
     check(logits.shape == (batch, cfg.model.vocab_size)
           and bool(torch.isfinite(logits).all()),
@@ -1629,12 +1649,13 @@ def serve_phase(torch, get_config, apply_overrides, build_model, smi):
     del params
 
 
-def serve_cli_phase(torch, arch, smi):
+def serve_cli_phase(torch, arch, smi, overrides=()):
     """``launch.serve.main --arch ARCH`` at full width at the reference
     CLI's defaults (batch 8, prompt 64, 16 new tokens) with
     ``--telemetry-dir``: one valid ``serve_decode`` record a step, the
     cache's length and the tokens' shape; prints its times and peak
-    memory (the parameters' init included)."""
+    memory (the parameters' init included).  ``overrides`` (a depth cut)
+    ride the command line."""
     import shutil
     import tempfile
 
@@ -1647,7 +1668,8 @@ def serve_cli_phase(torch, arch, smi):
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        out = serve_main(["--arch", arch, "--telemetry-dir", str(d)])
+        out = serve_main(["--arch", arch, "--telemetry-dir", str(d),
+                          *overrides])
         with open(d / "telemetry.jsonl") as f:
             records = [json.loads(line) for line in f]
     finally:
@@ -1660,7 +1682,8 @@ def serve_cli_phase(torch, arch, smi):
           f"serve {arch}: length {out['length']}, tokens "
           f"{tuple(out['tokens'].shape)}")
     print(json.dumps({"serve": f"(a) launch.serve.main --arch {arch} "
-                               "--telemetry-dir (batch 8, prompt 64, 16 new)",
+                               "--telemetry-dir (batch 8, prompt 64, 16 new)"
+                               + "".join(f" {o}" for o in overrides),
                       **{k: out[k] for k in ("prefill_ms", "decode_ms",
                                              "tok_s", "max_memory_allocated")},
                       "records": len(records),
@@ -1813,15 +1836,17 @@ def rwkv_prefill_memory_check(torch, get_config, apply_overrides,
     torch.cuda.empty_cache()
 
 
-def granite_fma_phase(torch, ops, tref, build_model, get_config):
-    """``ops.fma_step_`` on granite's float32 segment at the round's C = 2
-    rows: each float32 leaf (norm scales, the router) a strided view of a
-    (2, 836,608) buffer, stepped by one launch as the local step steps it,
-    ``torch.equal`` to ``fma32`` on the whole segment; eta 0.001 rounded
-    to float32.  Returns the largest error."""
+def float32_fma_phase(torch, ops, tref, build_model, get_config,
+                      arch="granite-moe-1b-a400m"):
+    """``ops.fma_step_`` on the float32 segment of ``arch`` at the round's
+    C = 2 rows: each float32 leaf (granite's norm scales and router, a
+    (2, 836,608) buffer; whisper-base's layernorm scales and biases, a
+    (2, 32,768) one) a strided view of it, stepped by one launch as the
+    local step steps it, ``torch.equal`` to ``fma32`` on the whole
+    segment; eta 0.001 rounded to float32.  Returns the largest error."""
     from repro_torch import convert
 
-    model = build_model(get_config(GRANITE))
+    model = build_model(get_config(arch))
     leaves = float32_leaves(torch, model)
     seg = convert.Layout.uniform({k: model.param_shapes[k] for k in leaves},
                                  torch.float32)
@@ -1836,11 +1861,12 @@ def granite_fma_phase(torch, ops, tref, build_model, get_config):
         ops.fma_step_(vw[k], vg[k], eta)
     torch.cuda.synchronize()
     check(ops.LAUNCHES["fma_step"] == before + len(leaves),
-          "fma_step on granite's float32 leaves: launches")
+          f"fma_step on {arch}'s float32 leaves: launches")
     err = _max_diff(w, want)
-    check(torch.equal(w, want), "fma_step on granite's float32 segment "
+    check(torch.equal(w, want), f"fma_step on {arch}'s float32 segment "
                                 "differs from fma32")
-    print(json.dumps({"fma_step_granite_float32": "torch.equal to fma32",
+    print(json.dumps({"fma_step_float32_leaves": "torch.equal to fma32",
+                      "arch": arch,
                       "rows": 2, "segment": seg.numel, "leaves": leaves,
                       "shapes": [list(vw[k].shape) for k in leaves]}))
     return err
@@ -2144,10 +2170,56 @@ RECURRENT_ROUND_SMALL = {RWKV: ("fl.learning_rate=0.01",),
                          GRIFFIN: ("model.n_layers=3",)}
 
 
+#: the rest of the zoo.  whisper-base (the encoder-decoder, D =
+#: 97,182,720: bfloat16 weights, float32 layernorms) at full width and
+#: depth through the cohort round at olmo-1b's C = 2 and I = 3, 12
+#: sequences a round of 448 decoder tokens (its decoder's context) each
+#: with its 1,500 frames of 512; served at the CLI's defaults and at
+#: WHISPER_LONG (cut from decode_32k's batch of 128: its 32,768-slot self
+#: cache and the 32,704-token prefill's activations at batch 128 are
+#: ~110 GB).  deepseek-v3-671b (MLA, 1 shared + 256 routed experts top-8,
+#: MTP) at full width and 1 of its 61 layers (D = 24,970,704,896 with the
+#: MTP block, 49.95 GB: two layers would be 73 GB before activations);
+#: chameleon-34b (vlm) at full width and depth (D = 34,293,424,128, 68.59
+#: GB); both served at the CLI's defaults and at ZOO_LONG (QWEN_LONG's
+#: cell).  D from ``models.build_model(cfg).num_params``
+WHISPER, DEEPSEEK, CHAMELEON = ("whisper-base", "deepseek-v3-671b",
+                                "chameleon-34b")
+LM_DS[WHISPER] = 97_182_720
+WHISPER_OVERRIDES = ("train.global_batch=12", "train.seq_len=448")
+WHISPER_LONG = {"batch": 8, "prompt": 32_704, "max_len": 32_768}
+DEEPSEEK_CUT = ("model.n_layers=1",)
+ZOO_DS = {DEEPSEEK: 24_970_704_896, CHAMELEON: 34_293_424_128}
+ZOO_LONG = QWEN_LONG
+#: the reduced float32 rounds of the three against the CPU run every wire
+#: format; their bfloat16 rounds (deepseek's and chameleon's) int and rsag
+ZOO_SMALL_MODES = LM_MODES
+#: reduced bfloat16 deepseek's first forward: the share of its second
+#: layer's 512 expert picks that may differ between card and CPU (MLA's
+#: bfloat16 products round otherwise on each side before that router; a
+#: probe on the card saw 1 of 512, its first layer's picks equal)
+DEEPSEEK_PICK_FLIPS = 0.01
+
+
 def lm_config(get_config, apply_overrides, arch="olmo-1b"):
     cut = ((f"model.n_layers={RECURRENT_LAYERS[arch]}",)
            if arch in RECURRENT_LAYERS else ())
-    return apply_overrides(get_config(arch), LM_OVERRIDES + cut)
+    run = WHISPER_OVERRIDES if arch == WHISPER else LM_OVERRIDES
+    return apply_overrides(get_config(arch), run + cut)
+
+
+def lm_batch(torch, token_batch, gen, cfg):
+    """A round's batch: ``token_batch``'s tokens and labels, and for an
+    encoder-decoder standard normal frames (B, encoder_seq_len, d_model)
+    in float32 from the same generator."""
+    m = cfg.model
+    batch = token_batch(gen, cfg.train.global_batch, cfg.train.seq_len,
+                        m.vocab_size)
+    if m.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (cfg.train.global_batch, m.encoder_seq_len, m.d_model),
+            generator=gen, device=gen.device)
+    return batch
 
 
 def float32_leaves(torch, model):
@@ -2163,7 +2235,8 @@ def lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
     """The cohort round over ``arch`` at full width (olmo-1b: D =
     1,176,764,416 bfloat16 parameters, one flat vector; granite: D =
     1,384,963,072, a bfloat16 buffer and a float32 one; rwkv6-7b and
-    recurrentgemma-2b at their RECURRENT_LAYERS cut), C = 2 cohorts
+    recurrentgemma-2b at their RECURRENT_LAYERS cut; whisper-base whole,
+    its batches carrying frames, ``lm_batch``), C = 2 cohorts
     (the (2, 4) mesh of 8 devices), I = 3, in each wire format of
     LM_MODES, LM_ROUNDS rounds each from the same parameters, batches and
     generator seed.  The launch counts are set to 0 just before each
@@ -2194,8 +2267,7 @@ def lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
     t0 = time.perf_counter()
     params0 = model.init_flat(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batches = [token_batch(gen, cfg.train.global_batch, cfg.train.seq_len,
-                           cfg.model.vocab_size) for _ in range(R)]
+    batches = [lm_batch(torch, token_batch, gen, cfg) for _ in range(R)]
     torch.cuda.synchronize()
     print(f"LM set-up: {time.perf_counter() - t0:.2f} s ({cfg.model.name}, "
           f"{layout}, {n32} float32 leaves, C = {C} cohorts at "
@@ -2301,12 +2373,15 @@ def lm_windows_phase(torch, ops, tref, quant, agg, D=LM_D):
     windows: flat windows across index 2^31, across the row boundary and at
     the end; for the packed kernels, the words whose codes cross 2^31 in
     row 1 and each row's last words (the padded tail).  The plain versions
-    compute in int64, so they run on the windows only.  Launches here are
-    not counted on any path.  Returns the largest error per kernel."""
+    compute in int64, so they run on the windows only.  Operands below
+    2^31 values (whisper-base's 2 x 97,182,720) are held whole: every
+    window is the whole row.  Launches here are not counted on any path.
+    Returns the largest error per kernel."""
     torch.cuda.empty_cache()
     n2 = 2 * D
     G31 = FLAT_LIMIT
-    check(n2 > G31 and D % 2 == 0, "the LM's uplink does not pass 2^31")
+    whole = n2 < G31
+    check(D % 2 == 0, f"the LM's uplink of D = {D} is odd")
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn((2, D), generator=gen, device="cuda") * 0.02
     u = torch.rand((2, D), generator=gen, device="cuda")
@@ -2320,13 +2395,16 @@ def lm_windows_phase(torch, ops, tref, quant, agg, D=LM_D):
         err[name] = max(err.get(name, 0.0), _max_diff(got, want))
         checked[name] = checked.get(name, 0) + 1
 
-    flat_windows = ((G31 - LM_WINDOW, G31 + LM_WINDOW),
-                    (D - LM_WINDOW, D + LM_WINDOW), (n2 - LM_WINDOW, n2))
+    flat_windows = (((0, n2),) if whole else
+                    ((G31 - LM_WINDOW, G31 + LM_WINDOW),
+                     (D - LM_WINDOW, D + LM_WINDOW), (n2 - LM_WINDOW, n2)))
 
-    def word_windows(W):
-        """Row 1's words around those holding flat index 2^31, and the
-        last words of a row."""
-        w = (G31 - D) % W
+    def word_windows(W, w=None):
+        """Row 1's words around those holding flat index 2^31 (or ``w``),
+        and the last words of a row; the whole row when held whole."""
+        if whole:
+            return ((0, W),)
+        w = (G31 - D) % W if w is None else w
         return ((w - half, w + half), (W - LM_WINDOW, W))
 
     # int: the quantizer over (2, D), and its dequantize
@@ -2389,8 +2467,7 @@ def lm_windows_phase(torch, ops, tref, quant, agg, D=LM_D):
         held("quantize_pack_chunk", codes.view(-1)[a:b],
              tref.stochastic_quantize_ref(xf[a:b], uf[a:b], 8), (a, b))
     for c in (0, 1):
-        for w0, w1 in ((((G31 - D - c * Cc) % Wc) - half,
-                        ((G31 - D - c * Cc) % Wc) + half), (Wc - LM_WINDOW, Wc)):
+        for w0, w1 in word_windows(Wc, (G31 - D - c * Cc) % Wc):
             idx = planar_window(torch, Wc, cpw, Cc, w0, w1, x.device)
             held("quantize_pack_chunk", words[1, c, w0:w1],
                  tref.quantize_pack_chunk_ref(
@@ -2403,7 +2480,7 @@ def lm_windows_phase(torch, ops, tref, quant, agg, D=LM_D):
     packed = ops.pack_sums(sums, 8, lane_bits=lane9, bias=b9)
     vals = ops.unpack_dequantize(packed, 8, Cc, lane_bits=lane9, bias=b9)
     W9 = packed.shape[1]
-    for w0, w1 in ((W9 // 2 - half, W9 // 2 + half), (W9 - LM_WINDOW, W9)):
+    for w0, w1 in word_windows(W9, W9 // 2):
         idx = planar_window(torch, W9, cpw9, Cc, w0, w1, x.device)
         held("pack_sums", packed[1, w0:w1],
              tref.pack_sums_ref(sums[1, idx][None], 8, lane_bits=lane9,
@@ -2412,7 +2489,7 @@ def lm_windows_phase(torch, ops, tref, quant, agg, D=LM_D):
              tref.unpack_dequantize_ref(packed[1, w0:w1], 8, idx.numel(),
                                         lane_bits=lane9, bias=b9), (1, w0, w1))
     print(json.dumps({"lm_uplink_windows": {
-        "shape": [2, D], "values": n2, "past_2_31": n2 - G31,
+        "shape": [2, D], "values": n2, "past_2_31": n2 - G31, "whole": whole,
         "window_words": LM_WINDOW, "windows_checked": checked,
         "max_abs_err": err}}))
     return err
@@ -2420,10 +2497,12 @@ def lm_windows_phase(torch, ops, tref, quant, agg, D=LM_D):
 
 def lm_reference_phase(torch, get_config, apply_overrides, build_model,
                        make_fl_round, RoundNoise, arch="olmo-1b",
-                       dtype="float32", extra=()):
+                       dtype="float32", extra=(), modes=("int", "rsag"),
+                       pick_flips=0.0):
     """A reduced LM round on the card against the same round on the CPU
     (the reference trainer test's size, C = 4, I = 2, lr 0.5, q = 0.3), in
-    int and rsag.  olmo-1b is LM_SMALL, the others ``reduced``.  In
+    ``modes`` (int and rsag; every format for the last three of the zoo,
+    ZOO_SMALL_MODES, whisper's batch carrying normal frames).  olmo-1b is LM_SMALL, the others ``reduced``.  In
     float32 (one buffer; granite's MoE: routing, dispatch, combine, aux)
     within the CPU tests' float32 bound: every parameter within one uplink
     code step, 99.9 % within 1e-5, loss rtol 1e-4.  qwen2.5-14b in
@@ -2439,7 +2518,10 @@ def lm_reference_phase(torch, get_config, apply_overrides, build_model,
     flipped pick moves its tokens' rows by several code steps.
     recurrentgemma-2b and rwkv6-7b in float32 (``extra``,
     RECURRENT_ROUND_SMALL: the hybrid at 3 layers, rwkv at lr 0.01) within
-    the float32 bound."""
+    the float32 bound.  deepseek-v3-671b in bfloat16 as granite, but
+    where MLA's bfloat16 products precede the second layer's router, a
+    share ``pick_flips`` of that layer's picks may differ in the first
+    forward (its first layer's picks and keep mask equal)."""
     from repro_torch import convert
     from repro_torch.configs import reduced
     from repro_torch.models import mlp as tmlp
@@ -2463,6 +2545,9 @@ def lm_reference_phase(torch, get_config, apply_overrides, build_model,
     tok = torch.randint(0, cfg.model.vocab_size, (B, 32), generator=gen,
                         dtype=torch.int32)
     batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    if cfg.model.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (B, cfg.model.encoder_seq_len, cfg.model.d_model), generator=gen)
     noise = RoundNoise(None, torch.rand((C, model.num_params), generator=gen),
                        torch.tensor([1.0, 0.0, 1.0, 1.0]))
 
@@ -2476,7 +2561,7 @@ def lm_reference_phase(torch, get_config, apply_overrides, build_model,
         picks.append((out[1].argmax(-1).cpu(), out[4].cpu()))
         return out
 
-    for mode in ("int", "rsag"):
+    for mode in modes:
         out, first = {}, {}
         for dev in ("cpu", "cuda"):
             fn = make_fl_round(model, cfg, (C,), collective=mode, device=dev)
@@ -2515,9 +2600,12 @@ def lm_reference_phase(torch, get_config, apply_overrides, build_model,
               f"LM {arch} {mode}: non-finite parameters")
         if moe:
             L = cfg.model.n_layers
+            exact = L if pick_flips == 0 else 1
             check(len(first["cuda"]) == len(first["cpu"]) >= L and all(
                 torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                for a, b in zip(first["cuda"][:L], first["cpu"][:L])),
+                for a, b in zip(first["cuda"][:exact], first["cpu"][:exact]))
+                and all(f <= pick_flips * first["cpu"][0][0].numel()
+                        for f in flips[exact:L]),
                 f"LM {arch} {mode}: the first forward's expert picks or "
                 "keep mask differ from the CPU's")
         bad = f"LM {arch} {mode}: round parameters disagree with the CPU path"
@@ -2598,6 +2686,170 @@ def recurrent_phases(torch, ops, tref, quant, agg, err, get_config,
                        make_fl_round, RoundNoise, arch, "float32",
                        extra=RECURRENT_ROUND_SMALL[arch])
     return launches
+
+
+def zoo_layout_line(torch, model, arch, **extra):
+    """One JSON line: the model's D, its buffers and float32 leaves."""
+    layout = model.param_shapes
+    print(json.dumps({"zoo_layout": arch, "D": model.num_params,
+                      "buffers": [[str(dt)[6:], n] for dt, n in zip(
+                          layout.buffer_dtypes, layout.buffer_sizes)],
+                      "float32_leaves": len(float32_leaves(torch, model)),
+                      "param_bytes": sum(dt.itemsize * n for dt, n in zip(
+                          layout.buffer_dtypes, layout.buffer_sizes)),
+                      **extra}))
+
+
+def whisper_phases(torch, ops, tref, quant, agg, err, get_config,
+                   apply_overrides, build_model, token_batch, make_fl_round,
+                   tmesh, train_main, RoundNoise, smi):
+    """whisper-base (the encoder-decoder) at full width and depth: served
+    through ``launch.serve.main`` at the CLI's defaults (1,500 frames of
+    512 drawn from the port's generator) and at WHISPER_LONG (8 x 32,704
+    into a 32,768 self cache, 64 decode steps, ``serve_cell``); a reduced
+    float32 whisper served on the card against the CPU; the cohort round
+    at C = 2, I = 3, 12 x 448 tokens with their frames, in every format
+    (``lm_round_phase``: parameters ``torch.equal`` across the quantized
+    formats); the uplink kernels held to their plain versions on its
+    whole (2, D) operands; ``fma_step`` on its float32 leaves held to
+    ``fma32``; the trainer's refusal; a reduced float32 round on the card
+    against the CPU in every format.  Returns the round's launches."""
+    from repro_torch.configs import reduced
+    from repro_torch.configs.shapes import SHAPES
+
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    check(model.num_params == LM_DS[WHISPER] and cfg.model.is_encoder_decoder
+          and model.param_shapes.buffer_dtypes == (torch.bfloat16,
+                                                   torch.float32),
+          f"{WHISPER}: {model.param_shapes}")
+    zoo_layout_line(torch, model, WHISPER,
+                    encoder_seq_len=cfg.model.encoder_seq_len)
+    serve_cli_phase(torch, WHISPER, smi)
+    torch.cuda.empty_cache()
+    params = model.init(0)
+    w = WHISPER_LONG
+    serve_cell(torch, model, params, cfg, w["batch"], w["prompt"],
+               w["max_len"], "(whisper b) 32k context",
+               dataclasses.replace(SHAPES["prefill_32k"],
+                                   global_batch=w["batch"],
+                                   seq_len=w["prompt"]),
+               dataclasses.replace(SHAPES["decode_32k"],
+                                   global_batch=w["batch"],
+                                   seq_len=w["max_len"]), smi, profile=True)
+    del params
+    torch.cuda.empty_cache()
+    serve_reference_check(torch, build_model, apply_overrides(
+        reduced(cfg), ("model.dtype=float32",)), 32, 40, "max_len 40")
+    launches = lm_round_phase(torch, ops, get_config, apply_overrides,
+                              build_model, token_batch, make_fl_round, tmesh,
+                              smi, arch=WHISPER)
+    for k, v in lm_windows_phase(torch, ops, tref, quant, agg,
+                                 D=LM_DS[WHISPER]).items():
+        err[k] = max(err[k], v)
+    err["fma_step"] = max(err["fma_step"], float32_fma_phase(
+        torch, ops, tref, build_model, get_config, WHISPER))
+    try:
+        train_main(["--arch", WHISPER, "--devices", "8", "--steps", "1"])
+    except NotImplementedError as e:
+        check("frames" in str(e), f"{WHISPER} trainer refused: {e}")
+        print(f"{WHISPER} trainer refuses, as the reference's cannot train "
+              f"it: {e}")
+    else:
+        check(False, f"the trainer ran {WHISPER} on batches without frames")
+    lm_reference_phase(torch, get_config, apply_overrides, build_model,
+                       make_fl_round, RoundNoise, WHISPER, "float32",
+                       modes=ZOO_SMALL_MODES)
+    return launches
+
+
+def zoo_long_serve(torch, model, cfg, label, smi):
+    """``serve_cell`` at ZOO_LONG (1 x 16,384 into a 16,448 cache, 64
+    steps), the parameters drawn on the card and freed after."""
+    from repro_torch.configs.shapes import SHAPES
+
+    torch.cuda.empty_cache()
+    params = model.init(0)
+    z = ZOO_LONG
+    serve_cell(torch, model, params, cfg, z["batch"], z["prompt"],
+               z["max_len"], label,
+               dataclasses.replace(SHAPES["prefill_32k"],
+                                   global_batch=z["batch"], seq_len=z["prompt"]),
+               dataclasses.replace(SHAPES["decode_32k"],
+                                   global_batch=z["batch"],
+                                   seq_len=z["max_len"]), smi, profile=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def deepseek_serve_phase(torch, get_config, apply_overrides, build_model,
+                         smi):
+    """deepseek-v3-671b at full width and 1 of 61 layers (DEEPSEEK_CUT:
+    MLA, 1 shared + 256 routed experts top-8, the MTP block's leaves too;
+    D = 24,970,704,896): ``launch.serve.main`` at the CLI's defaults, then
+    ZOO_LONG; the latent cache's bytes a token a layer against a full K
+    and V's (128 heads of 192 and 128); a reduced float32 deepseek served
+    on the card against the CPU."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import mla
+
+    cfg = apply_overrides(get_config(DEEPSEEK), DEEPSEEK_CUT)
+    model = build_model(cfg)
+    m = cfg.model
+    check(model.num_params == ZOO_DS[DEEPSEEK] and m.mla.enabled
+          and m.mtp_depth == 1 and m.moe.num_shared_experts == 1,
+          f"{DEEPSEEK}: {model.param_shapes}")
+    itemsize = torch.empty((), dtype=model.dtype).element_size()
+    latent = mla.latent_width(m) * itemsize
+    full_kv = m.n_heads * (m.mla.qk_nope_head_dim + m.mla.qk_rope_head_dim
+                           + m.mla.v_head_dim) * itemsize
+    meta = model.init_cache(1, 1024, device="meta")
+    check(meta["latent"].nbytes == 1024 * latent * m.n_layers,
+          f"{DEEPSEEK}: latent cache {tuple(meta['latent'].shape)}")
+    zoo_layout_line(torch, model, DEEPSEEK, n_layers=m.n_layers,
+                    cache_bytes_per_token_per_layer=latent,
+                    full_kv_bytes_per_token_per_layer=full_kv,
+                    kv_over_latent=full_kv / latent)
+    serve_cli_phase(torch, DEEPSEEK, smi, DEEPSEEK_CUT)
+    zoo_long_serve(torch, model, cfg, "(deepseek b) long context, 1 layer",
+                   smi)
+    serve_reference_check(torch, build_model, apply_overrides(
+        reduced(get_config(DEEPSEEK)), ("model.dtype=float32",)), 32, 40,
+        "max_len 40")
+
+
+def chameleon_serve_phase(torch, get_config, apply_overrides, build_model,
+                          smi):
+    """chameleon-34b (vlm: a dense stack over VQ token ids) at full width
+    and depth (D = 34,293,424,128, 68.59 GB): ``launch.serve.main`` at the
+    CLI's defaults, then ZOO_LONG; a reduced float32 chameleon served on
+    the card against the CPU."""
+    from repro_torch.configs import reduced
+
+    cfg = get_config(CHAMELEON)
+    model = build_model(cfg)
+    check(model.num_params == ZOO_DS[CHAMELEON] and cfg.model.family == "vlm"
+          and cfg.model.frontend == "vq_tokens",
+          f"{CHAMELEON}: {model.param_shapes}")
+    zoo_layout_line(torch, model, CHAMELEON, n_layers=cfg.model.n_layers)
+    torch.cuda.empty_cache()
+    serve_cli_phase(torch, CHAMELEON, smi)
+    zoo_long_serve(torch, model, cfg, "(chameleon b) long context", smi)
+    serve_reference_check(torch, build_model, apply_overrides(
+        reduced(cfg), ("model.dtype=float32",)), 32, 40, "max_len 40")
+
+
+def zoo_reference_rounds(torch, get_config, apply_overrides, build_model,
+                         make_fl_round, RoundNoise):
+    """deepseek-v3-671b's and chameleon-34b's reduced rounds on the card
+    against the CPU: float32 in every format, bfloat16 in int and rsag."""
+    for arch in (DEEPSEEK, CHAMELEON):
+        lm_reference_phase(torch, get_config, apply_overrides, build_model,
+                           make_fl_round, RoundNoise, arch, "float32",
+                           modes=ZOO_SMALL_MODES)
+        lm_reference_phase(torch, get_config, apply_overrides, build_model,
+                           make_fl_round, RoundNoise, arch, "bfloat16",
+                           pick_flips=DEEPSEEK_PICK_FLIPS)
 
 
 def lm_train_phase(torch, ops, train_main, smi, arch="olmo-1b", n32=0):
@@ -3459,7 +3711,7 @@ def main() -> int:
     for k, v in lm_windows_phase(torch, ops, tref, quant, agg,
                                  D=LM_DS[GRANITE]).items():
         err[k] = max(err[k], v)
-    err["fma_step"] = max(err["fma_step"], granite_fma_phase(
+    err["fma_step"] = max(err["fma_step"], float32_fma_phase(
         torch, ops, tref, build_model, get_config))
     for k, v in granite_train_phase(torch, ops, train_main, get_config,
                                     apply_overrides, build_model, smi).items():
@@ -3485,12 +3737,20 @@ def main() -> int:
                                   token_batch, make_fl_round, tmesh,
                                   train_main, RoundNoise, smi, arch)
            for arch in RECURRENT}
+    whisper = whisper_phases(torch, ops, tref, quant, agg, err, get_config,
+                             apply_overrides, build_model, token_batch,
+                             make_fl_round, tmesh, train_main, RoundNoise, smi)
+    deepseek_serve_phase(torch, get_config, apply_overrides, build_model, smi)
+    chameleon_serve_phase(torch, get_config, apply_overrides, build_model,
+                          smi)
+    zoo_reference_rounds(torch, get_config, apply_overrides, build_model,
+                         make_fl_round, RoundNoise)
     times = timing_phase(torch, ops, tref, quant, agg, smi, sub_alpha_once)
     # qmatmul is on no round: its entry point is the kernel API, driven by
     # qmatmul_phase with the counts reset just before
     path_launches = {k: launches[k] + cohort[k] + fleet_sim[k] + fleet_cohort[k]
                      + lm[k] + granite[k] + sum(r[k] for r in rec.values())
-                     for k in KERNELS}
+                     + whisper[k] for k in KERNELS}
     path_launches["qmatmul"] = qmatmul_launches
     for k, n in path_launches.items():
         check(n > 0, f"{k} was not launched on its path")
@@ -3499,6 +3759,7 @@ def main() -> int:
                 **times[k], "launches_lm": lm[k],
                 "launches_granite": granite[k],
                 **{f"launches_{arch}": rec[arch][k] for arch in RECURRENT},
+                "launches_whisper": whisper[k],
                 **({"replaces_note": note[0]} if note else {})}
                for k, (src, rep, *note) in KERNELS.items()]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s")

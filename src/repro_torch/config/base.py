@@ -10,11 +10,8 @@ in the port:
 
 - ``ModelConfig`` has every field and the whole ``param_count`` and
   ``active_param_count`` (their MoE, MLA, recurrent, hybrid and encoder
-  branches included), and the MoE, MLA and recurrent sub-configs are
-  plain data: the port builds the dense family and the cnn, and
-  ``configs.check_ported`` raises for the rest where a model is built
-  (ROADMAP A13).  ``local_window`` and
-  ``encoder_seq_len`` belong to those families.
+  branches included), and the MoE, MLA and recurrent sub-configs; the
+  port builds every family of the reference's zoo.
 - ``TrainConfig.learning_rate``, ``warmup_steps``, ``weight_decay`` and
   ``optimizer`` (the optimizer's fields) are read by neither trainer: both
   step plain SGD at ``fl.learning_rate``.  ``optim`` ports the reference's

@@ -1,7 +1,7 @@
 """Config registry: ``get_config("olmo-1b")`` returns the module's CONFIG;
 ``reduced(cfg)`` returns the CPU smoke-test variant of the same family
 (at most 2 layers, d_model at most 256, at most 4 experts, the RG-LRU's
-width d_model), as the reference's;
+width d_model, MLA's ranks and head dims cut), as the reference's;
 ``for_shape(cfg, shape)`` adapts a config to one of the four input shapes
 of ``configs.shapes`` (a sliding window for full-attention archs on
 ``long_500k``)."""
@@ -22,11 +22,15 @@ _ARCHS: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "mnist_cnn": "repro_torch.configs.mnist_cnn",
 }
 
-#: families ``reduced`` and ``models.build_model`` handle so far
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "cnn")
+#: the families ``models.build_model`` builds: every family of the
+#: reference's zoo
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "cnn")
 
 #: the sliding window ``for_shape`` gives full-attention archs on long_500k
 LONG_CONTEXT_WINDOW = 8192
@@ -73,28 +77,9 @@ def for_shape(cfg: Config, shape: InputShape) -> Config:
     return replace(cfg, model=m, train=train)
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise for a model the port cannot run yet: a family other than
-    dense, moe, ssm (RWKV-6), hybrid (Griffin) and cnn, or a config with
-    MLA, multi-token prediction or an encoder (ROADMAP A13)."""
-    m = cfg.model
-    extras = [name for name, on in (
-        ("mla", m.mla.enabled), ("mtp", m.mtp_depth > 0),
-        ("encoder-decoder", m.is_encoder_decoder)) if on]
-    if m.family not in PORTED_FAMILIES or extras:
-        what = f"family {m.family!r}" + (f" with {', '.join(extras)}"
-                                         if extras else "")
-        raise NotImplementedError(
-            f"{m.name}: {what} is not ported yet (ROADMAP A13); the port "
-            f"runs the dense, MoE, RWKV-6 and Griffin decoder-only LMs and "
-            f"the cnn")
-
-
 def reduced(cfg: Config) -> Config:
     """Smoke-test variant: same family and block structure, tiny dims (the
-    reference's ``reduced`` for the dense, moe, ssm, hybrid and cnn
-    families)."""
-    check_ported(cfg)
+    reference's ``reduced``)."""
     m = cfg.model
     d = min(m.d_model, 256)
     heads = min(m.n_heads, 4)
@@ -104,6 +89,10 @@ def reduced(cfg: Config) -> Config:
         moe = replace(moe, num_experts=min(moe.num_experts, 4),
                       experts_per_token=min(moe.experts_per_token, 2),
                       expert_d_ff=min(moe.expert_d_ff or m.d_ff, 128))
+    mla = m.mla
+    if mla.enabled:
+        mla = replace(mla, kv_lora_rank=32, q_lora_rank=48,
+                      qk_rope_head_dim=16, qk_nope_head_dim=32, v_head_dim=32)
     rec = m.recurrent
     if rec.d_rnn:
         rec = replace(rec, d_rnn=d)
@@ -123,6 +112,7 @@ def reduced(cfg: Config) -> Config:
         attention_window=min(m.attention_window, 16) if m.attention_window else 0,
         max_seq_len=min(m.max_seq_len, 2048),
         moe=moe,
+        mla=mla,
         recurrent=rec,
     )
     train = replace(cfg.train, global_batch=2, seq_len=32, steps=2, fsdp=False)

@@ -261,9 +261,13 @@ def fleet_to_numpy(fleet) -> Dict[str, np.ndarray]:
 def cache_from_reference(cache: Mapping, dtype: torch.dtype = torch.float32,
                          device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """The reference's decode cache through ``np.asarray`` -> the port's
-    (``models.transformer``).  A dense LM's ``{"layers": (k, v), "kv_pos",
-    "length"}`` -> ``{"k", "v", "kv_pos", "length"}``, k and v (L, B, C,
-    KV, hd); RWKV-6's ``{"layers": {"S", "x_tm", "x_cm"}, "length"}`` ->
+    (``models.transformer``, ``models.whisper``).  A dense LM's
+    ``{"layers": (k, v), "kv_pos", "length"}`` -> ``{"k", "v", "kv_pos",
+    "length"}``, k and v (L, B, C, KV, hd); an MLA stack's ``{"layers":
+    latent, ...}`` -> ``{"latent", ...}``, the latent (L, B, C, r +
+    d_rope); whisper's ``{"k", "v", "cross_k", "cross_v", "kv_pos",
+    "length"}`` keeps its keys; RWKV-6's ``{"layers": {"S", "x_tm",
+    "x_cm"}, "length"}`` ->
     ``{"S", "x_tm", "x_cm", "length"}``; the hybrid's list of per-layer
     entries (``{"h", "conv"}`` or (k, v)) -> h and conv stacked over the
     recurrent layers, k and v over the attention layers, in layer order.
@@ -276,8 +280,14 @@ def cache_from_reference(cache: Mapping, dtype: torch.dtype = torch.float32,
         a = np.stack([np.asarray(x, np.float32) for x in arrays])
         return torch.from_numpy(a).to(dev, dt)
 
-    layers, out = cache["layers"], {}
-    if isinstance(layers, Mapping):                 # RWKV-6, layer-stacked
+    out = {}
+    layers = cache.get("layers")
+    if layers is None:                              # whisper's
+        for name in ("k", "v", "cross_k", "cross_v"):
+            out[name] = tensor([cache[name]], dtype)[0]
+    elif hasattr(layers, "ndim"):                   # the MLA latent
+        out["latent"] = tensor([layers], dtype)[0]
+    elif isinstance(layers, Mapping):               # RWKV-6, layer-stacked
         out["S"] = tensor([layers["S"]], torch.float32)[0]
         out["x_tm"] = tensor([layers["x_tm"]], dtype)[0]
         out["x_cm"] = tensor([layers["x_cm"]], dtype)[0]
@@ -304,7 +314,9 @@ def cache_to_reference(cache: Mapping[str, torch.Tensor],
                        kinds: Optional[Tuple[str, ...]] = None) -> Dict:
     """The port's cache -> the reference's layout of numpy arrays, every
     float entry as float32 (cast to the reference's dtype on its side),
-    kv_pos and length int32.  ``kinds``, the hybrid's block kinds in layer
+    kv_pos and length int32: an MLA stack's latent as its "layers",
+    whisper's entries under their own keys.  ``kinds``, the hybrid's
+    block kinds in layer
     order (``LM.kinds``), lays its states and k/v out as the reference's
     list of layers (its kv_pos None without an attention layer); without
     it the cache is a stack's."""
@@ -315,7 +327,12 @@ def cache_to_reference(cache: Mapping[str, torch.Tensor],
     if "kv_pos" in cache or kinds is not None:
         out["kv_pos"] = (cache["kv_pos"].cpu().numpy().astype(np.int32)
                          if "kv_pos" in cache else None)
-    if "S" in cache:
+    if "cross_k" in cache:                          # whisper's
+        out.update({n: arr(cache[n])
+                    for n in ("k", "v", "cross_k", "cross_v")})
+    elif "latent" in cache:
+        out["layers"] = arr(cache["latent"])
+    elif "S" in cache:
         out["layers"] = {n: arr(cache[n]) for n in ("S", "x_tm", "x_cm")}
     elif kinds is None:
         out["layers"] = (arr(cache["k"]), arr(cache["v"]))

@@ -10,7 +10,11 @@ unsharded on one device.  Any ``key=value`` positional argument overrides
 that config field (``model.n_layers=2``).  The cache is sized for the
 prompt and the new tokens (``LM.prefill``'s ``max_len``), so the decode
 never overwrites a prompt position; the reference sizes it for the prompt
-alone and, past it, overwrites the earliest.
+alone and, past it, overwrites the earliest.  An encoder-decoder
+(whisper-base) prefills from standard normal frames (B, encoder_seq_len,
+d_model) drawn from the port's generator, as the reference draws them,
+and sizes its self-attention cache the same way (the reference's prefill
+call there takes no ``max_len``).
 
 ``--telemetry-dir DIR`` streams one versioned ``serve_decode`` record a
 decode step (``latency_s``, ``tokens_per_s``) to ``DIR/telemetry.jsonl``
@@ -37,8 +41,9 @@ from repro_torch.configs import get_config
 from repro_torch.core import fl as fl_mod
 from repro_torch.device import (DeviceLike, make_generator, resolve_device,
                                 seconds_since)
-from repro_torch.launch.inputs import random_tokens
+from repro_torch.launch.inputs import random_frames, random_tokens
 from repro_torch.launch.mesh import mesh_for_devices
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import build_model
 from repro_torch.obs import sinks as obs_sinks
 
@@ -79,10 +84,15 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
     params = model.init(0, device=dev)
     prompts = random_tokens((B, P), cfg.model.vocab_size,
                             make_generator(1, dev))
+    inputs = (prompts,)
+    if cfg.model.is_encoder_decoder:
+        inputs += (random_frames(cfg, B, make_generator(2, dev)),)
+    prefill = make_prefill_step(model, cfg)
+    decode = make_decode_step(model, cfg)
     out = {"mesh": mesh}
 
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, max_len=P + N)
+    logits, cache = prefill(params, *inputs, max_len=P + N)
     out["prefill_ms"] = seconds_since(t0, dev) * 1e3
     print(f"prefill {B}x{P}: {out['prefill_ms']:.0f} ms")
 
@@ -92,7 +102,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
     t0 = time.perf_counter()
     for i in range(N):
         ts = time.perf_counter()
-        logits, cache = model.decode_step(params, cache, tok)
+        logits, cache = decode(params, cache, tok)
         tok = logits[:, -1].argmax(-1)[:, None]
         generated.append(tok)
         if sink is not None:

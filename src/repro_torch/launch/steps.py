@@ -1,10 +1,12 @@
-"""Step builders for the trainer.
+"""Step builders for the trainer and the server.
 
 ``make_train_step``: the cohort FL round when the config's cohort axes are
 on the mesh (the paper's technique: quantized deltas, Bernoulli drops,
 error-aware renormalizing aggregation), else the standard SGD step.  Both
 take (params, batch, gen) and return (params, metrics); with a fleet the
-FL round takes and returns the ``FleetState`` too.
+FL round takes and returns the ``FleetState`` too.  ``make_prefill_step``
+and ``make_decode_step`` give the model's serving entry points, an
+encoder-decoder's prefill taking its frames beside the tokens.
 """
 from __future__ import annotations
 
@@ -72,3 +74,18 @@ def make_train_step(model, config: Config, mesh: Mesh, *,
             kind = "fleet_fl_round" if config.fleet.enabled else "fl_round"
             return fl_round, kind
     return make_standard_train_step(model, config, device=device), "standard"
+
+
+def make_prefill_step(model, config: Config) -> Callable:
+    """(params, tokens[, frames], max_len=0) -> (last logits, cache)."""
+    if config.model.is_encoder_decoder:
+        return lambda params, tokens, frames, max_len=0: model.prefill(
+            params, tokens, frames, max_len=max_len)
+    return lambda params, tokens, max_len=0: model.prefill(
+        params, tokens, max_len=max_len)
+
+
+def make_decode_step(model, config: Config) -> Callable:
+    """(params, cache, tokens) -> (logits, cache)."""
+    return lambda params, cache, tokens: model.decode_step(params, cache,
+                                                           tokens)

@@ -10,7 +10,10 @@ standard SGD step, with the reference trainer's flags.
 of that mesh stacked on one device, C = the product of the cohort axes'
 sizes (``fl.cohort_axes`` found on the mesh); the "model" axis runs
 unsharded.  Any ``key=value`` positional argument overrides that config
-field (``model.n_layers=2 quant.bits=4``).
+field (``model.n_layers=2 quant.bits=4``).  Its batches are token
+batches (``data.synthetic.token_batch``), as the reference trainer's, so
+it refuses an encoder-decoder (whisper-base), whose loss needs frames:
+the reference's trainer cannot train one either.
 
 The fleet flags (``--fleet-size``, ``--selection``, ``--power-policy``,
 ``--power-max``) switch on the heterogeneous device population of
@@ -130,6 +133,14 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
     if args.power_max:
         overrides += (f"power.p_max={args.power_max}",)
     cfg = apply_overrides(get_config(args.arch), overrides)
+    if cfg.model.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.model.name}: the trainer draws token batches only "
+            f"(data.synthetic.token_batch, as the reference's trainer), "
+            f"which carry no encoder frames, so it cannot train an "
+            f"encoder-decoder; train one through core.fl.make_fl_round "
+            f"with a batch that carries 'frames' (ROADMAP, reference "
+            f"caveats)")
     model = build_model(cfg)
     mesh = mesh_for_devices(args.devices or 1)
     print(f"mesh: {mesh}  arch: {cfg.model.name} "

@@ -1,5 +1,7 @@
 """GQA self-attention layer: projections, rope, the full-sequence
-attention of training and prefill, and one-token decode against a cache.
+attention of training and prefill, and one-token decode against a cache;
+and whisper's cross-attention (the decoder's queries against the
+encoder's k and v, projected once: ``project_cross_kv``).
 
 Weights are (d, H·hd) matrices for one model or (C, d, H·hd) for C stacked
 cohorts, with x (B, S, d) or (C, B, S, d) (``common.linear``).
@@ -70,20 +72,31 @@ def self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     x (B, S, d), or (C, B, S, d) with stacked weights; positions (B, S).
     Returns (out, (k, v)), k and v already rope'd (the cache's entries).
     """
-    S = x.shape[-2]
     q, k, v = _project_qkv(params, x, cfg)
     if rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
-    # the C cohorts of a stacked call fold into the attention's batch
-    rows = x.shape[:-2].numel()
-    pos = positions.expand(*x.shape[:-2], S).reshape(rows, S)
-    o = common.attention(q.reshape(rows, S, *q.shape[-2:]),
-                         k.reshape(rows, S, *k.shape[-2:]),
-                         v.reshape(rows, S, *v.shape[-2:]), pos, pos,
-                         causal=True, window=window)
+    o = attend(q, k, v, positions, positions, causal=True, window=window)
     out = common.linear(o.reshape(*x.shape[:-1], -1), params["wo"])
     return out, (k, v)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+           window: int = 0) -> torch.Tensor:
+    """``common.attention`` over q (..., Sq, H, hd), k and v (..., Skv, KV,
+    ·), the leading dims (the C cohorts of a stacked call, the batch)
+    folded into the attention's batch; q_pos and kv_pos broadcast to
+    (..., Sq) and (..., Skv).  Returns (..., Sq, H, hd_v)."""
+    lead, Sq, Skv = q.shape[:-3], q.shape[-3], k.shape[-3]
+    rows = lead.numel()
+    o = common.attention(
+        q.reshape(rows, Sq, *q.shape[-2:]), k.reshape(rows, Skv, *k.shape[-2:]),
+        v.reshape(rows, Skv, *v.shape[-2:]),
+        q_pos.expand(*lead, Sq).reshape(rows, Sq),
+        kv_pos.expand(*lead, Skv).reshape(rows, Skv),
+        causal=causal, window=window)
+    return o.reshape(*lead, Sq, *o.shape[-2:])
 
 
 def decode_self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -111,3 +124,39 @@ def decode_self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     o = common.attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                          positions, new_kv_pos, causal=True, window=window)
     return common.linear(o.reshape(B, 1, -1), params["wo"])
+
+
+def init_cross_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
+                                dtype: torch.dtype = torch.float32
+                                ) -> Dict[str, torch.Tensor]:
+    return init_attention_params(gen, cfg, dtype=dtype)
+
+
+def cross_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder-to-encoder attention (whisper): x (..., S, d) attends to
+    enc_k and enc_v (..., Se, KV, hd) with every position 0, no mask and
+    no rope.  Returns (..., S, d)."""
+    hd = cfg.resolved_head_dim
+    q = common.linear(x, params["wq"])
+    if cfg.qkv_bias:
+        q = common.add_bias(q, params["bq"])
+    q = q.reshape(*x.shape[:-1], cfg.n_heads, hd)
+    zero = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    o = attend(q, enc_k, enc_v, zero, zero, causal=False)
+    return common.linear(o.reshape(*x.shape[:-1], -1), params["wo"])
+
+
+def project_cross_kv(params: Dict[str, torch.Tensor], enc_out: torch.Tensor,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's k and v (..., Se, KV, hd), once for every decode
+    step."""
+    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    k = common.linear(enc_out, params["wk"])
+    v = common.linear(enc_out, params["wv"])
+    if cfg.qkv_bias:
+        k = common.add_bias(k, params["bk"])
+        v = common.add_bias(v, params["bv"])
+    lead = enc_out.shape[:-1]
+    return k.reshape(*lead, KV, hd), v.reshape(*lead, KV, hd)

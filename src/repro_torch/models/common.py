@@ -13,6 +13,7 @@ the small one-einsum path, and the chunked path that never holds the full
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -22,6 +23,8 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 NEG_INF = -1e30
+#: elements above which ``dense_init`` draws a leaf a slice at a time
+SLICED_INIT = 1 << 30
 
 # ---------------------------------------------------------------------------
 # init
@@ -31,10 +34,19 @@ NEG_INF = -1e30
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], in_axis: int = -2,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Normal(0, 1/fan_in), fan_in = ``shape[in_axis]`` (``shape[0]`` for a
-    vector); drawn in float32 and cast once."""
+    vector); drawn in float32 and cast once (a slice along axis 0 at a
+    time above SLICED_INIT elements)."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    w = torch.randn(shape, generator=gen, device=gen.device) * fan_in ** -0.5
-    return w.to(dtype)
+    if math.prod(shape) <= SLICED_INIT:
+        w = torch.randn(shape, generator=gen, device=gen.device)
+        return (w * fan_in ** -0.5).to(dtype)
+    # a leaf past SLICED_INIT (deepseek-v3's (256, 7168, 2048) experts):
+    # one slice along axis 0 at a time, never the whole leaf in float32
+    w = torch.empty(shape, dtype=dtype, device=gen.device)
+    for row in w:
+        row.copy_(torch.randn(shape[1:], generator=gen, device=gen.device)
+                  * fan_in ** -0.5)
+    return w
 
 
 def embed_init(gen: torch.Generator, shape: Tuple[int, ...],

@@ -17,7 +17,7 @@ the model's dtype, as the reference keeps it.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,9 +78,18 @@ def init_moe_params(gen: torch.Generator, cfg: ModelConfig, *,
                     dtype: torch.dtype = torch.float32
                     ) -> Dict[str, torch.Tensor]:
     """N(0, 1/fan_in) for every matrix; the router in float32."""
-    return {name: common.dense_init(
-                gen, shape, dtype=torch.float32 if name == "router" else dtype)
-            for name, shape in moe_param_shapes(cfg).items()}
+    return dict(iter_moe_params(gen, cfg, dtype=dtype))
+
+
+def iter_moe_params(gen: torch.Generator, cfg: ModelConfig, *,
+                    dtype: torch.dtype = torch.float32
+                    ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """:func:`init_moe_params`' leaves one at a time, in its order, each
+    drawn when the caller asks for it (a caller that copies each into
+    place holds one at a time: deepseek-v3's are 7.5 GB each)."""
+    for name, shape in moe_param_shapes(cfg).items():
+        yield name, common.dense_init(
+            gen, shape, dtype=torch.float32 if name == "router" else dtype)
 
 
 def moe_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:

@@ -1,6 +1,8 @@
 """Decoder-only LM: dense (olmo-1b, qwen2.5-14b, yi-9b, nemotron-4-340b
-and their kin), MoE (granite-moe-1b-a400m), RWKV-6 (rwkv6-7b, family
-ssm) and the Griffin hybrid (recurrentgemma-2b).
+and their kin), vlm (chameleon-34b: a dense stack over VQ token ids), MoE
+(granite-moe-1b-a400m; deepseek-v3-671b with MLA, a shared expert and
+multi-token prediction), RWKV-6 (rwkv6-7b, family ssm) and the Griffin
+hybrid (recurrentgemma-2b).
 
 The reference's ``LM`` in PyTorch: a homogeneous stack's leaves
 layer-stacked ((L, ...) each, as the reference's vmapped init builds them)
@@ -9,9 +11,11 @@ layers a list, each its own leaves (recurrent layers an RG-LRU block and an
 MLP, local-attention layers MQA over ``local_window`` and an MLP, along
 ``recurrent.block_pattern``); tied or separate output head; the
 cross-entropy loss plus the MoE's load-balance loss summed over the layers
-(the reference's ``total``); and serving: ``init_cache``, ``prefill`` and
-``decode_step``.  MLA and multi-token prediction raise
-(``configs.check_ported``, ROADMAP A13).
+(the reference's ``total``) and, with ``mtp_depth``, 0.3 times the
+multi-token prediction's cross-entropy (``mtp/...`` leaves: the next
+token's embedding beside the final hidden state, projected, through one
+more MLA + MoE block); and serving: ``init_cache``, ``prefill`` and
+``decode_step``.  An MLA stack (``models.mla``) caches the latent.
 
 Parameters are a dict keyed by the leaves' paths in the reference's tree
 ("blocks/attn/wq", "blocks/3/rec/w_a", "embed", ...); in leaf order
@@ -29,9 +33,10 @@ Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass, the same numbers.
 
 The cache is a dict of tensors: the attention layers' ``k`` and ``v``
-(L_att, B, C, KV, hd) in the model's dtype and one ``kv_pos`` (B, C)
-int32; RWKV-6's ``S``, ``x_tm`` and ``x_cm``, the RG-LRU's ``h`` and
-``conv`` (``init_cache``); and ``length``, a 0-d int32 tensor on the
+(L_att, B, C, KV, hd) in the model's dtype (an MLA stack's ``latent``
+(L, B, C, r + d_rope) instead) and one ``kv_pos`` (B, C) int32; RWKV-6's
+``S``, ``x_tm`` and ``x_cm``, the RG-LRU's ``h`` and ``conv``
+(``init_cache``); and ``length``, a 0-d int32 tensor on the
 cache's device.  ``decode_step`` derives the positions and the ring slot
 from ``length`` on the device, so it makes no synchronizing call, and
 writes k, v and the states into the cache in place, as the reference's
@@ -54,7 +59,7 @@ from repro_torch import convert
 from repro_torch.config.base import Config, ModelConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import common, griffin, mlp, rwkv
+from repro_torch.models import common, griffin, mla, mlp, rwkv
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -97,7 +102,8 @@ def block_leaves(cfg: ModelConfig, kind: str
     (``make_norm_params``), the MoE router, RWKV-6's ``rwkv.FLOAT32`` and
     the RG-LRU's ``griffin.FLOAT32``, as the reference's inits make them.
     An RWKV-6 layer holds its norms and "rwkv"; any other its norms, "rec"
-    (recurrent) or "attn", and "mlp" or "moe"."""
+    (recurrent), "mla" (an attention layer where ``cfg.mla.enabled``; its
+    norms' scales float32) or "attn", and "mlp" or "moe"."""
     out = {}
     for norm in ("norm1", "norm2"):
         for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
@@ -109,6 +115,9 @@ def block_leaves(cfg: ModelConfig, kind: str
     if kind == "recurrent":
         for k, s in griffin.recurrent_param_shapes(cfg).items():
             out[f"rec/{k}"] = (s, k in griffin.FLOAT32)
+    elif cfg.mla.enabled:
+        for k, s in mla.mla_param_shapes(cfg).items():
+            out[f"mla/{k}"] = (s, k in mla.FLOAT32)
     else:
         for k, s in attn.attention_param_shapes(cfg).items():
             out[f"attn/{k}"] = (s, False)
@@ -142,10 +151,29 @@ def lm_param_shapes(cfg: ModelConfig) -> convert.Layout:
         for i in range(cfg.n_layers):
             for k, v in block_leaves(cfg, block_kind(cfg, i)).items():
                 leaves[f"blocks/{i}/{k}"] = v
+    if cfg.mtp_depth > 0:
+        leaves["mtp/proj"] = ((2 * cfg.d_model, cfg.d_model), False)
+        for k, v in block_leaves(cfg, "attention").items():
+            leaves[f"mtp/block/{k}"] = v
+        for k, s in common.norm_param_shapes(cfg, cfg.d_model).items():
+            leaves[f"mtp/norm/{k}"] = (s, True)
     dt = torch_dtype(cfg)
     return convert.Layout({k: s for k, (s, _) in leaves.items()},
                           {k: torch.float32 if f32 else dt
                            for k, (_, f32) in leaves.items()})
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 stacked: bool) -> torch.Tensor:
+    """Rows of the embedding table (V, d) at tokens (..., S); stacked, C
+    tables (C, V, d) and tokens (C, ...), cohort c's ids into table c."""
+    if not stacked:
+        return F.embedding(tokens.long(), table)
+    # C tables as one (C·V, d) table, cohort c's ids offset by c·V
+    C, V, d = table.shape
+    offs = torch.arange(C, device=tokens.device) * V
+    ids = tokens.long() + offs.reshape(C, *([1] * (tokens.dim() - 1)))
+    return F.embedding(ids, table.reshape(C * V, d))
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -158,9 +186,9 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class LM:
-    """Decoder-only language model, dense, MoE, RWKV-6 and Griffin hybrid
-    families; ``models.build_model`` checks the config
-    (``configs.check_ported``) before it builds one."""
+    """Decoder-only language model of every family but the cnn and the
+    encoder-decoder: dense, vlm, MoE (with MLA and multi-token
+    prediction), RWKV-6 and the Griffin hybrid."""
     config: Config
 
     def __post_init__(self):
@@ -200,9 +228,10 @@ class LM:
         the config's dtype where every leaf has it) from one generator, as
         the reference's ``init`` lays them out: embeddings N(0, 0.02²);
         then layer by layer its mixer's matrices N(0, 1/fan_in) (attention,
-        RWKV-6 or RG-LRU, with their float32 constants) and its MLP's (or
-        MoE's), and its norms (``make_norm_params``, float32); the final
-        norm; a separate head.  The draws are the port's own: a parity test
+        MLA, RWKV-6 or RG-LRU, with their float32 constants) and its MLP's
+        (or MoE's), and its norms (``make_norm_params``, float32); the final
+        norm; a separate head; the multi-token prediction's projection,
+        block and norm.  The draws are the port's own: a parity test
         converts the reference's parameters instead
         (``convert.flat_from_tree``)."""
         cfg, dt = self.cfg, self.dtype
@@ -212,36 +241,50 @@ class LM:
         views = convert.unflatten_params(flat, self.param_shapes)
 
         def fill(prefix, leaves, layer=None):
-            for k, v in leaves.items():
+            pairs = leaves.items() if isinstance(leaves, dict) else leaves
+            for k, v in pairs:
                 view = views[f"{prefix}/{k}"]
                 (view if layer is None else view[layer]).copy_(v)
+                del v       # freed before a generator draws the next leaf
 
         views["embed"].copy_(common.embed_init(
             gen, (cfg.vocab_size, cfg.d_model)))
         norm = common.make_norm_params(cfg, cfg.d_model, device=dev)
-        for i, kind in enumerate(self.kinds):
-            pre, at = (("blocks", i) if homogeneous(cfg)
-                       else (f"blocks/{i}", None))
+
+        def fill_block(pre, kind, at=None):
             fill(f"{pre}/norm1", norm, at)
             fill(f"{pre}/norm2", norm, at)
             if kind == "rwkv6":
                 fill(f"{pre}/rwkv", rwkv.init_rwkv_params(gen, cfg, dtype=dt),
                      at)
-                continue
+                return
             if kind == "recurrent":
                 fill(f"{pre}/rec", griffin.init_recurrent_params(
                     gen, cfg, dtype=dt), at)
+            elif cfg.mla.enabled:
+                fill(f"{pre}/mla", mla.init_mla_params(gen, cfg, dtype=dt), at)
             else:
                 fill(f"{pre}/attn", attn.init_attention_params(
                     gen, cfg, dtype=dt), at)
             if cfg.moe.enabled:
-                fill(f"{pre}/moe", mlp.init_moe_params(gen, cfg, dtype=dt), at)
+                fill(f"{pre}/moe", mlp.iter_moe_params(gen, cfg, dtype=dt), at)
             else:
                 fill(f"{pre}/mlp", mlp.init_mlp_params(gen, cfg, dtype=dt), at)
+
+        for i, kind in enumerate(self.kinds):
+            if homogeneous(cfg):
+                fill_block("blocks", kind, i)
+            else:
+                fill_block(f"blocks/{i}", kind)
         fill("final_norm", norm)
         if not cfg.tie_embeddings:
             views["head"].copy_(common.dense_init(
                 gen, (cfg.d_model, cfg.vocab_size)))
+        if cfg.mtp_depth > 0:
+            views["mtp/proj"].copy_(common.dense_init(
+                gen, (2 * cfg.d_model, cfg.d_model)))
+            fill_block("mtp/block", "attention")
+            fill("mtp/norm", norm)
         return flat
 
     def init(self, seed: Union[int, torch.Generator] = 0, *,
@@ -254,14 +297,7 @@ class LM:
 
     def _embed(self, params: Params, tokens: torch.Tensor,
                stacked: bool) -> torch.Tensor:
-        table = params["embed"]
-        if not stacked:
-            return F.embedding(tokens.long(), table)
-        # C tables as one (C·V, d) table, cohort c's ids offset by c·V
-        C, V, d = table.shape
-        offs = torch.arange(C, device=tokens.device) * V
-        ids = tokens.long() + offs.reshape(C, *([1] * (tokens.dim() - 1)))
-        return F.embedding(ids, table.reshape(C * V, d))
+        return embed_tokens(params["embed"], tokens, stacked)
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -297,8 +333,9 @@ class LM:
         empty state (zeros), as the reference's full-sequence blocks do.
         ``store(i, entry)``, where given, takes layer i's cache entry as
         the layers run (prefill fills its cache so): the rope'd (k, v)
-        (B, S, KV, hd) of an attention layer, the final state of a
-        recurrent one."""
+        (B, S, KV, hd) of an attention layer (an MLA layer's latent
+        entries (B, S, r + d_rope)), the final state of a recurrent
+        one."""
         cfg = self.cfg
         B, S = tokens.shape[-2:]
         positions = torch.arange(S, dtype=torch.int32,
@@ -337,6 +374,9 @@ class LM:
             mix, entry = griffin.recurrent_block(
                 _sub(layer, "rec"), h,
                 griffin.init_recurrent_state(lead, cfg, x.dtype, x.device), cfg)
+        elif cfg.mla.enabled:
+            mix, entry = mla.mla_attention(_sub(layer, "mla"), h, positions,
+                                           cfg, window=block_window(cfg, kind))
         else:
             mix, entry = attn.self_attention(_sub(layer, "attn"), h, positions,
                                              cfg, window=block_window(cfg, kind))
@@ -364,15 +404,23 @@ class LM:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One model's loss over the batch's tokens and labels (B, S): the
         mean cross-entropy plus the MoE's load-balance loss (the
-        reference's ``total``), with both in the metrics; ``rng`` is
-        ignored, as the reference's."""
+        reference's ``total``) plus, with ``mtp_depth``, 0.3 times the
+        multi-token prediction's (:meth:`_mtp_ce`), each in the metrics;
+        ``rng`` is ignored, as the reference's."""
         remat = self.config.train.remat if remat is None else remat
         x, aux = self._backbone(params, batch["tokens"], stacked=False,
                                 remat=remat)
         ce = _cross_entropy(self._logits(params, x), batch["labels"])
         if aux is None:
-            return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
-        return ce + aux, {"ce": ce, "aux": aux}
+            total, aux = ce, torch.zeros((), device=ce.device)
+        else:
+            total = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if self.cfg.mtp_depth > 0:
+            mtp_ce = self._mtp_ce(params, x, batch["labels"], stacked=False)
+            total = total + 0.3 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        return total, metrics
 
     def loss_stacked(self, params: Params, batch: Dict[str, torch.Tensor], *,
                      remat: Optional[bool] = None
@@ -384,11 +432,38 @@ class LM:
         x, aux = self._backbone(params, batch["tokens"], stacked=True,
                                 remat=remat)
         logits = self._logits(params, x)
-        ce = _cross_entropy(logits, batch["labels"])
+        total = _cross_entropy(logits, batch["labels"])
         with torch.no_grad():
             hit = logits.argmax(-1) == batch["labels"].long()
             acc = hit.float().mean(dim=(-2, -1))
-        return (ce if aux is None else ce + aux), acc
+        del logits
+        if aux is not None:
+            total = total + aux
+        if self.cfg.mtp_depth > 0:
+            total = total + 0.3 * self._mtp_ce(params, x, batch["labels"],
+                                               stacked=True)
+        return total, acc
+
+    def _mtp_ce(self, params: Params, h_final: torch.Tensor,
+                labels: torch.Tensor, stacked: bool) -> torch.Tensor:
+        """The multi-token prediction's cross-entropy: position t predicts
+        token t + 2 from its final hidden state and the next token's
+        embedding (the shared table), concatenated, projected by
+        "mtp/proj", through one attention block ("mtp/block") and a norm
+        ("mtp/norm"), then the shared head; the labels shifted by one, the
+        last repeated.  The block's MoE load-balance loss is discarded, as
+        the reference discards it."""
+        emb_next = self._embed(params, labels, stacked)
+        h = common.linear(torch.cat([h_final.to(emb_next.dtype), emb_next],
+                                    -1), params["mtp/proj"])
+        B, S = labels.shape[-2:]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=labels.device).expand(B, S)
+        h, _ = self._block("attention", _sub(params, "mtp/block"), h,
+                           positions)
+        h = common.apply_norm(h, _sub(params, "mtp/norm"), self.cfg)
+        labels2 = torch.cat([labels[..., 1:], labels[..., -1:]], -1)
+        return _cross_entropy(self._logits(params, h), labels2)
 
     # -- serving ---------------------------------------------------------------
 
@@ -403,7 +478,8 @@ class LM:
     def init_cache(self, batch: int, seq_len: int, *,
                    device: DeviceLike = None) -> Cache:
         """Empty cache sized for a ``seq_len`` context: k and v (L_att, B,
-        C, KV, hd) and ``kv_pos`` (B, C) for the attention layers; RWKV-6's
+        C, KV, hd) (an MLA stack's ``latent`` (L, B, C, r + d_rope)) and
+        ``kv_pos`` (B, C) for the attention layers; RWKV-6's
         S (L, B, H, hd, hd) float32, x_tm and x_cm (L, B, d); the RG-LRU's
         h (L_rec, B, d_rnn) float32 and conv (L_rec, B, w−1, d_rnn); and
         ``length``.  A recurrent state's size does not depend on
@@ -421,12 +497,18 @@ class LM:
                                                       self.dtype, dev))
         if n_kv:
             C = self.cache_capacity(seq_len)
-            shape = (n_kv, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
-            cache.update(
-                k=torch.zeros(shape, dtype=self.dtype, device=dev),
-                v=torch.zeros(shape, dtype=self.dtype, device=dev),
-                kv_pos=torch.full((batch, C), -1, dtype=torch.int32,
-                                  device=dev))
+            if cfg.mla.enabled:
+                cache["latent"] = torch.zeros(
+                    (n_kv, batch, C, mla.latent_width(cfg)), dtype=self.dtype,
+                    device=dev)
+            else:
+                shape = (n_kv, batch, C, cfg.n_kv_heads,
+                         cfg.resolved_head_dim)
+                cache.update(
+                    k=torch.zeros(shape, dtype=self.dtype, device=dev),
+                    v=torch.zeros(shape, dtype=self.dtype, device=dev))
+            cache["kv_pos"] = torch.full((batch, C), -1, dtype=torch.int32,
+                                         device=dev)
         cache["length"] = torch.zeros((), dtype=torch.int32, device=dev)
         return cache
 
@@ -455,8 +537,8 @@ class LM:
             cache["length"].fill_(S)
             return self._logits(params, h[:, -1:])[:, -1], cache
         n = S
-        if "k" in cache:
-            C = cache["k"].shape[2]
+        if "kv_pos" in cache:
+            C = cache["kv_pos"].shape[1]
             if C < S and S % C:
                 raise ValueError(
                     f"windowed prefill->decode needs prompt length ({S}) to "
@@ -465,6 +547,9 @@ class LM:
 
         def store(i, entry):
             j = self._slot[i]
+            if "latent" in cache:
+                cache["latent"][j, :, :n].copy_(entry[:, S - n:])
+                return
             if self.kinds[i] in ATTENTION:
                 k, v = entry
                 cache["k"][j, :, :n].copy_(k[:, S - n:])
@@ -494,8 +579,9 @@ class LM:
         positions = length.expand(B, 1)
         new = dict(cache, length=length + 1)
         slot = None
-        if "k" in cache:
-            slot = torch.remainder(length, cache["k"].shape[2]).long().reshape(1)
+        if "kv_pos" in cache:
+            slot = torch.remainder(length, cache["kv_pos"].shape[1]
+                                   ).long().reshape(1)
             new["kv_pos"] = cache["kv_pos"].index_copy(1, slot, positions)
         x = self._extend(params, cache, tokens, positions, slot)
         return self._logits(params, x), new
@@ -528,6 +614,11 @@ class LM:
                                                      state, cfg)
                 for n, t in entry.items():
                     state[n].copy_(t)
+            elif cfg.mla.enabled:
+                mix = mla.mla_decode(
+                    _sub(layer, "mla"), h, positions, cfg,
+                    cache=cache["latent"][j], kv_pos=cache["kv_pos"],
+                    write_slot=slot, window=block_window(cfg, kind))
             else:
                 mix = attn.decode_self_attention(
                     _sub(layer, "attn"), h, positions, cfg,

@@ -6,8 +6,9 @@ port runs too: the chunked attention with its padding (no causal or
 window block skipped, masking only), capacity-based MoE dispatch, the FL
 round's local iterations, fwd+bwd = 3x fwd for training, the last
 position's head in prefill, and the decode cache's read and write.  Every
-family's branch is here, because it is arithmetic on the config; the port
-runs the dense one (``configs.check_ported``).
+family's branch is here (MLA, the shared experts, multi-token prediction,
+the encoder-decoder, the recurrent blocks), as the port builds every
+family.
 
 Sharding model: per-device flops = Σ_component global_flops /
 shards(component), where shards(component) honours the reference's

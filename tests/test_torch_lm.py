@@ -361,16 +361,22 @@ def test_token_batch_is_the_references_stream():
 
 
 def test_other_families_raise_naming_a13():
+    """The families and fields the port once refused (naming ROADMAP A13)
+    now build at olmo-1b's widths, and ``reduced`` keeps each as the
+    reference's ``reduced`` does, field for field."""
     cfg = get_config("olmo-1b")
     for field, value in (("family", "vlm"), ("mtp_depth", 1),
                          ("is_encoder_decoder", True),
                          ("mla", MLAConfig(enabled=True))):
-        bad = dataclasses.replace(cfg, model=dataclasses.replace(
+        other = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, **{field: value}))
-        with pytest.raises(NotImplementedError, match="A13"):
-            build_model(bad)
-        with pytest.raises(NotImplementedError, match="A13"):
-            reduced(bad)
+        build_model(other)
+        jother = japply(jget_config("olmo-1b"), (
+            f"model.{field}={value}" if field != "mla"
+            else "model.mla.enabled=true",))
+        assert (dataclasses.asdict(reduced(other).model)
+                == dataclasses.asdict(jreduced(jother).model))
+        build_model(reduced(other))
     # recurrent blocks are ported: olmo-1b's widths as an RWKV-6 stack
     rec = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, recurrent=RecurrentConfig(kind="rwkv6")))

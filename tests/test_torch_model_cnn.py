@@ -140,7 +140,16 @@ def test_init_is_he_normal_and_seeded():
 
 
 def test_unported_family_raises():
+    """Every family of the reference's zoo builds (the cnn's widths as a
+    vlm give the decoder-only LM, as the reference's ``build_model``
+    does); a family outside the zoo raises."""
     import dataclasses
+
+    from repro_torch.models import LM
     cfg = get_config("mnist_cnn")
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, family="vlm")))
+    vlm = build_model(dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, family="vlm")))
+    assert isinstance(vlm, LM)
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, family="diffusion")))

@@ -111,7 +111,7 @@ def _near(got, want, tol, what=""):
 @pytest.mark.parametrize("arch", [RWKV, GRIFFIN])
 def test_configs_are_the_references(arch):
     """Field for field, full and reduced (``reduced``'s ``rec`` clause:
-    d_rnn = d); ``check_ported`` accepts both, in bfloat16."""
+    d_rnn = d); ``build_model`` builds both, in bfloat16."""
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     for sec in ("model", "train"):
         assert dataclasses.asdict(getattr(t, sec)) == \
@@ -122,7 +122,7 @@ def test_configs_are_the_references(arch):
     assert t.model.dtype == "bfloat16"
     assert tconfigs.is_subquadratic(t)
     assert t.model.family in tconfigs.PORTED_FAMILIES
-    tconfigs.check_ported(t)
+    build_model(t)
     assert build_model(rt).num_params == sum(
         x.size for x in jax.tree_util.tree_leaves(
             jbuild_model(rj).init(jax.random.PRNGKey(0))))
@@ -141,13 +141,26 @@ def _port_config(jcfg):
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-base",
                                   "chameleon-34b"])
 def test_check_ported_still_refuses_the_rest(arch):
-    """MLA with MTP, the encoder-decoder and the vlm family still raise,
-    naming ROADMAP A13; their configs are the reference's."""
-    cfg = _port_config(jconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tconfigs.check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_model(cfg)
+    """The last three configs of the zoo, which the port refused until it
+    built MLA with MTP, the encoder-decoder and the vlm family: the
+    port's registered config is the reference's field for field, full and
+    reduced (MLA's reduced ranks), and ``build_model`` builds both, with
+    the reference's parameter count at the reduced size."""
+    j = jconfigs.get_config(arch)
+    cfg = _port_config(j)
+    t = tconfigs.get_config(arch)
+    assert dataclasses.asdict(t.model) == dataclasses.asdict(cfg.model)
+    for sec in ("model", "train"):
+        assert dataclasses.asdict(getattr(t, sec)) == \
+            dataclasses.asdict(getattr(j, sec))
+    assert t.fl.cohort_axes == j.fl.cohort_axes
+    rj, rt = jconfigs.reduced(j), tconfigs.reduced(t)
+    assert dataclasses.asdict(rt.model) == dataclasses.asdict(rj.model)
+    assert t.model.family in tconfigs.PORTED_FAMILIES
+    build_model(cfg)
+    assert build_model(rt).num_params == sum(
+        x.size for x in jax.tree_util.tree_leaves(
+            jax.eval_shape(jbuild_model(rj).init, jax.random.PRNGKey(0))))
 
 
 # ---------------------------------------------------------------------------

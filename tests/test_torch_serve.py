@@ -10,7 +10,11 @@ prefill's last logits and its cache (``k``, ``v``, ``kv_pos``,
 with the logits and the cache after each.  Cases: float32, bfloat16, a
 cache sized above the prompt (``max_len``), and a window of 16 under a
 prompt of 32 (the cache cropped to the window, then the ring overwrites
-its slots).  Float32 is held elementwise within rtol and atol 1e-5 (a CPU
+its slots); and reduced chameleon-34b (family vlm, its float32 rmsnorm
+scales beside bfloat16 weights) in float32 with ``max_len`` and in
+bfloat16, whose logits are held within 2e-2 of the largest, as
+``test_torch_moe.py`` holds granite's (its 512-wide logits in bfloat16
+differ by up to 0.027, two ulps near 2, at entries near zero).  Float32 is held elementwise within rtol and atol 1e-5 (a CPU
 run measured at most 3.8e-6 on the cache, 1.6e-6 on logits).  bfloat16
 is held within 2e-2, as the reference's own prefill tests hold it: the
 logits elementwise, the cache's k and v within 2e-2 of the largest entry
@@ -49,6 +53,9 @@ CASES = {
     "bf16": ((), 0, 2e-2),
     "bf16_max_len": ((), S + 8, 2e-2),
     "bf16_window": (WINDOW, 0, 2e-2),
+    # chameleon-34b (vlm): a dense stack over VQ token ids, 64/8 GQA
+    "chameleon_f32_max_len": (F32, S + 8, 1e-5, "chameleon-34b"),
+    "chameleon_bf16": ((), 0, 2e-2, "chameleon-34b"),
 }
 #: the CLI size of the reference's serving docstring, olmo-1b
 TINY = ("model.n_layers=2", "model.d_model=128", "model.n_heads=4",
@@ -89,13 +96,20 @@ def _assert_cache(tcache, jcache, tol, what):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_prefill_and_decode_match_reference(case):
-    overrides, max_len, tol = CASES[case]
-    jcfg = japply(jreduced(jget_config("olmo-1b")), overrides)
-    tcfg = apply_overrides(reduced(get_config("olmo-1b")), overrides)
+    overrides, max_len, tol, arch = (CASES[case] + ("olmo-1b",))[:4]
+    jcfg = japply(jreduced(jget_config(arch)), overrides)
+    tcfg = apply_overrides(reduced(get_config(arch)), overrides)
     jmodel, tmodel = jbuild_model(jcfg), build_model(tcfg)
+
+    def close_logits(got, want, what):
+        if arch == "olmo-1b" or tmodel.dtype == torch.float32:
+            return _close(got, want, tol, what)
+        err = np.abs(np.asarray(got, np.float32) - _np(want)).max()
+        assert err <= tol * np.abs(_np(want)).max(), (what, err)
+
     jparams = jmodel.init(jax.random.PRNGKey(0))
     flat = convert.flat_from_tree(jax.tree_util.tree_map(np.asarray, jparams),
-                                  tmodel.dtype, device="cpu")
+                                  None, device="cpu")
     tparams = convert.unflatten_params(flat, tmodel.param_shapes)
     rng = np.random.default_rng(1)
     vocab = tcfg.model.vocab_size
@@ -106,7 +120,7 @@ def test_prefill_and_decode_match_reference(case):
     tlogits, tcache = tmodel.prefill(tparams, torch.from_numpy(toks),
                                      max_len=max_len)
     assert tlogits.shape == (B, vocab) and tlogits.dtype == torch.float32
-    _close(tlogits, jlogits, tol, "prefill logits")
+    close_logits(tlogits, jlogits, "prefill logits")
     C = {"f32_window": 16, "bf16_window": 16}.get(case, max(max_len, S))
     assert tcache["k"].shape == (2, B, C, 4, 64) and tcache["k"].dtype == tmodel.dtype
     _assert_cache(tcache, jcache, tol, "prefill cache")
@@ -121,7 +135,7 @@ def test_prefill_and_decode_match_reference(case):
         tlogits, tcache = tmodel.decode_step(tparams, tcache,
                                              torch.from_numpy(tok))
         assert tlogits.shape == (B, 1, vocab)
-        _close(tlogits, jlogits, tol, f"decode {step} logits")
+        close_logits(tlogits, jlogits, f"decode {step} logits")
         _assert_cache(tcache, jcache, tol, f"decode {step} cache")
     assert int(tcache["length"]) == S + STEPS
 

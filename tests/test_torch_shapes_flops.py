@@ -34,7 +34,11 @@ from repro_torch.utils import roofline as troofline
 
 ARCHS = ("olmo-1b", "mnist_cnn", "qwen2.5-14b", "yi-9b",
          "nemotron-4-340b", "granite-moe-1b-a400m", "rwkv6-7b",
-         "recurrentgemma-2b")
+         "recurrentgemma-2b", "deepseek-v3-671b", "whisper-base",
+         "chameleon-34b")
+#: the last slice's configs: MLA with a shared expert and MTP, the
+#: encoder-decoder and the vlm family
+ZOO = ("deepseek-v3-671b", "whisper-base", "chameleon-34b")
 MESHES = (((1, 1), ("data", "model")), ((2, 4), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model")))
 
@@ -179,3 +183,79 @@ def test_roofline_terms_take_the_h100_constants(shape):
                 "collective_bytes_per_device", "model_flops_global",
                 "hlo_flops_global", "useful_flops_ratio"):
         assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("arch", ZOO)
+@pytest.mark.parametrize("shape", list(jshapes.SHAPES))
+def test_zoo_analytic_costs_match_exactly(arch, shape):
+    """deepseek-v3-671b (MLA, a shared expert, MTP), whisper-base (the
+    encoder-decoder) and chameleon-34b (vlm), full and reduced:
+    ``analytic_costs`` at the shape (``for_shape``) equal to the
+    reference's field by field over the three meshes and every step kind
+    and mode; whisper has no long_500k, and ``for_shape`` raises there as
+    the reference's does."""
+    js, ts = jshapes.SHAPES[shape], tshapes.SHAPES[shape]
+    for reduce in (False, True):
+        j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+        if reduce:
+            j, t = jconfigs.reduced(j), tconfigs.reduced(t)
+        if not jconfigs.supports_shape(j, js):
+            assert arch == "whisper-base" and shape == "long_500k"
+            with pytest.raises(ValueError, match="does not support"):
+                tconfigs.for_shape(t, ts)
+            continue
+        j, t = jconfigs.for_shape(j, js), tconfigs.for_shape(t, ts)
+        assert t.model.param_count() == j.model.param_count()
+        assert t.model.active_param_count() == j.model.active_param_count()
+        for sizes, axes in MESHES:
+            jmesh = types.SimpleNamespace(shape=dict(zip(axes, sizes)))
+            for step_kind, mode in _step_kinds(js.kind):
+                want = jflops.analytic_costs(j, js, jmesh,
+                                             step_kind=step_kind,
+                                             collective_mode=mode)
+                got = tflops.analytic_costs(t, ts, make_mesh(sizes, axes),
+                                            step_kind=step_kind,
+                                            collective_mode=mode)
+                assert dataclasses.asdict(got) == dataclasses.asdict(want), (
+                    reduce, sizes, step_kind, mode)
+
+
+@pytest.mark.parametrize("arch", ZOO)
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_zoo_serving_inputs_and_cache_match(arch, shape):
+    """``launch.inputs`` for the three: the (B, S) prompt, whisper's
+    (B, 1500, 512) frames in the model's dtype beside it, the (B, 1)
+    token; the cache at the shape has the reference's leaves' shapes and
+    dtypes (deepseek's latent (61, B, C, 576), whisper's self and cross
+    k and v), built on the meta device."""
+    js, ts = jshapes.SHAPES[shape], tshapes.SHAPES[shape]
+    jcfg = jconfigs.for_shape(jconfigs.get_config(arch), js)
+    tcfg = tconfigs.for_shape(tconfigs.get_config(arch), ts)
+    mesh = jcompat.make_mesh((1, 1), ("data", "model"))
+    structs, _ = jinputs.prefill_specs(jcfg, js, mesh)
+    assert tinputs.prefill_shape(ts) == structs[0].shape
+    if tcfg.model.is_encoder_decoder:
+        assert tinputs.frames_shape(tcfg, ts.global_batch) == structs[1].shape
+        frames = tinputs.random_frames(tcfg, 2,
+                                       torch.Generator().manual_seed(0))
+        assert frames.shape == (2, 1500, 512) and frames.dtype == torch.float32
+    else:
+        assert len(structs) == 1
+    jmodel = jbuild_model(jcfg)
+    (jcache, jtok), _ = jinputs.decode_specs(jmodel, jcfg, js, mesh)
+    assert tinputs.decode_shape(ts) == jtok.shape
+    tcache = build_model(tcfg).init_cache(js.global_batch, js.seq_len,
+                                             device="meta")
+    if "layers" in jcache:
+        want = {"latent" if tcfg.model.mla.enabled else "k":
+                jcache["layers"] if tcfg.model.mla.enabled
+                else jcache["layers"][0]}
+        if not tcfg.model.mla.enabled:
+            want["v"] = jcache["layers"][1]
+        want.update(kv_pos=jcache["kv_pos"], length=jcache["length"])
+    else:
+        want = jcache
+    assert set(tcache) == set(want)
+    for name, w in want.items():
+        assert tuple(tcache[name].shape) == w.shape, name
+        assert str(tcache[name].dtype).removeprefix("torch.") == str(w.dtype)
