@@ -84,7 +84,18 @@ through the kernels at the paper's widths:
   layers and chameleon-34b (vlm) at full width and depth, served at the
   CLI's defaults and at a 16,384-token prompt with 64 decode steps; the
   three reduced against the CPU: serving, float32 rounds in every format
-  and deepseek's and chameleon's rounds in bfloat16.
+  and deepseek's and chameleon's rounds in bfloat16;
+* one cohort a process (``make_dist_fl_round`` over ``core.comm``): 4
+  worker processes (``spawn``) share the card over gloo, each payload
+  staged through pinned host memory, and run the QNN at the paper's width
+  at (4,), (2, 2) ("pod", "data") and (2, 2) ("data", "model") in the
+  paper, int, packed, ring and rsag formats (both front-ends), 3 rounds
+  each; then 2 workers run reduced olmo-1b and qwen2.5-14b in bfloat16
+  at (2,) in ring and rsag.  Replicas ``torch.equal`` after every round,
+  the quantized formats ``torch.equal`` to each other, the per-rank
+  aggregate against the stacked one on the stacked round's rows, the
+  round against the stacked round on the same draws; round and staging
+  ms beside the card.
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -2101,6 +2112,371 @@ def spans_phase(torch, label, run_round, wire):
 #: for 8 devices (C = 2 cohorts stacked, I = 3), cut to 12 sequences of
 #: 512 tokens a round (the config's 256 x 4,096) so that two stacked
 #: replicas fit one card; width and C are never cut
+#: the distributed cohort round (one cohort a process over ``core.comm``):
+#: DIST_WORLD worker processes share cuda:0 over gloo with host staging.
+#: The QNN at the paper's width (I = 3, 32 images a microbatch, q = 0.01)
+#: on each mesh of DIST_MESHES in each of DIST_FORMATS (label, collective,
+#: pipeline_hops); reduced olmo-1b (one bfloat16 buffer) and reduced
+#: qwen2.5-14b (a bfloat16 and a float32 buffer) at (2,) over 2 ranks in
+#: DIST_LM_FORMATS
+DIST_WORLD = 4
+DIST_MESHES = (((4,), ("data",)), ((2, 2), ("pod", "data")),
+               ((2, 2), ("data", "model")))
+DIST_FORMATS = (("paper", "paper", True), ("int", "int", True),
+                ("packed", "packed", True), ("ring", "ring", True),
+                ("ring_sequential", "ring", False), ("rsag", "rsag", True),
+                ("rsag_sequential", "rsag", False))
+DIST_LM_FORMATS = (("ring", "ring", True), ("rsag", "rsag", True))
+DIST_LM = ("olmo-1b", "qwen2.5-14b")
+DIST_LM_OVERRIDES = ("model.dtype=bfloat16", "train.global_batch=8",
+                     "train.seq_len=64", "fl.local_iters=2",
+                     "channel.error_prob=0.3")
+#: the wire kernels of the per-rank uplink, each with its plain version,
+#: held to each other on every call of one round a format
+DIST_HELD = (("stochastic_quantize_codes", "stochastic_quantize_ref"),
+             ("dequantize_codes", "dequantize_ref"),
+             ("quantize_pack", "quantize_pack_ref"),
+             ("quantize_pack_chunk", "quantize_pack_chunk_ref"),
+             ("pack_sums", "pack_sums_ref"), ("repack", "repack_ref"),
+             ("unpack_dequantize", "unpack_dequantize_ref"))
+
+
+def _digest(torch, flat) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for b in (flat if isinstance(flat, tuple) else (flat,)):
+        h.update(b.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _flat32(torch, flat):
+    return torch.cat([b.float().reshape(-1) for b in
+                      (flat if isinstance(flat, tuple) else (flat,))])
+
+
+def _dist_inputs(torch, model_name, C, dev):
+    """(the config for a pipeline_hops, model, round batches, params) of
+    one job, the same on every rank."""
+    from repro_torch.config import apply_overrides
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import digit_dataset, token_batch
+    from repro_torch.models import build_model
+
+    if model_name == "qnn":
+        I, micro = 3, 32
+        make_cfg = lambda hops: cohort_config(get_config, hops, I=I,
+                                              micro=micro, C=C)
+        model = build_model(make_cfg(True))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        B = C * I * micro
+        data = digit_dataset(gen, COHORT_ROUNDS * B)
+        batches = [{k: v[r * B:(r + 1) * B] for k, v in data.items()}
+                   for r in range(COHORT_ROUNDS)]
+        params = torch.cat([v.reshape(-1) for _, v in
+                            sorted(model.init(1, device=dev).items())])
+        return make_cfg, model, batches, params
+    cfg = apply_overrides(reduced(get_config(model_name)), DIST_LM_OVERRIDES)
+    make_cfg = lambda hops: dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, pipeline_hops=hops))
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batches = [token_batch(gen, cfg.train.global_batch, cfg.train.seq_len,
+                           cfg.model.vocab_size) for _ in range(COHORT_ROUNDS)]
+    return make_cfg, model, batches, model.init_flat(1, device=dev)
+
+
+def _held_to_plain(torch, ops, tref, seen):
+    """Replace each kernel wrapper of DIST_HELD in ``ops`` by one that
+    also runs its plain version in ``tref`` on copies of the same operands
+    on the card (before the kernel, which may write an operand in place)
+    and adds to ``seen[name]``: the calls, the operand shapes, whether
+    every output was ``torch.equal`` and the largest absolute difference.
+    Returns the function that puts the wrappers back."""
+    saved = {name: getattr(ops, name) for name, _ in DIST_HELD}
+
+    def held(name, kernel, plain):
+        def call(*args, **kw):
+            want = plain(*(a.detach().clone() if isinstance(a, torch.Tensor)
+                           else a for a in args), **kw)
+            got = kernel(*args, **kw)
+            rec = seen.setdefault(name, {"calls": 0, "equal": True,
+                                         "max_abs_err": 0.0, "shapes": []})
+            rec["calls"] += 1
+            shapes = [list(a.shape) for a in args
+                      if isinstance(a, torch.Tensor)]
+            if shapes not in rec["shapes"]:
+                rec["shapes"].append(shapes)
+            pairs = (zip(got, want) if isinstance(got, tuple)
+                     else ((got, want),))
+            for g, w in pairs:
+                rec["equal"] &= bool(torch.equal(g, w))
+                if g.numel():
+                    rec["max_abs_err"] = max(rec["max_abs_err"], float(
+                        (g.double() - w.double()).abs().max()))
+            return got
+        return call
+
+    for name, plain in DIST_HELD:
+        setattr(ops, name, held(name, saved[name], getattr(tref, plain)))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    return restore
+
+
+def dist_worker(rank, world, init, jobs):
+    """One rank of ``dist_phase`` on cuda:0 over gloo.  For each job
+    (model, mesh shape, axes, formats): COHORT_ROUNDS rounds a format from
+    one generator, timed, the launch counts set to 0 just before and read
+    just after; then one round a format with every wire kernel held to
+    its plain version at this rank's operands (``_held_to_plain``); then
+    one round a format against the stacked round on this card from the
+    same draws (``dist_round_noise``); then the per-rank aggregate of the
+    stacked round's own (C, D) rows against ``aggregate``.  Returns host
+    values only."""
+    import torch
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import comm as comm_mod
+    from repro_torch.core.fl import (_cohort_batches, _delta,
+                                     dist_round_noise, local_sgd,
+                                     make_dist_fl_round, make_fl_round)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as tref
+    from repro_torch.launch import mesh as tmesh
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    comm_mod.init_process_group("gloo", rank, world, dev, init_method=init)
+    seeded = lambda s: torch.Generator(device=dev).manual_seed(s)
+    results = []
+    try:
+        for model_name, shape, axes, formats in jobs:
+            comm = comm_mod.Comm(tmesh.make_mesh(shape, axes), ("pod", "data"),
+                                 dev)
+            C = comm.num_cohorts
+            make_cfg, model, batches, params0 = _dist_inputs(torch, model_name,
+                                                             C, dev)
+            params0 = comm.broadcast_(params0)
+            D = model.param_shapes.numel
+            n32 = sum(1 for k in model.param_shapes
+                      if model.param_shapes.dtypes[k] == torch.float32)
+            res = {"model": model_name, "shape": shape, "axes": axes, "C": C,
+                   "D": D, "layout": repr(model.param_shapes),
+                   "cohort": comm.cohort, "formats": {},
+                   "fma_per_round": (0 if model_name == "qnn" else
+                                     n32 * make_cfg(True).fl.local_iters)}
+            # warm-up (cuDNN's first calls), outside the counted rounds
+            make_dist_fl_round(model, make_cfg(True), comm, collective="int")(
+                params0, batches[0], seeded(99))
+            torch.cuda.synchronize()
+            for label, collective, hops in formats:
+                fn = make_dist_fl_round(model, make_cfg(hops), comm,
+                                        collective=collective)
+                g, params, hist = seeded(11), params0, []
+                staged0 = comm.staging_s
+                ops.reset_launch_counts()
+                for r in range(COHORT_ROUNDS):
+                    t0 = time.perf_counter()
+                    params, m = fn(params, batches[r], g)
+                    loss = float(m["loss"])              # waits for the round
+                    torch.cuda.synchronize()
+                    hist.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                 "loss": loss,
+                                 "survivors": float(m["survivors"]),
+                                 "digest": _digest(torch, params),
+                                 "finite": bool(torch.isfinite(
+                                     _flat32(torch, params)).all())})
+                res["formats"][label] = {
+                    "collective": collective, "hops": hops, "rounds": hist,
+                    "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+                    "staging_ms": (comm.staging_s - staged0) * 1e3
+                                  / COHORT_ROUNDS,
+                    "wire_bits": m["wire_bits_per_param"]}
+            for label, collective, hops in formats:
+                seen = {}
+                restore = _held_to_plain(torch, ops, tref, seen)
+                try:
+                    make_dist_fl_round(model, make_cfg(hops), comm,
+                                       collective=collective)(
+                        params0, batches[0], seeded(11))
+                    torch.cuda.synchronize()
+                finally:
+                    restore()
+                res["formats"][label]["plain"] = seen
+            for label, collective, hops in formats:
+                cfg = make_cfg(hops)
+                got, gm = make_dist_fl_round(model, cfg, comm,
+                                             collective=collective)(
+                    params0, batches[0], seeded(21))
+                want, wm = make_fl_round(model, cfg, comm.axis_sizes,
+                                         collective=collective, device=dev)(
+                    params0, batches[0],
+                    noise=dist_round_noise(model, cfg, seeded(21), C, D))
+                a, b = _flat32(torch, got), _flat32(torch, want)
+                diff = (a - b).abs()
+                res["formats"][label]["vs_stacked"] = {
+                    "equal": bool(torch.equal(a, b)),
+                    "max_diff": float(diff.max()),
+                    "within_1e-5": float((diff <= 1e-5).float().mean()),
+                    "equal_share": float((diff == 0).float().mean()),
+                    "ulp_bound": bool((diff <= 1 / 128 + b.abs() * 2 ** -7)
+                                      .all()),
+                    "loss": float(gm["loss"]), "stacked_loss": float(wm["loss"])}
+            cfg = make_cfg(True)
+            nz = dist_round_noise(model, cfg, seeded(31), C, D)
+            local, _, _ = local_sgd(model, cfg, params0, _cohort_batches(
+                batches[0], C, cfg.fl.local_iters, slice(None)),
+                u_train=nz.u_train)
+            rows = _delta(local, params0, model.param_shapes)
+            lam = torch.ones(C, device=dev)
+            lam[1] = 0.0
+            k = comm.cohort
+            for label, collective, hops in formats:
+                plan = agg.make_wire_plan(collective, make_cfg(hops).quant,
+                                          comm.axes, comm.axis_sizes)
+                got = agg.aggregate_rank(plan, comm, rows[k:k + 1], 1.0 / C,
+                                         lam[k:k + 1], nz.u_up[k:k + 1])
+                want = agg.aggregate(plan, rows, 1.0 / C, lam, nz.u_up)
+                res["formats"][label]["aggregate"] = {
+                    "equal": bool(torch.equal(got, want)),
+                    "rel": float((got - want).abs().max()
+                                 / want.abs().max().clamp(min=1e-30))}
+            res["sent"] = dict(comm.sent)
+            results.append(res)
+        return results
+    finally:
+        comm_mod.destroy_process_group()
+
+
+def dist_phase(torch, run_ranks, smi):
+    """The distributed cohort round: 4 worker processes (``spawn``) on
+    cuda:0 over gloo with host staging, the kernels already built; then 2
+    for the reduced LMs.  A worker that fails, hangs or is killed fails the
+    phase.  Checks every rank's parameters ``torch.equal`` after every
+    round, the quantized formats ``torch.equal`` to each other, the launch
+    counts a rank as ``predicted_cohort_launches``, the per-rank aggregate
+    ``torch.equal`` to ``aggregate`` on the stacked round's rows (paper
+    within rtol 1e-6 of the largest value), and the round against the
+    stacked round on the same draws: ``torch.equal`` or ROADMAP C4's bound
+    (printed which); and every call of a wire kernel in one round a format
+    ``torch.equal`` to its plain version at the rank's own operands, each
+    kernel the counted rounds launched among them.  Returns the launches
+    summed over ranks and rounds, and each wire kernel's largest
+    difference from its plain version."""
+    from repro_torch.core import comm as tcomm
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    work = ROOT / "build" / f"dist_smoke_{int(time.time() * 1e3)}"
+    runs = [run_ranks(dist_worker, DIST_WORLD,
+                      ([("qnn", s, a, DIST_FORMATS) for s, a in DIST_MESHES],),
+                      workdir=str(work / "qnn"),
+                      timeout_s=tcomm.TIMEOUT_S),
+            run_ranks(dist_worker, 2,
+                      ([(m, (2,), ("data",), DIST_LM_FORMATS)
+                        for m in DIST_LM],),
+                      workdir=str(work / "lm"), timeout_s=tcomm.TIMEOUT_S)]
+    total, err = {}, {}
+    for ranks in runs:
+        for j, res0 in enumerate(ranks[0]):
+            shape, model_name = tuple(res0["shape"]), res0["model"]
+            sizes = tuple(s for s, a in zip(shape, res0["axes"])
+                          if a != "model")
+            where = f"{model_name} {shape} {res0['axes']}"
+            digests = {}
+            for label, f0 in res0["formats"].items():
+                per_rank = [r[j]["formats"][label] for r in ranks]
+                for r in range(COHORT_ROUNDS):
+                    check(len({p["rounds"][r]["digest"] for p in per_rank}) == 1,
+                          f"{where} {label} round {r}: replicas differ")
+                check(all(h["finite"] and math.isfinite(h["loss"])
+                          for p in per_rank for h in p["rounds"]),
+                      f"{where} {label}: non-finite")
+                digests[label] = [h["digest"] for h in f0["rounds"]]
+                qnn = model_name == "qnn"
+                want = predicted_cohort_launches(
+                    f0["collective"], f0["hops"], sizes, 3 if qnn else 0,
+                    COHORT_ROUNDS)
+                if res0["fma_per_round"]:
+                    want["fma_step"] = res0["fma_per_round"] * COHORT_ROUNDS
+                for p in per_rank:
+                    check(p["launches"] == want,
+                          f"{where} {label}: launches {p['launches']} != "
+                          f"predicted {want}")
+                    for k, v in p["launches"].items():
+                        total[k] = total.get(k, 0) + v
+                    plain = p["plain"]
+                    check(all(plain[k]["calls"] for k in p["launches"]
+                              if k in dict(DIST_HELD)),
+                          f"{where} {label}: a launched wire kernel was not "
+                          f"held to its plain version: {sorted(plain)}")
+                    for k, rec in plain.items():
+                        check(rec["equal"], f"{where} {label}: {k} differs "
+                              f"from its plain version at {rec['shapes']}")
+                        err[k] = max(err.get(k, 0.0), rec["max_abs_err"])
+                aggs = [p["aggregate"] for p in per_rank]
+                if f0["collective"] == "paper":
+                    check(all(a["rel"] <= 1e-6 for a in aggs),
+                          f"{where} {label}: aggregate off by {aggs}")
+                else:
+                    check(all(a["equal"] for a in aggs),
+                          f"{where} {label}: aggregate != the stacked one")
+                vs = [p["vs_stacked"] for p in per_rank]
+                exact = all(v["equal"] for v in vs)
+                # ROADMAP C4's bound; in bfloat16 that of the LM round's
+                # CPU test: a code step and an ulp, 99 % equal
+                for v in vs:
+                    if qnn:
+                        ok = (v["max_diff"] <= 1 / 128 + 1e-7
+                              and v["within_1e-5"] >= 0.999
+                              and abs(v["loss"] - v["stacked_loss"])
+                              <= 1e-4 * abs(v["stacked_loss"]))
+                    else:
+                        ok = (v["ulp_bound"] and v["equal_share"] >= 0.99
+                              and abs(v["loss"] - v["stacked_loss"])
+                              <= 1e-3 * abs(v["stacked_loss"]))
+                    check(ok, f"{where} {label}: round vs stacked {v}")
+                ms = sorted(max(p["rounds"][r]["ms"] for p in per_rank)
+                            for r in range(COHORT_ROUNDS))
+                print(json.dumps({
+                    "dist_round": label, "model": model_name,
+                    "mesh": list(shape), "axes": list(res0["axes"]),
+                    "ranks": len(ranks), "backend": "gloo, host staging",
+                    "cohorts": res0["C"], "D": res0["D"],
+                    "round_ms_median": ms[COHORT_ROUNDS // 2],
+                    "round_ms": ms,
+                    "staging_ms_per_round": max(p["staging_ms"]
+                                                for p in per_rank),
+                    "launches_per_round_rank0": {
+                        k: v / COHORT_ROUNDS for k, v in f0["launches"].items()},
+                    "wire_bits_per_param": f0["wire_bits"],
+                    "losses": [h["loss"] for h in f0["rounds"]],
+                    "vs_stacked": "torch.equal" if exact else (
+                        "C4 bound" if qnn else "bfloat16 bound, 99 % equal"),
+                    "vs_stacked_max_diff": max(v["max_diff"] for v in vs),
+                    "aggregate_vs_stacked": ("rtol 1e-6" if f0["collective"]
+                                             == "paper" else "torch.equal"),
+                    "plain_max_abs_err": max(
+                        (rec["max_abs_err"] for p in per_rank
+                         for rec in p["plain"].values()), default=0.0),
+                    "plain_shapes_rank0": {
+                        k: rec["shapes"] for k, rec in f0["plain"].items()},
+                    "card": smi}))
+            quantized = [l for l in digests
+                         if res0["formats"][l]["collective"] != "paper"]
+            for l in quantized:
+                check(digests[l] == digests[quantized[0]],
+                      f"{where}: {l} params differ from {quantized[0]}")
+            print(f"dist round {where}: replicas torch.equal after every "
+                  f"round on {len(ranks)} ranks; {', '.join(quantized)} "
+                  f"torch.equal to each other; layout {res0['layout']}")
+    print(f"dist phase: {time.perf_counter() - t0:.1f} s  ({smi})")
+    return total, err
+
+
 LM_OVERRIDES = ("train.global_batch=12", "train.seq_len=512")
 LM_D = 1_176_764_416
 LM_MODES = ("paper", "int", "packed", "ring", "rsag", "auto")
@@ -3658,6 +4034,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as tref
     from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.ranks import run_ranks
     from repro_torch.launch.train import main as train_main
     from repro_torch import obs
     from repro_torch.models import build_model
@@ -3697,6 +4074,9 @@ def main() -> int:
                                local_sgd, RoundNoise, quant, sizes, collective)
     fleet_cohort = cohort_fleet_phase(torch, ops, get_config, build_model,
                                       digit_dataset, make_fl_round, tfleet, smi)
+    dist, dist_err = dist_phase(torch, run_ranks, smi)
+    for k, v in dist_err.items():
+        err[k] = max(err[k], v)
     lm = lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
                         token_batch, make_fl_round, tmesh, smi)
     for k, v in lm_windows_phase(torch, ops, tref, quant, agg).items():
@@ -3750,7 +4130,7 @@ def main() -> int:
     # qmatmul_phase with the counts reset just before
     path_launches = {k: launches[k] + cohort[k] + fleet_sim[k] + fleet_cohort[k]
                      + lm[k] + granite[k] + sum(r[k] for r in rec.values())
-                     + whisper[k] for k in KERNELS}
+                     + whisper[k] + dist.get(k, 0) for k in KERNELS}
     path_launches["qmatmul"] = qmatmul_launches
     for k, n in path_launches.items():
         check(n > 0, f"{k} was not launched on its path")
@@ -3760,6 +4140,7 @@ def main() -> int:
                 "launches_granite": granite[k],
                 **{f"launches_{arch}": rec[arch][k] for arch in RECURRENT},
                 "launches_whisper": whisper[k],
+                "launches_dist": dist.get(k, 0),
                 **({"replaces_note": note[0]} if note else {})}
                for k, (src, rep, *note) in KERNELS.items()]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s")

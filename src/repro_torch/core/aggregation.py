@@ -4,8 +4,12 @@ the cohort round's wire formats.
 Simulator forms: the deltas arrive stacked as one flat (K, D) tensor
 (clients × parameters in leaf order) and the model as its flat (D,) vector.
 
-Collective forms (the cohort round, ``core.fl.make_fl_round``) run in the
-**cohort-stacked** form on one device: the C cohorts are the leading
+Collective forms (the cohort round) run in one of two forms.  Per rank
+(:func:`aggregate_rank`, ``core.fl.make_dist_fl_round``): one process a
+cohort, each collective a real one of ``core.comm.Comm``, as the
+reference's under ``shard_map`` (see :func:`aggregate_rank`).  Stacked
+(:func:`aggregate`, ``core.fl.make_fl_round``): one device holds every
+cohort, the C cohorts the leading
 dimension of every tensor, stacked row-major over the cohort grid
 ``axis_sizes`` (row p·K_data + d for ("pod", "data")).  Where the
 reference runs one shard per cohort under ``shard_map``, the port reads
@@ -303,12 +307,13 @@ def _reduce_packed(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
                                      sum_of=plan.num_shards)
 
 
-def _cohort_levels(plan: WirePlan) -> Tuple[Tuple[int, int], ...]:
-    """(K, inner) of each non-trivial cohort axis in plan order: K entries,
-    ``inner`` rows per step (the product of the later axes' sizes)."""
+def _cohort_levels(plan: WirePlan) -> Tuple[Tuple[str, int, int], ...]:
+    """(axis, K, inner) of each non-trivial cohort axis in plan order: K
+    entries, ``inner`` stacked rows per step (the product of the later
+    axes' sizes)."""
     sizes = plan.axis_sizes
-    return tuple((k, _prod(sizes[i + 1:])) for i, k in enumerate(sizes)
-                 if k > 1)
+    return tuple((a, k, _prod(sizes[i + 1:]))
+                 for i, (a, k) in enumerate(zip(plan.axes, sizes)) if k > 1)
 
 
 def ring_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
@@ -337,7 +342,7 @@ def ring_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
                              bits, n, hop=0, lane_bits=bits)
     m = 1   # codes summed in each accumulator entry so far
     with phase_span("wire/ring_hops"):
-        for K, inner in _cohort_levels(plan):
+        for _, K, inner in _cohort_levels(plan):
             lane = quant.packed_lane_bits(bits, m)
             if m > 1:
                 buf = ops.pack_sums(acc, bits, lane_bits=lane, sum_of=m)
@@ -402,7 +407,7 @@ def rsag_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
             lane0 = quant.packed_lane_bits(bits, 1)
             front = ops.quantize_pack_chunk(
                 x, _contig(u), bits, clip=qcfg.clip, lane_bits=lane0,
-                stochastic=qcfg.stochastic, num_chunks=levels[0][0],
+                stochastic=qcfg.stochastic, num_chunks=levels[0][1],
                 bias=quant.lane_bias(lane0))
         else:
             codes = quant.quantize_codes(x, u, bits, clip=qcfg.clip,
@@ -411,7 +416,7 @@ def rsag_sum(plan: WirePlan, x: torch.Tensor, u) -> torch.Tensor:
         with phase_span("wire/unpack_dequant"):
             return quant.dequantize_codes(codes, bits, clip=qcfg.clip)
     unit = 1
-    for li, (K, inner) in enumerate(levels):
+    for li, (_, K, inner) in enumerate(levels):
         C = -(-n // K)
         idx = (rows // inner) % K
         with phase_span("wire/reduce_scatter"):
@@ -460,3 +465,205 @@ def _contig(u: torch.Tensor | None) -> torch.Tensor | None:
 
 _REDUCERS = {"int": _reduce_int, "packed": _reduce_packed,
              "ring": _reduce_ring, "rsag": _reduce_rsag}
+
+
+# ---------------------------------------------------------------------------
+# plan execution per rank: one cohort a process, real collectives
+# ---------------------------------------------------------------------------
+
+def aggregate_rank(plan: WirePlan, comm, delta: torch.Tensor, alpha: float,
+                   lam: torch.Tensor, u: torch.Tensor | None) -> torch.Tensor:
+    """The planned collective from one rank of ``comm`` (``core.comm.Comm``).
+
+    delta (1, D) f32 this rank's cohort delta; ``alpha`` its data weight;
+    lam (1,) its packet success; u (1, D) its uplink noise (None for
+    nearest rounding or an unquantized uplink).  Returns the aggregated
+    delta (D,), the same on every rank.  The same kernels as
+    :func:`aggregate` run on (1, ·) rows, and every collective crosses
+    between processes:
+
+      "paper"   ``psum`` of w·Δ in float32 (the order of that sum is the
+                backend's: equal to the stacked sum within rounding);
+      "int"     the codes' ``psum`` in the plan's container: int8 and int32
+                as they are; int16, which neither NCCL nor gloo sums, as two
+                lanes of each int32 word, each code biased by +G, so a lane's
+                sum of C biased codes stays below 2^15 by the container's
+                choice and never carries into the next (the container's two
+                bytes a code cross the wire, not four);
+      "packed"  one ``psum`` of the guard-lane words, modulo 2^32;
+      "ring"    K - 1 hops of the packed words along each non-trivial axis
+                (``Comm.forward``), each unpacked into the int32 accumulator
+                (``repack`` at hop 0); between axes ``pack_sums``;
+      "rsag"    per axis, K - 1 scatter hops of one chunk each at a growing
+                lane (``pack_sums``, ``repack``), then a gather that passes
+                the packed finished chunks on; rank index idx ends the
+                scatter with chunk (idx + 1) mod K, as the reference's.
+
+    The weights' sum (the renormalizing denominator) comes from a
+    ``gather`` of the C weights, summed in cohort order as :func:`aggregate`
+    sums them, so every quantized format is bit-identical to the stacked
+    form on the same rows.
+    """
+    if delta.dim() != 2 or delta.shape[0] != 1 or lam.shape != (1,):
+        raise ValueError(f"need delta (1, D) and lam (1,), got "
+                         f"{tuple(delta.shape)} and {tuple(lam.shape)}")
+    if comm.axis_sizes != plan.axis_sizes or comm.axes != plan.axes:
+        raise ValueError(f"plan over {plan.axes} {plan.axis_sizes}, comm "
+                         f"over {comm.axes} {comm.axis_sizes}")
+    w = lam.to(torch.float32) * float(np.float32(alpha))
+    with phase_span("wire/psum"):
+        den = torch.clamp(comm.gather(w).reshape(-1).sum(), min=EPS)
+    if plan.effective == "paper":
+        qcfg = plan.quant
+        if qcfg.enabled and qcfg.quantize_uplink:
+            with phase_span("wire/quantize_pack"):
+                delta = quant.quantize(delta, u, qcfg)
+        with phase_span("wire/psum"):
+            return comm.psum(delta.to(torch.float32) * w[:, None])[0] / den
+    scale = float(plan.num_shards)
+    with phase_span("wire/quantize_pack"):
+        x = delta.to(torch.float32) * (w * scale)[:, None]
+    deq = _RANK_REDUCERS[plan.effective](plan, comm, x, u)
+    with phase_span("wire/unpack_dequant"):
+        return deq / (den * scale)
+
+
+def _rank_int(plan: WirePlan, comm, x: torch.Tensor, u) -> torch.Tensor:
+    qcfg = plan.quant
+    with phase_span("wire/quantize_pack"):
+        codes = quant.quantize_codes(x, u, qcfg.bits, clip=qcfg.clip,
+                                     stochastic=qcfg.stochastic)[0]
+    container = _int_container(qcfg.bits, plan.num_shards)
+    with phase_span("wire/psum"):
+        if container != torch.int16:
+            total = comm.psum(codes.to(container)).to(torch.int32)
+        else:
+            n, g = codes.shape[0], 2 ** (qcfg.bits - 1)
+            lanes = torch.nn.functional.pad(codes + g, (0, n % 2), value=g)
+            words = comm.psum(lanes.to(torch.int16).view(torch.int32))
+            total = (words.view(torch.int16)[:n].to(torch.int32)
+                     - plan.num_shards * g)
+    with phase_span("wire/unpack_dequant"):
+        return quant.dequantize_codes(total, qcfg.bits, clip=qcfg.clip)
+
+
+def _rank_packed(plan: WirePlan, comm, x: torch.Tensor, u) -> torch.Tensor:
+    qcfg = plan.quant
+    lane = quant.packed_lane_bits(qcfg.bits, plan.num_shards)
+    with phase_span("wire/quantize_pack"):
+        words = ops.quantize_pack(x, _contig(u), qcfg.bits, clip=qcfg.clip,
+                                  lane_bits=lane, stochastic=qcfg.stochastic)
+    with phase_span("wire/psum"):
+        total = comm.psum(words)[0]
+    with phase_span("wire/unpack_dequant"):
+        return ops.unpack_dequantize(total, qcfg.bits, x.shape[1],
+                                     clip=qcfg.clip, lane_bits=lane,
+                                     sum_of=plan.num_shards)
+
+
+def _rank_ring(plan: WirePlan, comm, x: torch.Tensor, u) -> torch.Tensor:
+    """The ring from one rank: its packed words pass K - 1 hops round each
+    axis, every payload added into its accumulator as it lands."""
+    qcfg = plan.quant
+    bits = qcfg.bits
+    n = x.shape[1]
+    with phase_span("wire/quantize_pack"):
+        if qcfg.pipeline_hops:
+            words, codes = ops.quantize_pack_chunk(
+                x, _contig(u), bits, clip=qcfg.clip, lane_bits=bits,
+                stochastic=qcfg.stochastic, num_chunks=1)
+            buf, acc = words.reshape(1, -1), codes.reshape(1, n)
+        else:
+            buf = ops.quantize_pack(x, _contig(u), bits, clip=qcfg.clip,
+                                    lane_bits=bits,
+                                    stochastic=qcfg.stochastic)
+            acc = ops.repack(buf, torch.zeros((1, n), dtype=torch.int32,
+                                              device=x.device),
+                             bits, n, hop=0, lane_bits=bits)
+    m = 1
+    with phase_span("wire/ring_hops"):
+        for axis, K, _ in _cohort_levels(plan):
+            lane = quant.packed_lane_bits(bits, m)
+            if m > 1:
+                buf = ops.pack_sums(acc, bits, lane_bits=lane, sum_of=m)
+            for recv in comm.forward(buf, axis, pipelined=qcfg.pipeline_hops):
+                ops.repack(recv, acc, bits, n, hop=0, lane_bits=lane,
+                           sum_of=m)
+            m *= K
+    with phase_span("wire/unpack_dequant"):
+        return quant.dequantize_codes(acc[0], bits, clip=qcfg.clip)
+
+
+def _rank_rsag(plan: WirePlan, comm, x: torch.Tensor, u) -> torch.Tensor:
+    """Reduce-scatter + all-gather from one rank, level by level (see
+    :func:`rsag_sum` for the lanes and biases): the scatter's hop h packs
+    the running chunk, sends it on and adds the payload from one step back
+    into chunk (idx - h) mod K; the gather passes the packed finished
+    chunks on (``Comm.forward``) into their slots of a (K, W) word tensor,
+    unpacked at once: into int32 codes before the last level, straight to
+    float32 after it (``unpack_dequantize``)."""
+    qcfg = plan.quant
+    bits = qcfg.bits
+    n = x.shape[1]
+    levels = _cohort_levels(plan)
+    front = None
+    with phase_span("wire/quantize_pack"):
+        if qcfg.pipeline_hops and levels:
+            lane0 = quant.packed_lane_bits(bits, 1)
+            front = ops.quantize_pack_chunk(
+                x, _contig(u), bits, clip=qcfg.clip, lane_bits=lane0,
+                stochastic=qcfg.stochastic, num_chunks=levels[0][1],
+                bias=quant.lane_bias(lane0))
+        else:
+            codes = quant.quantize_codes(x, u, bits, clip=qcfg.clip,
+                                         stochastic=qcfg.stochastic)
+    if not levels:
+        with phase_span("wire/unpack_dequant"):
+            return quant.dequantize_codes(codes[0], bits, clip=qcfg.clip)
+    unit = 1
+    for li, (axis, K, _) in enumerate(levels):
+        C = -(-n // K)
+        idx = comm.axis_index(axis)
+        with phase_span("wire/reduce_scatter"):
+            if li == 0 and front is not None:
+                words, chunks = front[0][0], front[1][0]
+            else:
+                chunks = torch.nn.functional.pad(codes, (0, K * C - n))
+                chunks = chunks.reshape(K, C)
+            carry = chunks[idx:idx + 1]
+            for h in range(1, K):
+                lane = quant.packed_lane_bits(bits, unit * h)
+                bias = quant.lane_bias(lane)
+                if h == 1 and li == 0 and front is not None:
+                    payload = words[idx:idx + 1]   # the own chunk, packed
+                else:
+                    payload = ops.pack_sums(carry, bits, lane_bits=lane,
+                                            bias=bias)
+                recv = comm.hop(payload, axis)
+                j = (idx - h) % K
+                carry = chunks[j:j + 1].clone()
+                ops.repack(recv, carry, bits, C, hop=0, lane_bits=lane,
+                           bias=bias)
+        with phase_span("wire/all_gather"):
+            lane = quant.packed_lane_bits(bits, unit * K)
+            bias = quant.lane_bias(lane)
+            buf = ops.pack_sums(carry, bits, lane_bits=lane, bias=bias)
+            slots = torch.empty((K, buf.shape[1]), dtype=torch.int32,
+                                device=x.device)
+            slots[(idx + 1) % K] = buf[0]
+            for t, recv in enumerate(comm.forward(
+                    buf, axis, pipelined=qcfg.pipeline_hops), start=1):
+                slots[(idx + 1 - t) % K] = recv[0]
+            if li == len(levels) - 1:
+                vals = ops.unpack_dequantize(slots, bits, C, clip=qcfg.clip,
+                                             lane_bits=lane, bias=bias)
+                return vals.reshape(-1)[:n]
+            vals = ops.repack(slots, torch.zeros((K, C), dtype=torch.int32,
+                                                 device=x.device),
+                              bits, C, hop=0, lane_bits=lane, bias=bias)
+            codes = vals.reshape(1, -1)[:, :n]
+        unit *= K
+
+
+_RANK_REDUCERS = {"int": _rank_int, "packed": _rank_packed,
+                  "ring": _rank_ring, "rsag": _rank_rsag}

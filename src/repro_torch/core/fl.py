@@ -13,9 +13,15 @@ Two runtimes share the same local steps (:func:`local_sgd`):
   each taking I local steps on its slice of the global batch, surviving
   with probability 1-q, and aggregating through a selectable wire format
   (``aggregation.aggregate``: paper, int, packed, ring, rsag, auto).
-  The reference runs one cohort per mesh shard; the port runs the C
-  cohorts stacked on one device, the cohort the leading dimension of
-  every tensor, row-major over the cohort axes.
+  The reference runs one cohort per mesh shard; ``make_fl_round`` runs
+  the C cohorts stacked on one device, the cohort the leading dimension
+  of every tensor, row-major over the cohort axes.
+
+* ``make_dist_fl_round`` is the same round with one cohort a process, as
+  the reference's ``shard_map``: each rank of a ``core.comm.Comm`` takes
+  its cohort's rows of the batch, steps C = 1 stacked, and uplinks
+  through real collectives (``aggregation.aggregate_rank``); the ranks
+  that differ only on the "model" axis are replicas of their cohort.
 
 Both runtimes accept a **fleet** (``config.fleet.size > 0``): the device
 population of ``population`` — per-device pathloss classes, AR(1)
@@ -564,15 +570,39 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
     raises ValueError without it.  The tap reads only the metrics.
     ``tap=None`` adds nothing and ``step`` is then ignored.
     """
-    fl, qcfg = config.fl, config.quant
     collective = resolve_collective(config, collective)
     axis_sizes = tuple(int(s) for s in axis_sizes)
     axes = fl_data_axes(axis_sizes, config)
     if not axes:
         return None
     C = int(math.prod(axis_sizes))
-    plan = agg.make_wire_plan(collective, qcfg, axes, axis_sizes)
-    dev = resolve_device(device)
+    plan = agg.make_wire_plan(collective, config.quant, axes, axis_sizes)
+    return _make_round(model, config, C, plan, resolve_device(device),
+                       _Cohorts(slice(None), lambda gen, noise: noise,
+                                agg.aggregate, _same, _same), tap)
+
+
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+class _Cohorts(NamedTuple):
+    """The cohorts one process of the round holds, and how it reduces over
+    the others: every cohort stacked (:func:`make_fl_round`), or one a rank
+    (:func:`make_dist_fl_round`)."""
+    rows: slice         # this process's rows of the C cohorts
+    draws: Callable     # (gen, noise) -> its rows' RoundNoise, or None to
+                        # draw from gen as the round goes
+    aggregate: Callable  # (plan, delta, alpha, lam, u) -> the (D,) delta
+    mean: Callable      # the loss over every cohort
+    sum: Callable       # the survivors over every cohort
+
+
+def _make_round(model, config: Config, C: int, plan: agg.WirePlan, dev,
+                cohorts: _Cohorts, tap: Optional[Callable]) -> Callable:
+    """The cohort round over C cohorts from one process holding
+    ``cohorts.rows`` of them (see :func:`make_fl_round`)."""
+    fl, qcfg = config.fl, config.quant
     _full_fp32(dev)
     I = fl.local_iters
     layout = model.param_shapes
@@ -583,18 +613,7 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
         raise ValueError(f"fleet.size={config.fleet.size} smaller than the "
                          f"cohort count {C}")
 
-    def cohort_batches(batch: Batch) -> Batch:
-        out = {}
-        for k, v in batch.items():
-            if v.shape[0] % C:
-                raise ValueError(f"global batch {v.shape[0]} does not split "
-                                 f"over {C} cohorts")
-            mb = v.shape[0] // C // I
-            v = v.reshape(C, v.shape[0] // C, *v.shape[1:])[:, :I * mb]
-            out[k] = v.reshape(C, I, mb, *v.shape[2:])
-        return out
-
-    def round_fn(params: torch.Tensor, batch: Batch,
+    def round_fn(params: convert.Flat, batch: Batch,
                  gen: Optional[torch.Generator] = None,
                  fleet: Optional[pop_fleet.FleetState] = None, *,
                  noise: Optional[RoundNoise] = None,
@@ -616,13 +635,14 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
                                  "noise.lam must be None")
             fleet, info = pop_fleet.round_update(fleet, gen, config, D, C,
                                                  draws=fleet_draws)
-        batches = cohort_batches(batch)
+        noise = cohorts.draws(gen, noise)
+        batches = _cohort_batches(batch, C, I, cohorts.rows)
         u_train = noise.u_train if noise is not None else None
         with phase_span("fl/local_steps"):
             p, losses, _ = local_sgd(model, config, params, batches, gen,
                                      u_train=u_train)
         if with_fleet:
-            lam = info.lam
+            lam = info.lam[cohorts.rows]
         elif noise is not None:
             lam = noise.lam
         else:
@@ -634,34 +654,146 @@ def make_fl_round(model, config: Config, axis_sizes: Sequence[int], *,
             u_up = _uniform(gen, (C, D), dev) if quantize_up else None
         delta = _delta(p, params, layout)
         del p
-        agg_delta = agg.aggregate(plan, delta, 1.0 / C, lam, u_up)
+        agg_delta = cohorts.aggregate(plan, delta, 1.0 / C, lam, u_up)
         del delta
-        if not with_fleet:
-            metrics = telemetry.distributed_metrics(
-                plan, loss=losses.mean(), survivors=lam.sum())
-            new = _apply(params, agg_delta, layout)
-            if tap is not None:
-                tap(metrics, step)
-            return new, metrics
-        if config.fleet.error_reweight:
-            agg_delta = agg_delta * pop_errors.ipw_delta_scale(
-                info.lam, info.valid, info.rates_sel,
-                config.channel.error_prob,
-                min_rate=pop_power.min_rate(config, D))
-        metrics = telemetry.distributed_metrics(
-            plan, loss=losses.mean(), survivors=lam.sum(),
-            fleet=telemetry.fleet_round_metrics(
+        fleet_metrics = None
+        if with_fleet:
+            if config.fleet.error_reweight:
+                agg_delta = agg_delta * pop_errors.ipw_delta_scale(
+                    info.lam, info.valid, info.rates_sel,
+                    config.channel.error_prob,
+                    min_rate=pop_power.min_rate(config, D))
+            fleet_metrics = telemetry.fleet_round_metrics(
                 battery_j=fleet.battery_j, valid=info.valid,
                 charge_j=info.charge_j, power_w=fleet.p_last,
                 outage_sel=info.outage_sel, cost_sel=info.cost_sel,
                 harvest_j=info.harvest_j,
-                error_prob=config.channel.error_prob))
+                error_prob=config.channel.error_prob)
+        metrics = telemetry.distributed_metrics(
+            plan, loss=cohorts.mean(losses.mean()),
+            survivors=cohorts.sum(lam.sum()), fleet=fleet_metrics)
         new = _apply(params, agg_delta, layout)
         if tap is not None:
             tap(metrics, step)
-        return new, metrics, fleet
+        return (new, metrics, fleet) if with_fleet else (new, metrics)
 
     return round_fn
+
+
+def _cohort_batches(batch: Batch, C: int, I: int, cohorts: slice) -> Batch:
+    """The rows of ``cohorts`` of the global batch split over C cohorts:
+    cohort c's rows [c·b, (c+1)·b), b = global_batch / C, as I
+    microbatches with the remainder b mod I dropped; leaves (len(cohorts),
+    I, b // I, ...)."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % C:
+            raise ValueError(f"global batch {v.shape[0]} does not split "
+                             f"over {C} cohorts")
+        mb = v.shape[0] // C // I
+        v = v.reshape(C, v.shape[0] // C, *v.shape[1:])[cohorts, :I * mb]
+        out[k] = v.reshape(v.shape[0], I, mb, *v.shape[2:])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the distributed cohort round: one cohort a process
+# ---------------------------------------------------------------------------
+
+def _round_seed(gen: torch.Generator) -> int:
+    """The round's seed, drawn from its generator: the same draw on every
+    rank, which all hold the same generator state."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+
+
+def _cohort_stream(seed: int, cohort: int, device) -> torch.Generator:
+    """Cohort ``cohort``'s stream for the round of ``seed``: the cohort
+    index folded into the seed, as the reference's ``_shard_rng`` folds in
+    the indices on the data axes only, so the replicas of a cohort draw
+    the same values."""
+    mixed = (seed ^ ((cohort + 1) * 0x9E3779B97F4A7C15)) & (2 ** 63 - 1)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def cohort_noise(model, config: Config, gen: torch.Generator,
+                 D: int) -> RoundNoise:
+    """One cohort's draws from its stream ``gen``, in the order the round
+    makes them: the fake-quant noise of each local step (a model that
+    trains quantized), λ (none with a fleet, whose drops decide it) and the
+    uplink noise; rows (1, ...) of a :class:`RoundNoise`."""
+    dev = gen.device
+    u_train = (torch.stack([_uniform(gen, (1, D), dev)
+                            for _ in range(config.fl.local_iters)], 1)
+               if model.quantizes_training else None)
+    lam = (None if config.fleet.enabled else ch.sample_packet_success(
+        gen, (1,), config.channel.error_prob))
+    qcfg = config.quant
+    u_up = (_uniform(gen, (1, D), dev)
+            if qcfg.enabled and qcfg.quantize_uplink else None)
+    return RoundNoise(u_train, u_up, lam)
+
+
+def dist_round_noise(model, config: Config, gen: torch.Generator, C: int,
+                     D: int) -> RoundNoise:
+    """Every cohort's draws of one distributed round from the round's
+    generator ``gen`` (taken after the fleet's update, where a fleet runs),
+    stacked in cohort order: the draws the C ranks make, as the
+    :class:`RoundNoise` that gives the stacked round the same."""
+    seed = _round_seed(gen)
+    rows = [cohort_noise(model, config, _cohort_stream(seed, c, gen.device),
+                         D) for c in range(C)]
+    return RoundNoise(*(torch.cat(t) if t[0] is not None else None
+                        for t in zip(*rows)))
+
+
+def make_dist_fl_round(model, config: Config, comm, *,
+                       collective: Optional[str] = None,
+                       tap: Optional[Callable] = None) -> Callable:
+    """The cohort round from one rank of ``comm`` (``core.comm.Comm``): the
+    reference's ``make_fl_round`` under ``shard_map``, one cohort a
+    process, the cohorts those of ``comm.axes`` (the mesh's cohort axes).
+
+    The returned fn has :func:`make_fl_round`'s signature and returns what
+    it returns, on every rank: the new parameters (every replica equal),
+    the metrics, and with a fleet the fleet.  Rank c (``comm.cohort``,
+    its index over the cohort axes only) takes rows [c·b, (c+1)·b) of the
+    global batch, runs :func:`local_sgd` with one cohort, and uplinks
+    through ``aggregation.aggregate_rank``; the loss is ``pmean``-ed and
+    the survivors ``psum``-ed.  Draws: row c of an injected ``noise``
+    (:class:`RoundNoise` over all C cohorts, as the stacked round takes
+    it), else :func:`cohort_noise` from the cohort's own stream, a seed
+    drawn from ``gen`` with c folded in (:func:`dist_round_noise` gives
+    every cohort's).  The fleet's ``round_update`` runs replicated on every rank
+    from the same ``gen`` state, and rank c reads ``lam[c]``; the IPW scale
+    multiplies the aggregate after the collective.  The parameters are the
+    caller's on every rank (``Comm.broadcast_`` makes them equal once);
+    the round keeps them equal.  ``tap`` is called on every rank where it
+    is not None (``obs.tap.rank0_sink_tap`` gives one on rank 0 only)."""
+    collective = resolve_collective(config, collective)
+    missing = [a for a in comm.axes if a not in config.fl.cohort_axes]
+    if missing:
+        raise ValueError(f"comm's axes {missing} are not in fl.cohort_axes "
+                         f"{config.fl.cohort_axes}")
+    C, c = comm.num_cohorts, comm.cohort
+    plan = agg.make_wire_plan(collective, config.quant, comm.axes,
+                              comm.axis_sizes)
+    D = model.param_shapes.numel
+
+    def draws(gen: Optional[torch.Generator],
+              noise: Optional[RoundNoise]) -> RoundNoise:
+        if noise is None:
+            return cohort_noise(model, config, _cohort_stream(
+                _round_seed(gen), c, gen.device), D)
+        return RoundNoise(*(t[c:c + 1] if t is not None else None
+                            for t in noise))
+
+    def aggregate(plan, delta, alpha, lam, u):
+        return agg.aggregate_rank(plan, comm, delta, alpha, lam, u)
+
+    return _make_round(model, config, C, plan, comm.device,
+                       _Cohorts(slice(c, c + 1), draws, aggregate,
+                                comm.pmean, comm.psum), tap)
 
 
 def _delta(p: convert.Flat, params: convert.Flat,

@@ -1,10 +1,19 @@
 """The reference's meshes as axis sizes, with no device state.
 
-A mesh is an ordered dict of axis name -> size.  The port runs every
-cohort of a mesh stacked on one device: the cohort axes (``fl.cohort_axes``
-found on the mesh) give the cohort round's ``axis_sizes``, and the "model"
-axis runs unsharded (tensor parallelism comes with ROADMAP A8 and A13's
-sharding).
+A mesh is an ordered dict of axis name -> size.  The cohort axes
+(``fl.cohort_axes`` found on the mesh) give the cohort round's
+``axis_sizes``.  The round runs in one of two forms:
+
+* stacked (``core.fl.make_fl_round``): every cohort of the mesh on one
+  device, the cohorts the leading dimension of every tensor;
+* one process a mesh position (``core.fl.make_dist_fl_round`` over
+  ``core.comm.Comm``): rank r sits at the mesh coordinates of r, row-major
+  in mesh order, and holds the cohort at its coordinates on the cohort
+  axes only (``core.comm.coords``, ``core.comm.cohort_index``).
+
+In both, the other axes ("model") run unsharded: the ranks that differ
+only there are replicas of one cohort and compute the same thing (tensor
+parallelism waits for the port of ``sharding/``, ROADMAP A.3).
 """
 from __future__ import annotations
 

@@ -54,24 +54,33 @@ def make_train_step(model, config: Config, mesh: Mesh, *,
                     collective: Optional[str] = None,
                     force_standard: bool = False,
                     device: DeviceLike = None,
-                    tap: Optional[Callable] = None) -> Tuple[Callable, str]:
+                    tap: Optional[Callable] = None,
+                    comm=None) -> Tuple[Callable, str]:
     """Returns (step_fn, kind) with kind in {"fl_round", "fleet_fl_round",
     "standard"}.
 
     ``collective=None`` resolves ``config.quant.wire_format``.  The FL
     round runs the mesh's cohort axes stacked on one device
-    (``core.fl.make_fl_round``); with ``config.fleet.enabled`` it threads
-    a ``population.fleet.FleetState`` — (params, batch, gen, fleet) ->
+    (``core.fl.make_fl_round``), or with ``comm`` (a ``core.comm.Comm`` of
+    this mesh) one cohort a process (``core.fl.make_dist_fl_round``, on
+    ``comm.device``); with ``config.fleet.enabled`` it threads a
+    ``population.fleet.FleetState`` — (params, batch, gen, fleet) ->
     (params, metrics, fleet) — and kind is "fleet_fl_round".  ``tap``
     gets each FL round's metrics (``make_fl_round``): a tapped FL step
-    takes the keyword ``step``; the standard step has no tap site."""
+    takes the keyword ``step``; the standard step has no tap site, and
+    has no distributed form (``comm`` with it raises)."""
+    kind = "fleet_fl_round" if config.fleet.enabled else "fl_round"
+    if comm is not None:
+        if force_standard:
+            raise ValueError("the distributed mode runs the FL round only")
+        return fl_mod.make_dist_fl_round(model, config, comm,
+                                         collective=collective, tap=tap), kind
     if not force_standard:
         sizes = cohort_axis_sizes(mesh, config.fl.cohort_axes)
         fl_round = fl_mod.make_fl_round(model, config, sizes,
                                         collective=collective, device=device,
                                         tap=tap)
         if fl_round is not None:
-            kind = "fleet_fl_round" if config.fleet.enabled else "fl_round"
             return fl_round, kind
     return make_standard_train_step(model, config, device=device), "standard"
 

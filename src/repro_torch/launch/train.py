@@ -6,10 +6,24 @@ standard SGD step, with the reference trainer's flags.
 
 ``--devices N`` picks the mesh the reference builds for N devices: (2, 4)
 ("data", "model") at 8, (16, 16) at 256, (2, 16, 16) ("pod", "data",
-"model") at 512 and more; 0 means one device.  The port runs every cohort
-of that mesh stacked on one device, C = the product of the cohort axes'
-sizes (``fl.cohort_axes`` found on the mesh); the "model" axis runs
-unsharded.  Any ``key=value`` positional argument overrides that config
+"model") at 512 and more; 0 means one device.  C = the product of the
+cohort axes' sizes (``fl.cohort_axes`` found on the mesh).  Without
+``--backend`` the C cohorts run stacked on one device.  With it the
+trainer runs distributed, one process a mesh position:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --backend gloo --arch olmo-1b --collective rsag ...
+
+Rank, world size and local rank come from the environment ``torchrun``
+sets (RANK, WORLD_SIZE, LOCAL_RANK; ``--init-method`` "env://"), the mesh
+is the reference's for the world size, and each rank runs its cohort
+through ``core.fl.make_dist_fl_round`` over real collectives
+(``core.comm``).  "nccl" takes one card a rank (cuda:LOCAL_RANK); "gloo"
+runs on the CPU (``main(..., device="cpu")``) or lets several ranks share
+a card (cuda:LOCAL_RANK mod the cards), staging every payload through
+pinned host memory.  Rank 0 broadcasts the initial parameters, and alone
+writes checkpoints (the others wait at a barrier) and telemetry.  In
+either form the "model" axis runs unsharded: its ranks are replicas.  Any ``key=value`` positional argument overrides that config
 field (``model.n_layers=2 quant.bits=4``).  Its batches are token
 batches (``data.synthetic.token_batch``), as the reference trainer's, so
 it refuses an encoder-decoder (whisper-base), whose loss needs frames:
@@ -52,12 +66,14 @@ import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
 from repro_torch import convert
 from repro_torch.config.base import (COLLECTIVE_CHOICES, POWER_POLICIES,
                                      SELECTION_POLICIES, apply_overrides)
 from repro_torch.configs import get_config
+from repro_torch.core import comm as comm_mod
 from repro_torch.core import fl as fl_mod
 from repro_torch.data.synthetic import token_batch
 from repro_torch.device import (DeviceLike, make_generator, resolve_device,
@@ -109,6 +125,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "here while the run goes on (off when empty)")
     ap.add_argument("--telemetry-every", type=int, default=1,
                     help="keep every N-th telemetry record (default 1)")
+    ap.add_argument("--backend", default=None, choices=list(comm_mod.BACKENDS),
+                    help="run distributed, one process a mesh position "
+                         "(launch with torchrun); off when absent")
+    ap.add_argument("--init-method", default="env://",
+                    help="the process group's rendezvous (env:// reads "
+                         "torchrun's environment; file://PATH a FileStore)")
     ap.add_argument("overrides", nargs="*")
     return ap.parse_intermixed_args(argv)
 
@@ -119,9 +141,42 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
     it started from ("start_step": the restored step, else 0), the final
     "params" and "fleet" (None without one), and where it saved, restored
     or streamed, the seconds that took ("save_s", "restore_s") and the
-    records written ("telemetry_records")."""
+    records written ("telemetry_records"); its "rank" (0 unless
+    distributed) and, distributed, the payload bytes it sent by collective
+    ("comm_sent") and its host-staging seconds ("staging_s").  With
+    ``--backend`` it joins the process group and leaves it on return."""
     args = parse_args(argv)
-    dev = resolve_device(device)
+    if args.backend is None:
+        return _train(args, resolve_device(device), None)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if device is not None:
+        dev = torch.device(device)
+    else:
+        resolve_device(None)                   # raises without a card
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda", local if args.backend == "nccl"
+                           else local % cards)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    comm_mod.init_process_group(args.backend, rank, world, dev,
+                                init_method=args.init_method)
+    try:
+        return _train(args, dev, world)
+    finally:
+        comm_mod.destroy_process_group()
+
+
+def _quiet(*_args, **_kw) -> None:
+    pass
+
+
+def _train(args: argparse.Namespace, dev: torch.device,
+           world: Optional[int]) -> dict:
+    """The trainer on ``dev``: stacked where ``world`` is None, else
+    distributed over the joined process group of ``world`` ranks."""
+    rank = 0 if world is None else dist.get_rank()
+    log = print if rank == 0 else _quiet
 
     overrides = tuple(args.overrides)
     if args.fleet_size:
@@ -142,55 +197,77 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
             f"with a batch that carries 'frames' (ROADMAP, reference "
             f"caveats)")
     model = build_model(cfg)
-    mesh = mesh_for_devices(args.devices or 1)
-    print(f"mesh: {mesh}  arch: {cfg.model.name} "
-          f"({cfg.model.param_count()/1e6:.1f}M params) on {dev}")
+    comm = None
+    if world is None:
+        mesh = mesh_for_devices(args.devices or 1)
+    else:
+        mesh = mesh_for_devices(world)
+        if args.devices and args.devices != world:
+            raise ValueError(f"--devices {args.devices} on {world} ranks: "
+                             f"the distributed mesh is the world's")
+        if math.prod(mesh.values()) != world:
+            raise ValueError(f"the reference's mesh for {world} devices is "
+                             f"{mesh}, which {world} ranks do not fill: "
+                             f"launch 1, 4, 8, ... ranks")
+        if not cohort_axis_sizes(mesh, cfg.fl.cohort_axes):
+            raise ValueError(f"the mesh {mesh} has no cohort axis of "
+                             f"fl.cohort_axes {cfg.fl.cohort_axes}: the "
+                             f"distributed mode runs the FL round only")
+        comm = comm_mod.Comm(mesh, cfg.fl.cohort_axes, dev)
+    log(f"mesh: {mesh}  arch: {cfg.model.name} "
+        f"({cfg.model.param_count()/1e6:.1f}M params) on {dev}")
 
     steps = args.steps or cfg.train.steps
     collective = fl_mod.resolve_collective(cfg, args.collective)
     sink = tap = None
-    if args.telemetry_dir:
+    if args.telemetry_dir and rank == 0:
         sink = obs_sinks.JsonlSink(args.telemetry_dir)
-        tap = obs_tap.DeferredTap(obs_tap.shard0_sink_tap(
-            sink, kind="train_step", every=max(1, args.telemetry_every)))
+    if args.telemetry_dir:
+        tap = obs_tap.rank0_sink_tap(sink, rank, kind="train_step",
+                                     every=max(1, args.telemetry_every))
     step_fn, kind = steps_mod.make_train_step(model, cfg, mesh,
                                               collective=collective,
-                                              device=dev, tap=tap)
+                                              device=dev, tap=tap, comm=comm)
     if sink is not None and kind == "standard":
         sink.close()
         sink = tap = None
-        print("telemetry: no FL round on this mesh/config — stream off")
+        log("telemetry: no FL round on this mesh/config — stream off")
     elif sink is not None:
-        print(f"telemetry: streaming train_step records -> {sink.path}")
+        log(f"telemetry: streaming train_step records -> {sink.path}")
     cohorts = (math.prod(cohort_axis_sizes(mesh, cfg.fl.cohort_axes))
                if kind != "standard" else 1)
-    print(f"step kind: {kind} (collective={collective}, "
-          f"quant bits={cfg.quant.bits}, q={cfg.channel.error_prob}, "
-          f"{cohorts} cohorts stacked on {dev}, model axis unsharded)")
+    where = (f"stacked on {dev}" if comm is None else
+             f"one a process over {world} {comm.backend} ranks"
+             f"{' with host staging' if comm.staged else ''}")
+    log(f"step kind: {kind} (collective={collective}, "
+        f"quant bits={cfg.quant.bits}, q={cfg.channel.error_prob}, "
+        f"{cohorts} cohorts {where}, model axis unsharded)")
     fleet = None
     if kind == "fleet_fl_round":
         fleet = pop_fleet.init_fleet(cfg.fleet.seed, cfg, device=dev)
-        print(f"fleet: {cfg.fleet.size} devices, "
-              f"selection={cfg.fleet.selection}, "
-              f"rho={cfg.fleet.fading_rho}, "
-              f"battery={cfg.fleet.battery_j}J")
+        log(f"fleet: {cfg.fleet.size} devices, "
+            f"selection={cfg.fleet.selection}, "
+            f"rho={cfg.fleet.fading_rho}, "
+            f"battery={cfg.fleet.battery_j}J")
 
     params = model.init_flat(cfg.fl.seed, device=dev)
     out = {"kind": kind, "mesh": mesh, "cohorts": cohorts, "steps": 0,
-           "start_step": 0}
+           "start_step": 0, "rank": rank}
     ckpt_dir = args.checkpoint_dir
     fleet_dir = os.path.join(ckpt_dir, "fleet") if ckpt_dir else ""
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         t0 = time.perf_counter()
         out["start_step"] = out["steps"] = ckpt.latest_step(ckpt_dir)
         params = ckpt.restore_params(ckpt_dir, params, model.param_shapes)
-        print(f"restored checkpoint step {out['start_step']}")
+        log(f"restored checkpoint step {out['start_step']}")
         if fleet is not None and ckpt.latest_step(fleet_dir) is not None:
             # the same population goes on: drained batteries, fading
             # chain and cursor, not a fresh round-0 fleet
             fleet = pop_fleet.restore_fleet_checkpoint(fleet_dir, fleet)
-            print(f"restored fleet state step {ckpt.latest_step(fleet_dir)}")
+            log(f"restored fleet state step {ckpt.latest_step(fleet_dir)}")
         out["restore_s"] = seconds_since(t0, dev)
+    if comm is not None:
+        comm.broadcast_(params)
     start = out["start_step"]
     gen = make_generator(cfg.fl.seed + 1, dev)
     t0 = time.perf_counter()
@@ -206,9 +283,13 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
         out["steps"] = step + 1
         if ckpt_dir and (step + 1) % args.checkpoint_every == 0:
             ts = time.perf_counter()
-            ckpt.save_params(ckpt_dir, step + 1, params, model.param_shapes)
-            if fleet is not None:
-                ckpt.save_checkpoint(fleet_dir, step + 1, fleet)
+            if rank == 0:
+                ckpt.save_params(ckpt_dir, step + 1, params,
+                                 model.param_shapes)
+                if fleet is not None:
+                    ckpt.save_checkpoint(fleet_dir, step + 1, fleet)
+            if comm is not None:
+                comm.barrier()
             out["save_s"] = out.get("save_s", 0.0) + seconds_since(ts, dev)
         if step % args.log_every == 0 or step == steps - 1:
             loss = float(metrics["loss"])          # waits for the step
@@ -230,7 +311,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
             if "power_q50_w" in metrics:
                 extra += (f" p_med={float(metrics['power_q50_w']):.3f}W"
                           f" outage={float(metrics['outage_rate']):.3f}")
-            print(f"step {step:5d} loss={loss:.4f} tok/s={tok_s:,.0f}{extra}")
+            log(f"step {step:5d} loss={loss:.4f} tok/s={tok_s:,.0f}{extra}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
@@ -238,12 +319,14 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
     out["params_finite"] = all(bool(torch.isfinite(b).all())
                                for b in convert.buffers(params))
     out["params"], out["fleet"] = params, fleet
-    print(f"done: {out['steps'] - start} steps in {out['seconds']:.1f}s")
+    if comm is not None:
+        out.update(comm_sent=dict(comm.sent), staging_s=comm.staging_s)
+    log(f"done: {out['steps'] - start} steps in {out['seconds']:.1f}s")
     if sink is not None:
         tap.flush()
         sink.close()
         out["telemetry_records"] = sink.emitted
-        print(f"telemetry: {sink.emitted} records -> {sink.path}")
+        log(f"telemetry: {sink.emitted} records -> {sink.path}")
     return out
 
 

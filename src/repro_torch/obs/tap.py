@@ -12,6 +12,9 @@ The reference ships the telemetry out of its jitted scan or ``shard_map``
 with ``io_callback`` (``emit_in_scan``, ``emit_on_shard0``); the port runs
 eagerly, so it has no traced side and those two have no counterpart.  One
 device is one shard, so :func:`shard0_sink_tap` has no shard to filter.
+Across processes (``core.fl.make_dist_fl_round``) every rank holds the
+same metrics, and :func:`rank0_sink_tap` gives rank 0 alone a tap:
+``emit_on_shard0``'s counterpart.
 
 Reading a round's device tensors waits for the round.  :class:`DeferredTap`
 avoids that: it copies each round's CUDA tensors into pinned host memory
@@ -70,6 +73,20 @@ def shard0_sink_tap(sink: "_sinks.MetricsSink", *, kind: str = "fl_round",
         sink.emit(_sinks.make_record(kind, r, tel))
 
     return tap
+
+
+def rank0_sink_tap(sink: Optional["_sinks.MetricsSink"], rank: int, *,
+                   kind: str = "fl_round", every: int = 1
+                   ) -> Optional["DeferredTap"]:
+    """The distributed round's tap: on rank 0 a :class:`DeferredTap` over
+    :func:`shard0_sink_tap` of ``sink`` (one record a round, stamped with
+    its step, and no wait on the device), on every other rank None, so
+    they open no sink and add nothing to a round."""
+    if rank != 0:
+        return None
+    if sink is None:
+        raise ValueError("rank 0 needs the sink")
+    return DeferredTap(shard0_sink_tap(sink, kind=kind, every=every))
 
 
 def _host_copy(value: Any) -> Any:
