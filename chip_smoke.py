@@ -95,7 +95,15 @@ through the kernels at the paper's widths:
   the quantized formats ``torch.equal`` to each other, the per-rank
   aggregate against the stacked one on the stacked round's rows, the
   round against the stacked round on the same draws; round and staging
-  ms beside the card.
+  ms beside the card;
+* tensor parallelism over "model" (``sharding.placement``): 4 workers
+  over gloo again run olmo-1b at full width, cut to 4 of its 16 layers,
+  at (1, 4) and (2, 2) over ("data", "model"), and reduced qwen2.5-14b
+  with its biases at (1, 4), in int, packed and rsag, 2 rounds each:
+  each rank's parameter bytes against ``sharding.bytes_per_device``, its
+  peak beside the stacked round's, round and staging ms, the first
+  round's gathered parameters against the stacked round on the same
+  draws, every wire kernel against its plain version at (1, D_local).
 
 For each path it checks the launch counts, that the round agrees with the
 CPU path on a small input, and times the rounds; then it times each kernel
@@ -2477,6 +2485,274 @@ def dist_phase(torch, run_ranks, smi):
     return total, err
 
 
+#: the tensor-parallel round (``tp_phase``): TP_WORLD workers on cuda:0
+#: over gloo with host staging.  olmo-1b at full width (d_model 2,048, 16
+#: heads, vocab 50,304, tied) cut to TP_OLMO_LAYERS of its 16 layers:
+#: every rank holds one round a format its wire kernels' plain versions'
+#: int64 temporaries at (1, D_local) beside the kernels' outputs, 4 ranks
+#: at once on the card, and rank 0 the stacked round of the whole cut
+#: beside them; at (1, 4) and (2, 2) over ("data", "model") in
+#: TP_FORMATS; and reduced qwen2.5-14b (bfloat16 weights, float32 norms,
+#: its q/k/v biases) at (1, 4).  TP_ROUNDS rounds a format.
+TP_WORLD = 4
+TP_OLMO_LAYERS = 4
+TP_FORMATS = ("int", "packed", "rsag")
+TP_ROUNDS = 2
+#: (arch, whether reduced, the cut, mesh shape over ("data", "model"))
+TP_JOBS = (("olmo-1b", False, (f"model.n_layers={TP_OLMO_LAYERS}",), (1, 4)),
+           ("olmo-1b", False, (f"model.n_layers={TP_OLMO_LAYERS}",), (2, 2)),
+           ("qwen2.5-14b", True, (), (1, 4)))
+
+
+def tp_config(arch, small, cut):
+    from repro_torch.config import apply_overrides
+    from repro_torch.configs import get_config, reduced
+
+    cfg = get_config(arch)
+    return apply_overrides(reduced(cfg) if small else cfg,
+                           DIST_LM_OVERRIDES + tuple(cut))
+
+
+def tp_worker(rank, world, init, jobs):
+    """One rank of ``tp_phase`` on cuda:0 over gloo.  For each job (arch,
+    whether reduced, cut, mesh shape): the model placed on this rank
+    (``sharding.placement.place_model``), its blocks built from the seed
+    and broadcast over the cohort group; its parameter bytes against
+    ``sharding.rules.bytes_per_device``; TP_ROUNDS rounds a format from one
+    generator, timed, the launch counts set to 0 just before and read just
+    after, the parameters gathered over the model group after the first
+    (outside the timer); one round a format with every wire kernel held to
+    its plain version at this rank's operands (``_held_to_plain``); and on
+    rank 0, the stacked round of the whole model from the same parameters
+    and draws (``dist_round_noise``) against the gathered first round.
+    Returns host values only."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import comm as comm_mod
+    from repro_torch.core.fl import (dist_round_noise, make_dist_fl_round,
+                                     make_fl_round)
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as tref
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.placement import gather_block, place_model
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    comm_mod.init_process_group("gloo", rank, world, dev, init_method=init)
+    seeded = lambda s: torch.Generator(device=dev).manual_seed(s)
+    results = []
+    try:
+        for arch, small, cut, shape in jobs:
+            mesh = tmesh.make_mesh(shape, ("data", "model"))
+            comm = comm_mod.Comm(mesh, ("pod", "data"), dev)
+            C = comm.num_cohorts
+            cfg = tp_config(arch, small, cut)
+            model = build_model(cfg)
+            placed = place_model(model, cfg, comm)
+            check(placed is not model, f"{arch} {shape}: nothing placed")
+            specs = placed.placement.specs
+            params0 = comm.broadcast_(placed.init_flat(1, device=dev))
+            gen = seeded(5)
+            batches = [token_batch(gen, cfg.train.global_batch,
+                                   cfg.train.seq_len, cfg.model.vocab_size)
+                       for _ in range(TP_ROUNDS)]
+            res = {"arch": arch + ("-reduced" if small else ""),
+                   "cut": list(cut), "shape": shape, "C": C,
+                   "D": model.param_shapes.numel,
+                   "D_local": placed.param_shapes.numel,
+                   "sharded": sorted(k for k, v in specs.items()
+                                     if rules.model_dim(v) is not None),
+                   "param_bytes": sum(b.nbytes for b in
+                                      convert.buffers(params0)),
+                   "bytes_per_device": rules.bytes_per_device(
+                       model.param_shapes, specs, mesh),
+                   "layout": repr(placed.param_shapes), "formats": {}}
+            # warm-up (cuBLAS's first calls), outside the counted rounds
+            make_dist_fl_round(placed, cfg, comm, collective="int")(
+                params0, batches[0], seeded(99))
+            torch.cuda.synchronize()
+            gathered = {}
+            for fmt in TP_FORMATS:
+                fn = make_dist_fl_round(placed, cfg, comm, collective=fmt)
+                g, params, hist = seeded(11), params0, []
+                staged0, model0 = comm.staging_s, comm.model_staging_s
+                sent0 = comm.sent["model"]
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                for r in range(TP_ROUNDS):
+                    t0 = time.perf_counter()
+                    params, m = fn(params, batches[r], g)
+                    loss = float(m["loss"])              # waits for the round
+                    torch.cuda.synchronize()
+                    hist.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                 "loss": loss, "finite": bool(torch.isfinite(
+                                     _flat32(torch, params)).all())})
+                    if r == 0:
+                        first = params
+                launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+                res["formats"][fmt] = {
+                    "rounds": hist, "launches": launches,
+                    "wire_bits": m["wire_bits_per_param"],
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "staging_ms": (comm.staging_s - staged0) * 1e3 / TP_ROUNDS,
+                    "model_staging_ms": (comm.model_staging_s - model0) * 1e3
+                                        / TP_ROUNDS,
+                    "model_bytes": (comm.sent["model"] - sent0) / TP_ROUNDS}
+                # the first round's parameters gathered over the model
+                # group (no kernel), outside the counted window
+                leaves = convert.unflatten_params(first, placed.param_shapes)
+                whole = {k: gather_block(placed, k, v)
+                         for k, v in leaves.items()}
+                if rank == 0:       # kept on the host: out of the peaks
+                    gathered[fmt] = convert.map_buffers(
+                        lambda b: b.cpu(), convert.flatten_params(whole))
+                del whole, leaves, first
+            for fmt in TP_FORMATS:
+                seen = {}
+                restore = _held_to_plain(torch, ops, tref, seen)
+                try:
+                    make_dist_fl_round(placed, cfg, comm, collective=fmt)(
+                        params0, batches[0], seeded(11))
+                    torch.cuda.synchronize()
+                finally:
+                    restore()
+                res["formats"][fmt]["plain"] = seen
+            del params0, params
+            torch.cuda.empty_cache()
+            if rank == 0:
+                # the stacked round of the whole cut, alone on the card but
+                # for the other ranks' blocks, from the same init and draws
+                full0 = model.init_flat(1, device=dev)
+                for fmt in TP_FORMATS:
+                    torch.cuda.reset_peak_memory_stats()
+                    want, wm = make_fl_round(model, cfg, comm.axis_sizes,
+                                             collective=fmt, device=dev)(
+                        full0, batches[0], noise=dist_round_noise(
+                            model, cfg, seeded(11), C, res["D"]))
+                    torch.cuda.synchronize()
+                    a = _flat32(torch, gathered.pop(fmt)).to(dev)
+                    b = _flat32(torch, want)
+                    diff = (a - b).abs()
+                    # a code step and a bfloat16 ulp of the larger value: a
+                    # code flip near 0 lands in a larger binade
+                    over = diff > 1 / 128 + torch.maximum(a.abs(), b.abs()) \
+                        * 2 ** -7
+                    res["formats"][fmt]["vs_stacked"] = {
+                        "equal_share": float((diff == 0).float().mean()),
+                        "max_diff": float(diff.max()),
+                        "ulp_bound": not bool(over.any()),
+                        "over_stacked_ulp_bound": int((
+                            diff > 1 / 128 + b.abs() * 2 ** -7).sum()),
+                        "loss": res["formats"][fmt]["rounds"][0]["loss"],
+                        "stacked_loss": float(wm["loss"]),
+                        "stacked_peak_bytes":
+                            torch.cuda.max_memory_allocated()}
+                    del want, a, b, diff, over
+                del full0
+            comm.barrier()
+            torch.cuda.empty_cache()
+            res["model_sent"] = comm.sent["model"]
+            results.append(res)
+        return results
+    finally:
+        comm_mod.destroy_process_group()
+
+
+def tp_phase(torch, run_ranks, smi):
+    """The distributed round tensor-parallel over "model": TP_WORLD worker
+    processes (``spawn``) on cuda:0 over gloo with host staging, the
+    kernels already built, one spawn for TP_JOBS.  A worker that fails,
+    hangs or is killed fails the phase.  Checks each rank's parameter
+    bytes equal ``sharding.bytes_per_device``; finite losses, the same on
+    every rank; the quantized formats' gathered parameters after the first
+    round against the stacked round on the same draws at the bfloat16
+    bound of ``dist_phase`` (a code step and a bfloat16 ulp, here of the
+    larger of the two values, 99 % equal), the loss within 1e-3;
+    and every call of a wire kernel in one round a format ``torch.equal``
+    to its plain version at the rank's own operands, each kernel the
+    counted rounds launched among them.  Returns the launches summed over
+    ranks and counted rounds, and each wire kernel's largest difference
+    from its plain version."""
+    from repro_torch.core import comm as tcomm
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    work = ROOT / "build" / f"tp_smoke_{int(time.time() * 1e3)}"
+    ranks = run_ranks(tp_worker, TP_WORLD, (list(TP_JOBS),),
+                      workdir=str(work), timeout_s=tcomm.TIMEOUT_S)
+    total, err = {}, {}
+    for j, res0 in enumerate(ranks[0]):
+        where = f"{res0['arch']} {tuple(res0['shape'])}"
+        for r in ranks:
+            check(r[j]["param_bytes"] == r[j]["bytes_per_device"],
+                  f"{where}: a rank holds {r[j]['param_bytes']} parameter "
+                  f"bytes, bytes_per_device {r[j]['bytes_per_device']}")
+        for fmt, f0 in res0["formats"].items():
+            per_rank = [r[j]["formats"][fmt] for r in ranks]
+            check(all(h["finite"] and math.isfinite(h["loss"])
+                      for p in per_rank for h in p["rounds"]),
+                  f"{where} {fmt}: non-finite")
+            check(all(p["rounds"][i]["loss"] == f0["rounds"][i]["loss"]
+                      for p in per_rank for i in range(TP_ROUNDS)),
+                  f"{where} {fmt}: the loss differs between ranks")
+            for p in per_rank:
+                check(p["launches"], f"{where} {fmt}: no kernel launched")
+                for k, v in p["launches"].items():
+                    total[k] = total.get(k, 0) + v
+                plain = p["plain"]
+                check(all(plain[k]["calls"] for k in p["launches"]
+                          if k in dict(DIST_HELD)),
+                      f"{where} {fmt}: a launched wire kernel was not held "
+                      f"to its plain version: {sorted(plain)}")
+                for k, rec in plain.items():
+                    check(rec["equal"], f"{where} {fmt}: {k} differs from "
+                          f"its plain version at {rec['shapes']}")
+                    err[k] = max(err.get(k, 0.0), rec["max_abs_err"])
+            v = f0["vs_stacked"]
+            check(v["ulp_bound"] and v["equal_share"] >= 0.99
+                  and abs(v["loss"] - v["stacked_loss"])
+                  <= 1e-3 * abs(v["stacked_loss"]),
+                  f"{where} {fmt}: round vs stacked {v}")
+            ms = sorted(max(p["rounds"][i]["ms"] for p in per_rank)
+                        for i in range(TP_ROUNDS))
+            print(json.dumps({
+                "tp_round": fmt, "model": res0["arch"], "cut": res0["cut"],
+                "mesh": list(res0["shape"]), "axes": ["data", "model"],
+                "ranks": len(ranks), "backend": "gloo, host staging",
+                "cohorts": res0["C"], "D": res0["D"],
+                "D_local": res0["D_local"],
+                "param_bytes_per_rank": [r[j]["param_bytes"] for r in ranks],
+                "bytes_per_device": res0["bytes_per_device"],
+                "peak_bytes_per_rank": [p["peak_bytes"] for p in per_rank],
+                "stacked_peak_bytes": v["stacked_peak_bytes"],
+                "stacked_cohorts": res0["C"],
+                "round_ms": ms, "round_ms_first": ms[0] if TP_ROUNDS else None,
+                "staging_ms_per_round": max(p["staging_ms"] for p in per_rank),
+                "model_staging_ms_per_round": max(p["model_staging_ms"]
+                                                  for p in per_rank),
+                "model_group_bytes_per_round_rank0": f0["model_bytes"],
+                "wire_bits_per_param": f0["wire_bits"],
+                "launches_per_round_rank0": {
+                    k: n / TP_ROUNDS for k, n in f0["launches"].items()},
+                "losses": [h["loss"] for h in f0["rounds"]],
+                "vs_stacked": v,
+                "plain_max_abs_err": max(
+                    (rec["max_abs_err"] for p in per_rank
+                     for rec in p["plain"].values()), default=0.0),
+                "plain_shapes_rank0": {k: rec["shapes"]
+                                       for k, rec in f0["plain"].items()},
+                "card": smi}))
+        print(f"tp round {where}: {len(res0['sharded'])} leaves sharded over "
+              f"model={res0['shape'][1]}, D_local {res0['D_local']:,} of "
+              f"{res0['D']:,}; layout {res0['layout']}")
+    print(f"tp phase: {time.perf_counter() - t0:.1f} s  ({smi})")
+    return total, err
+
+
 LM_OVERRIDES = ("train.global_batch=12", "train.seq_len=512")
 LM_D = 1_176_764_416
 LM_MODES = ("paper", "int", "packed", "ring", "rsag", "auto")
@@ -4077,6 +4353,9 @@ def main() -> int:
     dist, dist_err = dist_phase(torch, run_ranks, smi)
     for k, v in dist_err.items():
         err[k] = max(err[k], v)
+    tp, tp_err = tp_phase(torch, run_ranks, smi)
+    for k, v in tp_err.items():
+        err[k] = max(err[k], v)
     lm = lm_round_phase(torch, ops, get_config, apply_overrides, build_model,
                         token_batch, make_fl_round, tmesh, smi)
     for k, v in lm_windows_phase(torch, ops, tref, quant, agg).items():
@@ -4130,7 +4409,8 @@ def main() -> int:
     # qmatmul_phase with the counts reset just before
     path_launches = {k: launches[k] + cohort[k] + fleet_sim[k] + fleet_cohort[k]
                      + lm[k] + granite[k] + sum(r[k] for r in rec.values())
-                     + whisper[k] + dist.get(k, 0) for k in KERNELS}
+                     + whisper[k] + dist.get(k, 0) + tp.get(k, 0)
+                     for k in KERNELS}
     path_launches["qmatmul"] = qmatmul_launches
     for k, n in path_launches.items():
         check(n > 0, f"{k} was not launched on its path")
@@ -4141,6 +4421,7 @@ def main() -> int:
                 **{f"launches_{arch}": rec[arch][k] for arch in RECURRENT},
                 "launches_whisper": whisper[k],
                 "launches_dist": dist.get(k, 0),
+                "launches_tp": tp.get(k, 0),
                 **({"replaces_note": note[0]} if note else {})}
                for k, (src, rep, *note) in KERNELS.items()]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s")

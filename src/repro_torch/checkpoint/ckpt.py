@@ -24,13 +24,22 @@ in its dtype: :func:`save_params` writes the leaves of
 hybrid's "blocks/2" before "blocks/10"), :func:`restore_params` reads them
 back into the flat layout (a buffer per dtype where the leaves have more
 than one).
+
+Under tensor parallelism (``sharding.placement``) a rank holds blocks of
+the leaves.  The file still holds the whole tree, the one a single process
+writes: :func:`save_params` takes ``gather`` (path, block) -> the whole
+leaf, a collective every rank of the model group makes a leaf at a time
+(:func:`param_leaves` makes the same calls on the ranks that do not
+write), and :func:`restore_params` takes a ``placement`` and keeps each
+leaf's block for the rank.
 """
 from __future__ import annotations
 
 import os
 import re
 import struct
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -274,12 +283,19 @@ def save_checkpoint(directory: str, step: int, tree: Any, *,
                     keep: int = 3) -> str:
     """Write ``tree``'s leaves to ``directory/ckpt_{step}.msgpack`` and keep
     the ``keep`` newest steps; returns the path."""
-    os.makedirs(directory, exist_ok=True)
     leaves = tree_leaves(tree)
+    return _write(directory, step, len(leaves), leaves, keep)
+
+
+def _write(directory: str, step: int, n: int, leaves: Iterable[Any],
+           keep: int) -> str:
+    """Write the ``n`` leaves as they come, then keep the ``keep`` newest
+    steps; returns the path."""
+    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"ckpt_{step}.msgpack")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(_array_header(len(leaves)))
+        f.write(_array_header(n))
         for leaf in leaves:
             _write_leaf(f, leaf)
     os.replace(tmp, path)
@@ -307,43 +323,73 @@ def restore_checkpoint(directory: str, template: Any,
     device in the file's dtype, any other leaf as a numpy array.  Raises
     ValueError where the file's leaf count or a leaf's shape is not the
     template's (the reference's ``tree_unflatten`` raises on the count)."""
+    leaves = _read_checked(directory, [tuple(np.shape(ref)) for ref in
+                                       tree_leaves(template)], step)
+    return _unflatten(template, leaves, [0])
+
+
+def _read_checked(directory: str, shapes: List[Tuple[int, ...]],
+                  step: Optional[int]) -> List[Any]:
+    """The leaves of step ``step`` (default the latest), checked against
+    the ``shapes`` wanted."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {directory}")
     leaves = _read(os.path.join(directory, f"ckpt_{step}.msgpack"))
-    want = tree_leaves(template)
-    if len(leaves) != len(want):
+    if len(leaves) != len(shapes):
         raise ValueError(f"checkpoint step {step} holds {len(leaves)} leaves, "
-                         f"the template {len(want)}")
-    for i, (got, ref) in enumerate(zip(leaves, want)):
-        shape = tuple(np.shape(ref))
+                         f"the template {len(shapes)}")
+    for i, (got, shape) in enumerate(zip(leaves, shapes)):
         if tuple(got.shape) != shape:
             raise ValueError(f"leaf {i}: checkpoint shape {tuple(got.shape)}, "
                              f"template {shape}")
-    return _unflatten(template, leaves, [0])
+    return leaves
+
+
+Gather = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def param_leaves(flat: convert.Flat, layout: convert.Layout,
+                 gather: Optional[Gather] = None) -> Iterator[torch.Tensor]:
+    """The leaves of the flat parameters in leaf order, each through
+    ``gather`` (path, block) -> whole leaf where given, one at a time."""
+    for path, leaf in convert.unflatten_params(flat, layout).items():
+        yield leaf if gather is None else gather(path, leaf)
 
 
 def save_params(directory: str, step: int, flat: convert.Flat,
-                layout: convert.Layout, *, keep: int = 3) -> str:
+                layout: convert.Layout, *, keep: int = 3,
+                gather: Optional[Gather] = None) -> str:
     """Save the flat (D,) parameters as the reference's tree of leaves,
-    each leaf in its dtype (``layout`` the model's ``param_shapes``)."""
-    leaves = convert.unflatten_params(flat, layout)
-    return save_checkpoint(directory, step, list(leaves.values()), keep=keep)
+    each leaf in its dtype (``layout`` the model's ``param_shapes``, or a
+    rank's local layout with ``gather`` giving each whole leaf in turn)."""
+    return _write(directory, step, len(layout),
+                  param_leaves(flat, layout, gather), keep)
 
 
 def restore_params(directory: str, flat: convert.Flat, layout: convert.Layout,
-                   step: Optional[int] = None) -> convert.Flat:
+                   step: Optional[int] = None, *,
+                   placement=None) -> convert.Flat:
     """A parameter checkpoint as new flat parameters in ``flat``'s layout
     on its device: the leaves restored against ``flat``'s, concatenated in
-    leaf order, a buffer per dtype.  A leaf of another dtype than its
-    template's raises ValueError."""
+    leaf order, a buffer per dtype.  With ``placement`` (a
+    ``sharding.placement.Placement``; ``layout`` its local layout) the file
+    holds the whole leaves and the rank keeps its block of each.  A leaf of
+    another dtype than its template's raises ValueError."""
     bufs = convert.buffers(flat)
     if any(b.dim() != 1 for b in bufs):
         raise ValueError("flat must be (D,) (a buffer per dtype), got "
                          f"{[tuple(b.shape) for b in bufs]}")
     template = convert.unflatten_params(flat, layout)
-    leaves = dict(zip(template, restore_checkpoint(
-        directory, list(template.values()), step)))
+    if placement is None:
+        leaves = dict(zip(template, restore_checkpoint(
+            directory, list(template.values()), step)))
+    else:
+        whole = _read_checked(directory, [placement.full[k] for k in template],
+                              step)
+        leaves = {k: _as_template(placement.block(k, torch.as_tensor(w)),
+                                  template[k])
+                  for k, w in zip(template, whole)}
     bad = {k: v.dtype for k, v in leaves.items()
            if v.dtype != template[k].dtype}
     if bad:

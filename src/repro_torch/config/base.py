@@ -16,9 +16,13 @@ in the port:
   ``optimizer`` (the optimizer's fields) are read by neither trainer: both
   step plain SGD at ``fl.learning_rate``.  ``optim`` ports the reference's
   optimizers and schedules that these fields name, but no trainer calls
-  them, in either package, so the fields stay inert.  ``fsdp``, ``dp_over_model``, ``zero_over_model``
-  and ``decode_batch_2d`` choose the reference's sharding, which changes
-  no number; the port does not shard yet (ROADMAP A8, A13).
+  them, in either package, so the fields stay inert.  ``fsdp``,
+  ``dp_over_model``, ``zero_over_model`` and ``decode_batch_2d`` choose
+  the reference's sharding (``sharding.rules``, ``launch.inputs``), which
+  changes no number.  The distributed round places parameters by the
+  "model" entries of those rules (``sharding.placement``); it stores
+  ``fsdp``'s "data" entries whole between rounds, and raises for
+  ``zero_over_model`` at a model axis above 1 (ROADMAP A.6).
 
 The other sections hold the fields the ported slices read; a field comes
 back with the slice that first reads it.

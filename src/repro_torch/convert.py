@@ -23,6 +23,14 @@ one tensor where every leaf has one dtype — today's flat (..., D) vector
 itself — and the tuple of the buffers otherwise.  The wire vector of the
 round stays one float32 (..., D) in leaf order (the reference's
 ``tree_leaves`` concatenation): ``Layout.runs`` maps the buffers onto it.
+
+**A rank's blocks.**  Under tensor parallelism (``sharding.rules``) rank
+(c, m) holds, of a leaf whose spec shards dim d over "model", the m-th of
+``mesh["model"]`` equal contiguous blocks along d (``take_block``), and
+replicated leaves whole; ``local_layout`` is the :class:`Layout` of those
+blocks (the same leaves, order and dtypes), ``gather_leaf`` puts a leaf
+back together from its blocks, and ``weights_to_rank`` carries the
+reference's parameters to one rank's flat buffers.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.sharding.rules import Spec, model_dim
 
 #: flat parameters: one tensor (..., D) where every leaf has one dtype,
 #: else one (..., n_b) buffer per dtype in ``Layout.buffer_dtypes`` order
@@ -197,6 +206,66 @@ def unflatten_params(flat: Flat, layout: Layout) -> Dict[str, torch.Tensor]:
         if off != b.shape[-1]:
             raise ValueError(f"flat width {b.shape[-1]} != {off} parameters")
     return out
+
+
+def local_layout(layout: Layout, specs: Mapping[str, Spec],
+                 mesh: Mapping[str, int]) -> Layout:
+    """The :class:`Layout` of one rank's blocks: each leaf's dim sharded
+    over "model" divided by ``mesh["model"]`` (the same for every rank)."""
+    n = mesh.get("model", 1)
+    shapes = {}
+    for path, shape in layout.items():
+        d, shape = model_dim(specs[path]), list(shape)
+        if d is not None:
+            if shape[d] % n:
+                raise ValueError(f"{path}: dim {d} of {tuple(shape)} does "
+                                 f"not split over model={n}")
+            shape[d] //= n
+        shapes[path] = tuple(shape)
+    return Layout(shapes, layout.dtypes)
+
+
+def take_block(x: torch.Tensor, spec: Spec, mesh: Mapping[str, int],
+               coords: Mapping[str, int]) -> torch.Tensor:
+    """The block of the whole leaf ``x`` that the rank at ``coords`` holds:
+    the ``coords["model"]``-th of ``mesh["model"]`` along the dim ``spec``
+    shards over "model" (a view), or ``x`` itself.  Leading batch dims of
+    ``x`` beyond ``len(spec)`` are kept."""
+    d = model_dim(spec)
+    if d is None:
+        return x
+    d += x.dim() - len(spec)
+    n = x.shape[d] // mesh["model"]
+    return x.narrow(d, coords["model"] * n, n)
+
+
+def gather_leaf(blocks, spec: Spec) -> torch.Tensor:
+    """The whole leaf from every model rank's block, in model order (a
+    replicated leaf: the first)."""
+    d = model_dim(spec)
+    if d is None:
+        return blocks[0]
+    return torch.cat(list(blocks), dim=d + blocks[0].dim() - len(spec))
+
+
+def weights_to_rank(tree: Mapping, specs: Mapping[str, Spec],
+                    mesh: Mapping[str, int], rank: int,
+                    dtype: Optional[torch.dtype] = torch.float32,
+                    device: DeviceLike = None) -> Flat:
+    """The reference's parameters (a nested dict of numpy leaves) as the
+    flat buffers of rank ``rank``'s blocks (row-major mesh coordinates),
+    in leaf order; ``dtype`` as :func:`flat_from_tree`'s."""
+    from repro_torch.core.comm import coords as rank_coords
+
+    at = rank_coords(mesh, rank)
+    dev = resolve_device(device)
+    leaves = {}
+    for k, v in tree_paths(tree).items():
+        a = np.asarray(v)
+        t = torch.from_numpy(np.array(a, np.float32))
+        t = take_block(t, specs[k], mesh, at).contiguous()
+        leaves[k] = t.to(dtype if dtype is not None else _torch_dtype(a))
+    return map_buffers(lambda b: b.to(dev), flatten_params(leaves))
 
 
 def tree_paths(tree: Union[Mapping, list, tuple],

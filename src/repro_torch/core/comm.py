@@ -6,10 +6,10 @@ place of the reference's ``lax.psum``, ``lax.ppermute`` and
 One process a mesh position (a "rank"): rank r sits at the mesh
 coordinates of r, row-major in mesh order (:func:`coords`), and holds the
 cohort at its coordinates on the cohort axes only (:func:`cohort_index`);
-the ranks that differ only on the other axes ("model") are replicas of
-that cohort and compute the same thing.  :class:`Comm`, built once from
-the mesh (an ordered dict of axis name -> size, as ``launch.mesh``
-makes) and the rank, holds:
+the ranks that differ only on "model" hold that cohort's model split
+tensor-parallel (``sharding``), or replicas of it where the rules shard
+no leaf.  :class:`Comm`, built once from the mesh (an ordered dict of
+axis name -> size, as ``launch.mesh`` makes) and the rank, holds:
 
   ``psum`` / ``pmean``  an ``all_reduce`` over the cohort axes: within the
                         rank's group of ranks that differ only there (one
@@ -21,12 +21,23 @@ makes) and the rank, holds:
                         (``batch_isend_irecv``), as the reference's
                         ``perm = [(j, (j + 1) % K)]``; ``forward`` passes
                         one payload on K - 1 times;
-  ``axis_index``        the rank's index on a cohort axis.
+  ``axis_index``        the rank's index on a cohort axis;
+  ``model_all_reduce``  over the model group (the ranks that differ only
+                        on "model", in model order): a sum (``op`` "sum",
+                        a floating payload summed in float32 and rounded
+                        once to its dtype), "max" or "min";
+  ``model_gather``      every model rank's block, in model order.
+
+:func:`copy_to_model` and :func:`reduce_from_model` are Megatron's f and g
+over the model group: f the identity forward and a sum all-reduce of the
+gradient backward (at a column-parallel product's input), g a sum
+all-reduce forward and the identity backward (at a row-parallel product's
+output).  Without a model group both are the identity.
 
 Every subgroup is made with ``dist.new_group`` on every rank, in one order
-(a rank that skipped one would deadlock the others), and the process
-group, every subgroup and every wait time out after ``TIMEOUT_S``, so a
-rank that hangs fails its peers.
+(the cohort groups, then the model groups; a rank that skipped one would
+deadlock the others), and the process group, every subgroup and every
+wait time out after ``TIMEOUT_S``, so a rank that hangs fails its peers.
 
 The backend is named by the caller, never chosen here:
 
@@ -209,7 +220,8 @@ class Comm:
                         if self.rank in g)
             i, k = ring.index(self.rank), len(ring)
             self._peers[a] = (ring[(i + 1) % k], ring[(i - 1) % k])
-        # every rank makes every group, in the same order
+        # every rank makes every group, in the same order: the cohort
+        # groups, then the model groups
         self.group = None
         for ranks in groups_over(self.mesh, self.axes):
             g = dist.new_group(ranks, timeout=self._timeout)
@@ -218,8 +230,22 @@ class Comm:
         # all_gather returns the parts in ascending global rank: the slot
         # of each in cohort order
         self._slots = [members.index(r) for r in sorted(members)]
-        self.sent = {"psum": 0, "hop": 0, "gather": 0, "broadcast": 0}
+        self._root = members[0]
+        self.model_size = (self.mesh.get("model", 1)
+                           if "model" not in self.axes else 1)
+        self.model_index = at.get("model", 0) if self.model_size > 1 else 0
+        self.model_group = None
+        if self.model_size > 1:
+            for ranks in groups_over(self.mesh, ("model",)):
+                g = dist.new_group(ranks, timeout=self._timeout)
+                if self.rank in ranks:
+                    self.model_group, model_members = g, ranks
+            self._model_slots = [model_members.index(r)
+                                 for r in sorted(model_members)]
+        self.sent = {"psum": 0, "hop": 0, "gather": 0, "broadcast": 0,
+                     "model": 0}
         self.staging_s = 0.0
+        self.model_staging_s = 0.0
 
     # -- host staging (gloo with CUDA tensors) ---------------------------------
 
@@ -330,16 +356,100 @@ class Comm:
                 recv, works = post(cur, t + 1)
 
     def broadcast_(self, flat: convert.Flat) -> convert.Flat:
-        """Rank 0's flat parameters into every rank's, buffer by buffer (one
-        a dtype), in place; returns ``flat``."""
+        """The flat parameters of the first rank of this rank's cohort group
+        (cohort 0 at its model index) into every rank of the group, buffer
+        by buffer (one a dtype), in place; returns ``flat``."""
         for b in convert.buffers(flat):
             buf = self._to_host(b) if self.staged else b
-            dist.broadcast(buf, src=0)
-            if self.rank == 0:
+            dist.broadcast(buf, src=self._root, group=self.group)
+            if self.rank == self._root:
                 self.sent["broadcast"] += buf.nbytes
             if self.staged:
                 b.copy_(buf)
         return flat
 
+    # -- the model group ------------------------------------------------------
+
+    def model_all_reduce(self, x: torch.Tensor, op: str = "sum"
+                         ) -> torch.Tensor:
+        """``x`` reduced over the model group (a new tensor; ``x`` itself
+        without one): "sum" (a floating ``x`` summed in float32, rounded
+        once to its dtype), "max" or "min".  Every rank of the group gets
+        the same values."""
+        if self.model_group is None:
+            return x
+        staged0 = self.staging_s
+        red = x.detach()
+        if op == "sum" and red.is_floating_point():
+            red = red.to(torch.float32)
+        buf = self._to_host(red) if self.staged else red.contiguous().clone()
+        dist.all_reduce(buf, op=_OPS[op], group=self.model_group)
+        self.sent["model"] += buf.nbytes
+        out = self._to_device(buf) if self.staged else buf
+        self.model_staging_s += self.staging_s - staged0
+        return out.to(x.dtype)
+
+    def model_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every model rank's ``x`` (of one shape), in model order."""
+        if self.model_group is None:
+            return [x]
+        staged0 = self.staging_s
+        src = self._to_host(x) if self.staged else x.contiguous()
+        parts = [torch.empty_like(src) for _ in self._model_slots]
+        dist.all_gather(parts, src, group=self.model_group)
+        self.sent["model"] += src.nbytes
+        out = [parts[self._model_slots.index(m)] for m in range(len(parts))]
+        if self.staged:
+            out = [self._to_device(p) for p in out]
+        self.model_staging_s += self.staging_s - staged0
+        return out
+
     def barrier(self) -> None:
         dist.barrier()
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def _has_model_group(comm) -> bool:
+    return comm is not None and comm.model_group is not None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; the gradient summed over the
+    model group backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.model_all_reduce(grad), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the sum over the model group forward; the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.model_all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, comm) -> torch.Tensor:
+    """f at a column-parallel product's input (or on a replicated leaf
+    that each model rank uses a part of): whole and equal gradients on
+    every rank of the model group."""
+    return _CopyToModel.apply(x, comm) if _has_model_group(comm) else x
+
+
+def reduce_from_model(x: torch.Tensor, comm) -> torch.Tensor:
+    """g at a row-parallel product's output: the partial sums summed."""
+    return _ReduceFromModel.apply(x, comm) if _has_model_group(comm) else x

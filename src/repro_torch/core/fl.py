@@ -20,8 +20,13 @@ Two runtimes share the same local steps (:func:`local_sgd`):
 * ``make_dist_fl_round`` is the same round with one cohort a process, as
   the reference's ``shard_map``: each rank of a ``core.comm.Comm`` takes
   its cohort's rows of the batch, steps C = 1 stacked, and uplinks
-  through real collectives (``aggregation.aggregate_rank``); the ranks
-  that differ only on the "model" axis are replicas of their cohort.
+  through real collectives (``aggregation.aggregate_rank``).  The ranks
+  that differ only on the "model" axis hold their cohort's model split as
+  ``sharding.rules`` places it (``sharding.placement``): each its blocks
+  of the sharded leaves and the replicated leaves whole, the dense
+  decoders' forward tensor-parallel over the model group, as the
+  reference's GSPMD runs its round body over "model"; where the rules
+  shard no leaf (the QNN) they are replicas.
 
 Both runtimes accept a **fleet** (``config.fleet.size > 0``): the device
 population of ``population`` — per-device pathloss classes, AR(1)
@@ -70,6 +75,7 @@ from repro_torch.population import errors as pop_errors
 from repro_torch.population import fleet as pop_fleet
 from repro_torch.population import power as pop_power
 from repro_torch.population import telemetry
+from repro_torch.sharding.placement import place_model
 
 Batch = Dict[str, torch.Tensor]
 GenLike = Union[int, torch.Generator]
@@ -607,6 +613,9 @@ def _make_round(model, config: Config, C: int, plan: agg.WirePlan, dev,
     I = fl.local_iters
     layout = model.param_shapes
     D = layout.numel
+    # the fleet prices the whole model's delta, wherever its blocks lie
+    placement = getattr(model, "placement", None)
+    D_model = placement.full.numel if placement is not None else D
     quantize_up = qcfg.enabled and qcfg.quantize_uplink
     with_fleet = config.fleet.enabled
     if with_fleet and config.fleet.size < C:
@@ -633,8 +642,8 @@ def _make_round(model, config: Config, C: int, plan: agg.WirePlan, dev,
             if noise is not None and noise.lam is not None:
                 raise ValueError("with a fleet, λ comes from the fleet: "
                                  "noise.lam must be None")
-            fleet, info = pop_fleet.round_update(fleet, gen, config, D, C,
-                                                 draws=fleet_draws)
+            fleet, info = pop_fleet.round_update(fleet, gen, config, D_model,
+                                                 C, draws=fleet_draws)
         noise = cohorts.draws(gen, noise)
         batches = _cohort_batches(batch, C, I, cohorts.rows)
         u_train = noise.u_train if noise is not None else None
@@ -662,7 +671,7 @@ def _make_round(model, config: Config, C: int, plan: agg.WirePlan, dev,
                 agg_delta = agg_delta * pop_errors.ipw_delta_scale(
                     info.lam, info.valid, info.rates_sel,
                     config.channel.error_prob,
-                    min_rate=pop_power.min_rate(config, D))
+                    min_rate=pop_power.min_rate(config, D_model))
             fleet_metrics = telemetry.fleet_round_metrics(
                 battery_j=fleet.battery_j, valid=info.valid,
                 charge_j=info.charge_j, power_w=fleet.p_last,
@@ -755,38 +764,56 @@ def make_dist_fl_round(model, config: Config, comm, *,
     process, the cohorts those of ``comm.axes`` (the mesh's cohort axes).
 
     The returned fn has :func:`make_fl_round`'s signature and returns what
-    it returns, on every rank: the new parameters (every replica equal),
-    the metrics, and with a fleet the fleet.  Rank c (``comm.cohort``,
-    its index over the cohort axes only) takes rows [c·b, (c+1)·b) of the
-    global batch, runs :func:`local_sgd` with one cohort, and uplinks
-    through ``aggregation.aggregate_rank``; the loss is ``pmean``-ed and
-    the survivors ``psum``-ed.  Draws: row c of an injected ``noise``
-    (:class:`RoundNoise` over all C cohorts, as the stacked round takes
+    it returns, on every rank: the rank's parameters, the metrics, and with
+    a fleet the fleet.  The parameters are the rank's blocks in the local
+    layout of ``sharding.placement.place_model(model, config, comm)``
+    (the model's own layout where the rules shard no leaf over "model");
+    the model axis's ranks of a cohort hold its blocks, and their
+    replicated leaves stay equal.  An unported family, or
+    ``train.zero_over_model``, at model > 1 raises ``NotImplementedError``.
+    Rank c (``comm.cohort``, its index over the cohort axes only) takes
+    rows [c·b, (c+1)·b) of the global batch, runs :func:`local_sgd` with
+    one cohort (the forward tensor-parallel over the model group), and
+    uplinks its (1, D_local) delta through ``aggregation.aggregate_rank``
+    over the cohort group of the ranks that share its model index; the
+    loss (the same on every model rank) is ``pmean``-ed and the survivors
+    ``psum``-ed.  Draws: row c of an injected ``noise`` (:class:`RoundNoise`
+    over all C cohorts and every parameter, as the stacked round takes
     it), else :func:`cohort_noise` from the cohort's own stream, a seed
     drawn from ``gen`` with c folded in (:func:`dist_round_noise` gives
-    every cohort's).  The fleet's ``round_update`` runs replicated on every rank
-    from the same ``gen`` state, and rank c reads ``lam[c]``; the IPW scale
-    multiplies the aggregate after the collective.  The parameters are the
-    caller's on every rank (``Comm.broadcast_`` makes them equal once);
-    the round keeps them equal.  ``tap`` is called on every rank where it
-    is not None (``obs.tap.rank0_sink_tap`` gives one on rank 0 only)."""
+    every cohort's); a rank keeps the entries of its blocks
+    (``Placement.take_wire``).  The fleet's ``round_update`` runs
+    replicated on every rank from the same ``gen`` state, priced at the
+    whole model's D, and rank c reads ``lam[c]``; the IPW scale multiplies
+    the aggregate after the collective.  ``Comm.broadcast_`` makes a
+    cohort group's parameters equal once.  ``tap`` is called on every rank
+    where it is not None (``obs.tap.rank0_sink_tap`` gives one on rank 0
+    only)."""
     collective = resolve_collective(config, collective)
     missing = [a for a in comm.axes if a not in config.fl.cohort_axes]
     if missing:
         raise ValueError(f"comm's axes {missing} are not in fl.cohort_axes "
                          f"{config.fl.cohort_axes}")
+    model = place_model(model, config, comm)
     C, c = comm.num_cohorts, comm.cohort
     plan = agg.make_wire_plan(collective, config.quant, comm.axes,
                               comm.axis_sizes)
-    D = model.param_shapes.numel
+    placement = getattr(model, "placement", None)
+    D = (placement.full if placement is not None
+         else model.param_shapes).numel
 
     def draws(gen: Optional[torch.Generator],
               noise: Optional[RoundNoise]) -> RoundNoise:
         if noise is None:
-            return cohort_noise(model, config, _cohort_stream(
+            noise = cohort_noise(model, config, _cohort_stream(
                 _round_seed(gen), c, gen.device), D)
-        return RoundNoise(*(t[c:c + 1] if t is not None else None
-                            for t in noise))
+        else:
+            noise = RoundNoise(*(t[c:c + 1] if t is not None else None
+                                 for t in noise))
+        if placement is None:
+            return noise
+        take = lambda t: placement.take_wire(t) if t is not None else None
+        return RoundNoise(take(noise.u_train), take(noise.u_up), noise.lam)
 
     def aggregate(plan, delta, alpha, lam, u):
         return agg.aggregate_rank(plan, comm, delta, alpha, lam, u)

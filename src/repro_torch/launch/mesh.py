@@ -11,9 +11,11 @@ A mesh is an ordered dict of axis name -> size.  The cohort axes
   in mesh order, and holds the cohort at its coordinates on the cohort
   axes only (``core.comm.coords``, ``core.comm.cohort_index``).
 
-In both, the other axes ("model") run unsharded: the ranks that differ
-only there are replicas of one cohort and compute the same thing (tensor
-parallelism waits for the port of ``sharding/``, ROADMAP A.3).
+Stacked, the "model" axis runs unsharded.  One process a position, the
+ranks that differ only on "model" hold their cohort's model as
+``sharding.rules`` places it (``sharding.placement``): the dense decoders
+tensor-parallel, each rank its blocks of the sharded leaves; where the
+rules shard no leaf (the QNN, ``train.dp_over_model``), replicas.
 """
 from __future__ import annotations
 

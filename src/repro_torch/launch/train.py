@@ -21,10 +21,19 @@ through ``core.fl.make_dist_fl_round`` over real collectives
 (``core.comm``).  "nccl" takes one card a rank (cuda:LOCAL_RANK); "gloo"
 runs on the CPU (``main(..., device="cpu")``) or lets several ranks share
 a card (cuda:LOCAL_RANK mod the cards), staging every payload through
-pinned host memory.  Rank 0 broadcasts the initial parameters, and alone
-writes checkpoints (the others wait at a barrier) and telemetry.  In
-either form the "model" axis runs unsharded: its ranks are replicas.  Any ``key=value`` positional argument overrides that config
-field (``model.n_layers=2 quant.bits=4``).  Its batches are token
+pinned host memory.  The ranks of the "model" axis hold their cohort's
+model as ``sharding.rules`` places it (``sharding.placement``): a dense
+decoder tensor-parallel, each rank its blocks of the sharded leaves,
+built from the seed a leaf at a time; the QNN, whose leaves the rules
+never shard, as replicas; a family whose tensor-parallel forward is not
+ported raises at a model axis above 1.  The first rank of each cohort
+group broadcasts its parameters over the group.  Rank 0 alone writes
+checkpoints and telemetry: the whole tree, each sharded leaf gathered over
+the model group as it is written (the file a single process writes; the
+others take part in the gathers, then wait at a barrier), and a restore
+takes each rank's blocks.  Stacked, the "model" axis runs unsharded.
+Any ``key=value`` positional argument overrides that config field
+(``model.n_layers=2 quant.bits=4``).  Its batches are token
 batches (``data.synthetic.token_batch``), as the reference trainer's, so
 it refuses an encoder-decoder (whisper-base), whose loss needs frames:
 the reference's trainer cannot train one either.
@@ -60,6 +69,7 @@ the host, which waits for the device.
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 import os
 import time
@@ -84,6 +94,7 @@ from repro_torch.models import build_model
 from repro_torch.obs import sinks as obs_sinks
 from repro_torch.obs import tap as obs_tap
 from repro_torch.population import fleet as pop_fleet
+from repro_torch.sharding.placement import gather_block, place_model
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -139,7 +150,8 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> dict:
     """Run the trainer; returns the last step's metrics (host floats), the
     run's shape {"kind", "mesh", "cohorts", "steps", "loss", ...}, the step
     it started from ("start_step": the restored step, else 0), the final
-    "params" and "fleet" (None without one), and where it saved, restored
+    "params" (a rank's blocks under tensor parallelism) and "fleet" (None
+    without one), and where it saved, restored
     or streamed, the seconds that took ("save_s", "restore_s") and the
     records written ("telemetry_records"); its "rank" (0 unless
     distributed) and, distributed, the payload bytes it sent by collective
@@ -214,6 +226,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
                              f"fl.cohort_axes {cfg.fl.cohort_axes}: the "
                              f"distributed mode runs the FL round only")
         comm = comm_mod.Comm(mesh, cfg.fl.cohort_axes, dev)
+        model = place_model(model, cfg, comm)
     log(f"mesh: {mesh}  arch: {cfg.model.name} "
         f"({cfg.model.param_count()/1e6:.1f}M params) on {dev}")
 
@@ -236,12 +249,16 @@ def _train(args: argparse.Namespace, dev: torch.device,
         log(f"telemetry: streaming train_step records -> {sink.path}")
     cohorts = (math.prod(cohort_axis_sizes(mesh, cfg.fl.cohort_axes))
                if kind != "standard" else 1)
+    placement = getattr(model, "placement", None)
     where = (f"stacked on {dev}" if comm is None else
              f"one a process over {world} {comm.backend} ranks"
              f"{' with host staging' if comm.staged else ''}")
+    model_axis = ("unsharded" if comm is None else
+                  f"tensor-parallel over {comm.model_size} ranks"
+                  if placement is not None else "replicas")
     log(f"step kind: {kind} (collective={collective}, "
         f"quant bits={cfg.quant.bits}, q={cfg.channel.error_prob}, "
-        f"{cohorts} cohorts {where}, model axis unsharded)")
+        f"{cohorts} cohorts {where}, model axis {model_axis})")
     fleet = None
     if kind == "fleet_fl_round":
         fleet = pop_fleet.init_fleet(cfg.fleet.seed, cfg, device=dev)
@@ -258,7 +275,8 @@ def _train(args: argparse.Namespace, dev: torch.device,
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         t0 = time.perf_counter()
         out["start_step"] = out["steps"] = ckpt.latest_step(ckpt_dir)
-        params = ckpt.restore_params(ckpt_dir, params, model.param_shapes)
+        params = ckpt.restore_params(ckpt_dir, params, model.param_shapes,
+                                     placement=placement)
         log(f"restored checkpoint step {out['start_step']}")
         if fleet is not None and ckpt.latest_step(fleet_dir) is not None:
             # the same population goes on: drained batteries, fading
@@ -283,11 +301,17 @@ def _train(args: argparse.Namespace, dev: torch.device,
         out["steps"] = step + 1
         if ckpt_dir and (step + 1) % args.checkpoint_every == 0:
             ts = time.perf_counter()
+            gather = (None if placement is None else
+                      functools.partial(gather_block, model))
             if rank == 0:
                 ckpt.save_params(ckpt_dir, step + 1, params,
-                                 model.param_shapes)
+                                 model.param_shapes, gather=gather)
                 if fleet is not None:
                     ckpt.save_checkpoint(fleet_dir, step + 1, fleet)
+            elif gather is not None:
+                for _ in ckpt.param_leaves(params, model.param_shapes,
+                                           gather):
+                    pass
             if comm is not None:
                 comm.barrier()
             out["save_s"] = out.get("save_s", 0.0) + seconds_since(ts, dev)

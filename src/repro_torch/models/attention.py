@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import comm as comm_mod
 from repro_torch.models import common
 
 
@@ -47,37 +48,93 @@ def init_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                 cfg: ModelConfig):
-    """x (..., S, d) -> q (..., S, H, hd), k and v (..., S, KV, hd)."""
+                 cfg: ModelConfig, tp=None):
+    """x (..., S, d) -> q (..., S, H, hd), k and v (..., S, KV, hd); under
+    tensor parallelism the rank's heads (:func:`_local_qkv`)."""
     hd = cfg.resolved_head_dim
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    q = common.linear(x, params["wq"])
-    k = common.linear(x, params["wk"])
-    v = common.linear(x, params["wv"])
-    if cfg.qkv_bias:
-        q = common.add_bias(q, params["bq"])
-        k = common.add_bias(k, params["bk"])
-        v = common.add_bias(v, params["bv"])
     lead = x.shape[:-1]
-    return (q.reshape(*lead, H, hd), k.reshape(*lead, KV, hd),
-            v.reshape(*lead, KV, hd))
+    if tp is not None and params["wq"].shape[-1] < cfg.n_heads * hd:
+        q, k, v = _local_qkv(params, x, cfg, tp)
+    else:
+        q = common.linear(x, params["wq"])
+        k = common.linear(x, params["wk"])
+        v = common.linear(x, params["wv"])
+        if cfg.qkv_bias:
+            q = common.add_bias(q, params["bq"])
+            k = common.add_bias(k, params["bk"])
+            v = common.add_bias(v, params["bv"])
+    return (q.reshape(*lead, -1, hd), k.reshape(*lead, -1, hd),
+            v.reshape(*lead, -1, hd))
+
+
+def _local_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor,
+               cfg: ModelConfig, tp):
+    """Rank m's query heads [m·Hl, (m+1)·Hl) (wq holds their columns) and
+    the kv heads they read, head h reading kv head h // (H / KV): wk and
+    wv's own columns where they shard too, else the columns of those kv
+    heads taken from the replicated wk and wv (a contiguous run where the
+    heads group evenly, one kv head a query head otherwise).  The biases
+    replicate, and each rank takes its heads' block of them.  A replicated
+    leaf that each rank uses a part of passes through f, so its gradient
+    sums over the model group."""
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def pick(t, cols):
+        t = comm_mod.copy_to_model(t, tp)
+        return t[..., cols] if isinstance(cols, slice) else \
+            t.index_select(-1, cols)
+
+    Hl = params["wq"].shape[-1] // hd
+    first = tp.model_index * Hl
+    xin = common.column_input(x, tp)
+    q = common.column_linear(xin, params["wq"])
+    if cfg.qkv_bias:
+        q = common.add_bias(q, pick(params["bq"],
+                                    slice(first * hd, (first + Hl) * hd)))
+    KVl = params["wk"].shape[-1] // hd
+    if KVl < KV:                    # kv heads shard too
+        wcols, bcols = None, slice(tp.model_index * KVl * hd,
+                                   (tp.model_index + 1) * KVl * hd)
+    else:
+        heads = [(first + j) // (H // KV) for j in range(Hl)]
+        lo, n = heads[0], heads[-1] - heads[0] + 1
+        if heads == [lo + j * n // Hl for j in range(Hl)]:
+            wcols = slice(lo * hd, (lo + n) * hd)
+        else:
+            wcols = torch.tensor([h * hd + i for h in heads
+                                  for i in range(hd)], device=x.device)
+        bcols = wcols
+    out = []
+    for w, b in (("wk", "bk"), ("wv", "bv")):
+        wt = params[w] if wcols is None else pick(params[w], wcols)
+        y = common.column_linear(xin, wt)
+        out.append(common.add_bias(y, pick(params[b], bcols))
+                   if cfg.qkv_bias else y)
+    return q, out[0], out[1]
 
 
 def self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    positions: torch.Tensor, cfg: ModelConfig, *,
-                   window: int = 0, rope: bool = True
+                   window: int = 0, rope: bool = True, tp=None
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal self-attention (train / prefill).
 
     x (B, S, d), or (C, B, S, d) with stacked weights; positions (B, S).
     Returns (out, (k, v)), k and v already rope'd (the cache's entries).
+    Where wq holds one model rank's heads (tensor parallelism over ``tp``),
+    the rank attends with its heads and wo, row-parallel, sums the output
+    over the model group.
     """
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, tp)
     if rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     o = attend(q, k, v, positions, positions, causal=True, window=window)
-    out = common.linear(o.reshape(*x.shape[:-1], -1), params["wo"])
+    o = o.reshape(*x.shape[:-1], -1)
+    if tp is not None and o.shape[-1] < cfg.n_heads * cfg.resolved_head_dim:
+        out = common.row_linear(o, params["wo"], tp)
+    else:
+        out = common.linear(o, params["wo"])
     return out, (k, v)
 
 

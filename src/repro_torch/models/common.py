@@ -10,6 +10,13 @@ so, one stacked forward and one backward for all of them.
 tensor ops (the reference's is plain ``jnp`` too, not a Pallas kernel):
 the small one-einsum path, and the chunked path that never holds the full
 (Sq, Skv) score matrix, its scan over key chunks a Python loop here.
+
+Under tensor parallelism (``sharding.placement``) a weight may be one
+model rank's block: the forwards read that from its shape and
+``tp.model_index`` (``tp`` a ``core.comm.Comm``), put f
+(``comm.copy_to_model``) at a column-parallel product's input and take a
+row-parallel product through :func:`row_linear` (g).  With ``tp=None``
+every block is the whole leaf and nothing changes.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import comm as comm_mod
 from repro_torch.device import DeviceLike, resolve_device
 
 NEG_INF = -1e30
@@ -63,6 +71,30 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     C = w.shape[0]
     out = torch.bmm(x.reshape(C, -1, x.shape[-1]), w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def column_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """f on x in float32 (cast exactly): the input of column-parallel
+    products (:func:`column_linear`), whose gradient then sums every
+    model rank's float32 partial before it is rounded once to x's
+    dtype, as the whole product's gradient rounds its float32 sum once."""
+    return comm_mod.copy_to_model(x.float(), tp)
+
+
+def column_linear(x32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` of a :func:`column_input` and w's block of output
+    columns: the product in float32, rounded once to w's dtype."""
+    return linear(x32, w.float()).to(w.dtype)
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`linear` where ``w`` holds one model rank's block of its input
+    rows and ``x`` the matching block of features: the partial product in
+    float32 (a bfloat16 operand cast exactly), summed over the model group
+    (``comm.reduce_from_model``) and rounded once to x's dtype, as the
+    whole product rounds its float32 sum once."""
+    out = linear(x.float(), w.float())
+    return comm_mod.reduce_from_model(out, tp).to(x.dtype)
 
 
 def promoted_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

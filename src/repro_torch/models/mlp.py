@@ -46,8 +46,19 @@ def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, *, d_ff: int = 0,
 
 
 def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
-        cfg: ModelConfig) -> torch.Tensor:
+        cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The MLP; where w_up holds one model rank's block of the ff columns
+    (tensor parallelism over ``tp``), f at the input and w_down
+    row-parallel (``common.row_linear``)."""
     act = common.activation_fn(cfg.activation)
+    if tp is not None and params["w_up"].shape[-1] < cfg.d_ff:
+        x32 = common.column_input(x, tp)
+        up = common.column_linear(x32, params["w_up"])
+        if cfg.gated_mlp:
+            up = act(common.column_linear(x32, params["w_gate"])) * up
+        else:
+            up = act(up)
+        return common.row_linear(up, params["w_down"], tp)
     up = common.linear(x, params["w_up"])
     if cfg.gated_mlp:
         up = act(common.linear(x, params["w_gate"])) * up

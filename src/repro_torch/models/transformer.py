@@ -32,6 +32,18 @@ cohort (``core.fl.local_sgd``).
 Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass, the same numbers.
 
+**Tensor parallelism** (the dense and vlm families: ``tensor_parallel``).
+A model placed on a rank of the distributed round
+(``sharding.placement.place_model``) holds its blocks of the leaves
+(``param_shapes`` the local layout) and reduces over ``tp``'s model group:
+the embedding sharded over its vocabulary looks up the tokens in its
+block, zeros the rest and sums (g); attention and the MLP run their heads'
+and ff columns' blocks (``attention``, ``mlp``); the logits of a sharded
+head (or tied embedding) are the block's vocabulary, and the
+cross-entropy and the accuracy reduce over the model group (the max, the
+sum of exponentials and the target's logit; the first index of the
+largest logit).  The same code runs one process with ``tp`` None.
+
 The cache is a dict of tensors: the attention layers' ``k`` and ``v``
 (L_att, B, C, KV, hd) in the model's dtype (an MLA stack's ``latent``
 (L, B, C, r + d_rope) instead) and one ``kv_pos`` (B, C) int32; RWKV-6's
@@ -57,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import convert
 from repro_torch.config.base import Config, ModelConfig
+from repro_torch.core import comm as comm_mod
 from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common, griffin, mla, mlp, rwkv
@@ -184,6 +197,26 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -ll.mean(dim=(-2, -1))
 
 
+def _vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                  tp) -> torch.Tensor:
+    """:func:`_cross_entropy` of logits whose last axis is model rank m's
+    block of the vocabulary, [m·Vl, (m+1)·Vl): the max, the sum of
+    exponentials and the target's logit reduced over the model group (the
+    last two through g, so each rank's gradient is its block's softmax
+    minus its block of the one-hot)."""
+    logits = logits.float()
+    Vl = logits.shape[-1]
+    top = tp.model_all_reduce(logits.detach().amax(-1, keepdim=True), "max")
+    shifted = logits - top
+    sumexp = comm_mod.reduce_from_model(torch.exp(shifted).sum(-1), tp)
+    local = labels.long() - tp.model_index * Vl
+    inside = (local >= 0) & (local < Vl)
+    picked = torch.gather(shifted, -1,
+                          torch.where(inside, local, 0)[..., None])[..., 0]
+    target = comm_mod.reduce_from_model(picked.masked_fill(~inside, 0), tp)
+    return -(target - torch.log(sumexp)).mean(dim=(-2, -1))
+
+
 @dataclass
 class LM:
     """Decoder-only language model of every family but the cnn and the
@@ -219,6 +252,16 @@ class LM:
     #: the reference's ``LM.loss`` ignores its rng: no fake-quant in the
     #: local steps (the QNN's STE is the cnn's, ``CNNModel``)
     quantizes_training = False
+    #: where placed on a rank (``sharding.placement``): its Placement and
+    #: the ``core.comm.Comm`` of its model group
+    placement = None
+    tp = None
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the forward runs split over a model group: the dense
+        decoders (MoE, MLA, RWKV-6 and Griffin wait for ROADMAP A.5)."""
+        return self.cfg.family in ("dense", "vlm")
 
     # -- init ------------------------------------------------------------------
 
@@ -240,15 +283,19 @@ class LM:
         flat = self.param_shapes.empty(device=dev)
         views = convert.unflatten_params(flat, self.param_shapes)
 
+        def put(path, v, layer=None):
+            # a placed model keeps its block of each leaf drawn whole
+            if self.placement is not None:
+                v = self.placement.block(path, v, layer=layer is not None)
+            (views[path] if layer is None else views[path][layer]).copy_(v)
+
         def fill(prefix, leaves, layer=None):
             pairs = leaves.items() if isinstance(leaves, dict) else leaves
             for k, v in pairs:
-                view = views[f"{prefix}/{k}"]
-                (view if layer is None else view[layer]).copy_(v)
+                put(f"{prefix}/{k}", v, layer)
                 del v       # freed before a generator draws the next leaf
 
-        views["embed"].copy_(common.embed_init(
-            gen, (cfg.vocab_size, cfg.d_model)))
+        put("embed", common.embed_init(gen, (cfg.vocab_size, cfg.d_model)))
         norm = common.make_norm_params(cfg, cfg.d_model, device=dev)
 
         def fill_block(pre, kind, at=None):
@@ -278,11 +325,10 @@ class LM:
                 fill_block(f"blocks/{i}", kind)
         fill("final_norm", norm)
         if not cfg.tie_embeddings:
-            views["head"].copy_(common.dense_init(
-                gen, (cfg.d_model, cfg.vocab_size)))
+            put("head", common.dense_init(gen, (cfg.d_model, cfg.vocab_size)))
         if cfg.mtp_depth > 0:
-            views["mtp/proj"].copy_(common.dense_init(
-                gen, (2 * cfg.d_model, cfg.d_model)))
+            put("mtp/proj", common.dense_init(gen, (2 * cfg.d_model,
+                                                    cfg.d_model)))
             fill_block("mtp/block", "attention")
             fill("mtp/norm", norm)
         return flat
@@ -297,14 +343,49 @@ class LM:
 
     def _embed(self, params: Params, tokens: torch.Tensor,
                stacked: bool) -> torch.Tensor:
-        return embed_tokens(params["embed"], tokens, stacked)
+        table = params["embed"]
+        Vl = table.shape[-2]
+        if self.tp is None or Vl == self.cfg.vocab_size:
+            return embed_tokens(table, tokens, stacked)
+        # this rank's block of the vocabulary: its tokens' rows, zeros for
+        # the others, summed over the model group
+        local = tokens.long() - self.tp.model_index * Vl
+        inside = (local >= 0) & (local < Vl)
+        rows = embed_tokens(table, torch.where(inside, local, 0), stacked)
+        return comm_mod.reduce_from_model(
+            rows.masked_fill(~inside[..., None], 0), self.tp)
+
+    def _vocab_sharded(self, t: torch.Tensor) -> bool:
+        """Whether ``t``'s last axis is one model rank's block of the
+        vocabulary (a head's, the logits')."""
+        return self.tp is not None and t.shape[-1] < self.cfg.vocab_size
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            logits = common.linear(x, params["embed"].transpose(-1, -2))
-        else:
-            logits = common.linear(x, params["head"])
-        return logits.float()
+        """The logits in float32: under tensor parallelism with a sharded
+        head (or tied embedding), this rank's block of the vocabulary."""
+        w = (params["embed"].transpose(-1, -2) if self.cfg.tie_embeddings
+             else params["head"])
+        if self._vocab_sharded(w):
+            x32 = common.column_input(x, self.tp)
+            return common.column_linear(x32, w).float()
+        return common.linear(x, w).float()
+
+    def _ce(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if self._vocab_sharded(logits):
+            return _vocab_parallel_cross_entropy(logits, labels, self.tp)
+        return _cross_entropy(logits, labels)
+
+    def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The vocabulary index of the largest logit (the first of equals),
+        over the model group where the logits are a block of it."""
+        if not self._vocab_sharded(logits):
+            return logits.argmax(-1)
+        Vl = logits.shape[-1]
+        mx, arg = logits.max(-1)
+        top = self.tp.model_all_reduce(mx, "max")
+        cand = torch.where(mx == top, arg + self.tp.model_index * Vl,
+                           self.cfg.vocab_size)
+        return self.tp.model_all_reduce(cand, "min")
 
     def _layers(self, params: Params, stacked: bool) -> List[Params]:
         """Each layer's leaves, keyed by their path below the layer.  A
@@ -379,7 +460,8 @@ class LM:
                                            cfg, window=block_window(cfg, kind))
         else:
             mix, entry = attn.self_attention(_sub(layer, "attn"), h, positions,
-                                             cfg, window=block_window(cfg, kind))
+                                             cfg, window=block_window(cfg, kind),
+                                             tp=self.tp)
         if store is not None:
             store(entry)
         del entry               # not held through the MLP
@@ -394,7 +476,7 @@ class LM:
         if cfg.moe.enabled:
             ff, aux = mlp.moe(_sub(layer, "moe"), h, cfg)
         else:
-            ff, aux = mlp.mlp(_sub(layer, "mlp"), h, cfg), None
+            ff, aux = mlp.mlp(_sub(layer, "mlp"), h, cfg, self.tp), None
         return x + ff.to(x.dtype), aux
 
     # -- training loss -------------------------------------------------------------
@@ -410,7 +492,7 @@ class LM:
         remat = self.config.train.remat if remat is None else remat
         x, aux = self._backbone(params, batch["tokens"], stacked=False,
                                 remat=remat)
-        ce = _cross_entropy(self._logits(params, x), batch["labels"])
+        ce = self._ce(self._logits(params, x), batch["labels"])
         if aux is None:
             total, aux = ce, torch.zeros((), device=ce.device)
         else:
@@ -432,9 +514,9 @@ class LM:
         x, aux = self._backbone(params, batch["tokens"], stacked=True,
                                 remat=remat)
         logits = self._logits(params, x)
-        total = _cross_entropy(logits, batch["labels"])
+        total = self._ce(logits, batch["labels"])
         with torch.no_grad():
-            hit = logits.argmax(-1) == batch["labels"].long()
+            hit = self._argmax(logits) == batch["labels"].long()
             acc = hit.float().mean(dim=(-2, -1))
         del logits
         if aux is not None:
@@ -463,7 +545,7 @@ class LM:
                            positions)
         h = common.apply_norm(h, _sub(params, "mtp/norm"), self.cfg)
         labels2 = torch.cat([labels[..., 1:], labels[..., -1:]], -1)
-        return _cross_entropy(self._logits(params, h), labels2)
+        return self._ce(self._logits(params, h), labels2)
 
     # -- serving ---------------------------------------------------------------
 

@@ -18,16 +18,21 @@ thread a rank and a timeout on every wait.  The cases:
   ``wire_bits_per_param`` prices (exactly, with each message's padding);
 * reduced olmo-1b on 8 ranks at (2, 4) over ("data", "model") and at
   (2, 2, 2) over ("pod", "data", "model"), 2 rounds a format from one
-  generator: every rank's parameters ``torch.equal`` after every round,
-  the quantized formats ``torch.equal`` to each other, a fleet round whose
-  model-axis replicas read the same λ (equal fleets and parameters on
-  every rank, and the stacked fleet round's result), and the stacked round
-  on the same draws (``fl.dist_round_noise``) at ROADMAP C4's bound: every
-  parameter within one uplink code step, 99.9 % within 1e-5, the loss
-  within rtol 1e-4;
-* the real JAX ``make_fl_round`` on a (2, 4) host mesh in rsag and paper
-  (a subprocess, on its own key-chain draws), the port's distributed
-  round on those draws held to it at the C4 bound.
+  generator.  Its heads, ff columns and (tied) vocabulary divide the model
+  axis (4 and 2), so the rounds run tensor-parallel
+  (``sharding.placement``): after every round the parameters gathered
+  over the model group are ``torch.equal`` on every rank, each rank's
+  blocks are ``torch.equal`` on the ranks of its model index and its
+  replicated leaves on every rank; the quantized formats ``torch.equal``
+  to each other; a fleet round whose model ranks read the same λ (equal
+  fleets on every rank, and the stacked fleet round's result); and the
+  stacked round on the same draws (``fl.dist_round_noise``) at ROADMAP
+  C4's bound: every parameter within one uplink code step, 99.9 % within
+  1e-5, the loss within rtol 1e-4;
+* the real JAX ``make_fl_round`` on a (2, 4) host mesh in rsag and paper,
+  its parameters placed by the reference's ``param_shardings`` as its
+  trainer places them (a subprocess, on its own key-chain draws), the
+  port's distributed round on those draws held to it at the C4 bound.
 """
 import dataclasses
 import hashlib
@@ -41,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.config import apply_overrides
 from repro_torch.config.base import QuantConfig
 from repro_torch.configs import get_config, reduced
@@ -54,6 +60,8 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.models import build_model
 from repro_torch.population import fleet as tfleet
+from repro_torch.sharding import rules as trules
+from repro_torch.sharding.placement import gather_block, place_model
 
 pytestmark = pytest.mark.slow
 
@@ -250,7 +258,11 @@ OLMO_RUNS = {"paper": ("paper", True, ()), "int": ("int", True, ()),
              "packed": ("packed", True, ()), "ring": ("ring", True, ()),
              "ring_seq": ("ring", False, ()), "rsag": ("rsag", True, ()),
              "rsag_seq": ("rsag", False, ()),
-             "int_bf16": ("int", True, ("model.dtype=bfloat16",))}
+             # bfloat16 with the model ranks as replicas (dp_over_model:
+             # the rules shard no leaf), and tensor-parallel
+             "int_bf16": ("int", True, ("model.dtype=bfloat16",
+                                        "train.dp_over_model=true")),
+             "int_bf16_tp": ("int", True, ("model.dtype=bfloat16",))}
 QUANTIZED = ("int", "packed", "ring", "ring_seq", "rsag", "rsag_seq")
 OLMO_ROUNDS = 2
 OLMO_MESHES = {"2x4": ((2, 4), ("data", "model")),
@@ -298,41 +310,63 @@ def _olmo_rank(rank, world, init, ref):
         comm_mod.destroy_process_group()
 
 
+def _gathered(placed, params):
+    """The whole parameters from this rank's blocks (a collective over the
+    model group), and the digests of its blocks and of its replicated
+    leaves."""
+    if placed.placement is None:                # replicas
+        return params, _digest(params), _digest(params)
+    leaves = convert.unflatten_params(params, placed.param_shapes)
+    whole = {k: gather_block(placed, k, v) for k, v in leaves.items()}
+    repl = {k: v for k, v in leaves.items() if trules.model_dim(
+        placed.placement.specs[k]) is None}
+    return (convert.flatten_params(whole), _digest(params),
+            _digest(tuple(repl.values())))
+
+
 def _olmo_mesh(rank, shape, axes, ref):
     comm = comm_mod.Comm(tmesh.make_mesh(shape, axes), ("pod", "data"),
                          "cpu")
-    out = {"cohort": comm.cohort, "runs": {}}
+    out = {"cohort": comm.cohort, "model_index": comm.model_index,
+           "runs": {}}
     for name, (collective, hops, extra) in OLMO_RUNS.items():
         cfg = _with_hops(_cfg(*extra), hops)
-        model = build_model(cfg)
-        params = comm.broadcast_(model.init_flat(rank + 1, device="cpu"))
-        fn = make_dist_fl_round(model, cfg, comm, collective=collective)
+        placed = place_model(build_model(cfg), cfg, comm)
+        # the first rank of each cohort group holds seed 1's blocks, and
+        # its broadcast overwrites the others'
+        params = comm.broadcast_(placed.init_flat(
+            1 if comm.cohort == 0 else rank + 11, device="cpu"))
+        fn = make_dist_fl_round(placed, cfg, comm, collective=collective)
         gen = torch.Generator().manual_seed(7)
         hist = []
         for r in range(OLMO_ROUNDS):
             params, m = fn(params, _batch(r), gen)
-            hist.append((_digest(params), float(m["loss"]),
-                         float(m["survivors"]), m["wire_bits_per_param"]))
-        out["runs"][name] = (hist, params if rank == 0 else None)
+            whole, blocks, repl = _gathered(placed, params)
+            hist.append((_digest(whole), float(m["loss"]),
+                         float(m["survivors"]), m["wire_bits_per_param"],
+                         blocks, repl, whole if rank == 0 else None))
+        out["runs"][name] = (hist, whole if rank == 0 else None)
     cfg = _cfg(fleet=True)
-    model = build_model(cfg)
-    params = comm.broadcast_(model.init_flat(1, device="cpu"))
+    placed = place_model(build_model(cfg), cfg, comm)
+    params = comm.broadcast_(placed.init_flat(1, device="cpu"))
     fleet = tfleet.init_fleet(3, cfg, device="cpu")
-    fn = make_dist_fl_round(model, cfg, comm, collective="rsag")
+    fn = make_dist_fl_round(placed, cfg, comm, collective="rsag")
     gen = torch.Generator().manual_seed(9)
     new, m, fleet = fn(params, _batch(0), gen, fleet)
-    out["fleet"] = (_digest(new), _digest(tuple(fleet)),
-                    float(m["survivors"]), new if rank == 0 else None)
+    whole = _gathered(placed, new)[0]
+    out["fleet"] = (_digest(whole), _digest(tuple(fleet)),
+                    float(m["survivors"]), whole if rank == 0 else None)
     if ref is not None:
         out["ref"] = {}
         for mode in ("rsag", "paper"):
             cfg = _cfg()
-            model = build_model(cfg)
-            fn = make_dist_fl_round(model, cfg, comm, collective=mode)
-            new, m = fn(torch.from_numpy(ref["init"]), ref["batch"],
-                        noise=RoundNoise(None, torch.from_numpy(
-                            ref["u_up"]), torch.from_numpy(ref["lam"])))
-            out["ref"][mode] = (new, float(m["loss"]),
+            placed = place_model(build_model(cfg), cfg, comm)
+            fn = make_dist_fl_round(placed, cfg, comm, collective=mode)
+            init = placed.placement.take_wire(torch.from_numpy(ref["init"]))
+            new, m = fn(init, ref["batch"], noise=RoundNoise(
+                None, torch.from_numpy(ref["u_up"]),
+                torch.from_numpy(ref["lam"])))
+            out["ref"][mode] = (_gathered(placed, new)[0], float(m["loss"]),
                                 float(m["survivors"]),
                                 m["wire_bits_per_param"])
     return out
@@ -346,6 +380,7 @@ from repro.configs import get_config, reduced
 from repro.core import channel as ch
 from repro.core.fl import make_fl_round
 from repro.models import build_model
+from repro.sharding.rules import param_shardings
 from repro.utils.compat import make_mesh, set_mesh
 
 C, Q, SEED = 2, {Q}, 5
@@ -360,10 +395,14 @@ rng = jax.random.PRNGKey(SEED)
 model = build_model(cfg)
 params = model.init(jax.random.PRNGKey(1))
 out = dict(batch, init=flat(params))
+p_shardings = param_shardings(model, cfg, mesh)   # as the trainer places them
 with set_mesh(mesh):
+    placed = jax.device_put(params, p_shardings)
     for mode in ("rsag", "paper"):
-        fn = jax.jit(make_fl_round(model, cfg, mesh, collective=mode))
-        new, m = fn(params, batch, rng)
+        fn = jax.jit(make_fl_round(model, cfg, mesh, collective=mode),
+                     in_shardings=(p_shardings, None, None),
+                     out_shardings=(p_shardings, None))
+        new, m = fn(placed, batch, rng)
         out[mode + "/params"] = flat(new)
         for k in ("loss", "survivors", "wire_bits_per_param"):
             out[mode + "/" + k] = np.float32(m[k])
@@ -423,17 +462,30 @@ def _c4(got, want, what):
 
 @pytest.mark.parametrize("mesh", list(OLMO_MESHES))
 def test_olmo_replicas_equal_after_every_round(olmo, mesh):
+    """Tensor-parallel over "model": the gathered parameters equal on every
+    rank, the blocks on the ranks of one model index, the replicated
+    leaves on every rank; the loss and survivors on every rank."""
     out = olmo[mesh]
     shape, axes = OLMO_MESHES[mesh]
     m = tmesh.make_mesh(shape, axes)
     assert [o["cohort"] for o in out] == [
         comm_mod.cohort_index(m, r, ("pod", "data")) for r in range(len(out))]
+    assert [o["model_index"] for o in out] == [
+        comm_mod.coords(m, r)["model"] for r in range(len(out))]
     for name in OLMO_RUNS:
         for r in range(OLMO_ROUNDS):
             digests = {o["runs"][name][0][r][0] for o in out}
             assert len(digests) == 1, (name, r)
             metrics = {o["runs"][name][0][r][1:3] for o in out}
             assert len(metrics) == 1, (name, r, metrics)
+            assert len({o["runs"][name][0][r][5] for o in out}) == 1
+            for i in range(m["model"]):
+                blocks = {o["runs"][name][0][r][4] for o in out
+                          if o["model_index"] == i}
+                assert len(blocks) == 1, (name, r, i)
+            placed = "train.dp_over_model=true" not in OLMO_RUNS[name][2]
+            assert len({o["runs"][name][0][r][4] for o in out}) == (
+                m["model"] if placed else 1)
 
 
 @pytest.mark.parametrize("mesh", list(OLMO_MESHES))
@@ -472,7 +524,16 @@ def test_olmo_fleet_replicas_read_one_lambda(olmo, mesh):
 @pytest.mark.parametrize("mesh", list(OLMO_MESHES))
 def test_olmo_round_within_c4_of_the_stacked_round(olmo, mesh):
     """The stacked round fed the distributed round's draws
-    (``dist_round_noise`` of the same generator), round after round."""
+    (``dist_round_noise`` of the same generator), round after round.  In
+    bfloat16 with the model ranks as replicas (``int_bf16``), the whole
+    trajectory at the bound of ``tests/test_torch_lm_round.py``.  In
+    bfloat16 tensor-parallel (``int_bf16_tp``) the forward and backward
+    round partial sums that the whole products do not (a split over heads,
+    ff columns and the vocabulary), which moves a parameter's delta by a
+    bfloat16 ulp of its gradient and so its uplink code by a step now and
+    then; each round's replay starts from the distributed round's
+    parameters before it (ROADMAP C8), held to a code step and two
+    bfloat16 ulps, 99 % equal."""
     out = olmo[mesh][0]
     shape, axes = OLMO_MESHES[mesh]
     sizes = tmesh.cohort_axis_sizes(tmesh.make_mesh(shape, axes),
@@ -488,12 +549,20 @@ def test_olmo_round_within_c4_of_the_stacked_round(olmo, mesh):
         for r in range(OLMO_ROUNDS):
             noise = dist_round_noise(model, cfg, gen, C,
                                      model.param_shapes.numel)
+            if name == "int_bf16_tp" and r:
+                params = out["runs"][name][0][r - 1][6]
             params, m = fn(params, _batch(r), noise=noise)
-            _, loss, surv, bits = out["runs"][name][0][r]
+            _, loss, surv, bits = out["runs"][name][0][r][:4]
             assert surv == float(m["survivors"]), (name, r)
             assert bits == m["wire_bits_per_param"], (name, r)
             np.testing.assert_allclose(loss, float(m["loss"]), rtol=1e-4,
                                        err_msg=name)
+            if name == "int_bf16_tp":
+                want = params.float()
+                diff = (out["runs"][name][0][r][6].float() - want).abs()
+                assert bool((diff <= 1 / 128 + want.abs() * 2 ** -6).all()), \
+                    (name, r, float(diff.max()))
+                assert float((diff == 0).float().mean()) >= 0.99, (name, r)
         if name == "int_bf16":
             # bfloat16: a code step and a bfloat16 ulp, 99 % equal (the
             # bound of tests/test_torch_lm_round.py)
@@ -501,7 +570,7 @@ def test_olmo_round_within_c4_of_the_stacked_round(olmo, mesh):
             diff = (out["runs"][name][1].float() - want).abs()
             assert bool((diff <= 1 / 128 + want.abs() * 2 ** -7).all()), name
             assert float((diff == 0).float().mean()) >= 0.99, name
-        else:
+        elif name != "int_bf16_tp":
             _c4(out["runs"][name][1], params, name)
 
 

@@ -3,6 +3,10 @@ and the launcher's failure paths, on gloo ranks on the CPU.
 
 Ranks run as subprocesses (``launch.ranks.run_ranks``, a ``FileStore``
 under ``tmp_path``), each with the environment ``torchrun`` would set.
+At 4 ranks the mesh is (1, 4) over ("data", "model"), and reduced
+olmo-1b runs tensor-parallel: each rank holds its blocks
+(``sharding.placement``), and the checkpoint rank 0 writes holds the whole
+tree, which a single process restores and the 4 ranks resume from.
 """
 import json
 import math
@@ -15,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
+from repro_torch import convert
 from repro_torch.config import apply_overrides
 from repro_torch.configs import get_config
 from repro_torch.core import comm as comm_mod
@@ -25,6 +30,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import cohort_axis_sizes, mesh_for_devices
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.models import build_model
+from repro_torch.sharding import rules as trules
 
 pytestmark = pytest.mark.slow
 
@@ -53,30 +59,35 @@ def _train_rank(rank, world, init, ckpt_dir, tel_dir):
     saves = []
     save = ckpt.save_params
     ckpt.save_params = lambda *a, **k: (saves.append(a[1]), save(*a, **k))
-    out = ttrain.main(["--arch", "olmo-1b", "--steps", str(STEPS),
-                       "--collective", "int", "--log-every", "1",
-                       "--backend", "gloo", "--init-method", init,
-                       "--checkpoint-dir", ckpt_dir, "--checkpoint-every",
-                       str(STEPS), "--telemetry-dir", tel_dir, *SMALL],
-                      device="cpu")
+    argv = ["--arch", "olmo-1b", "--collective", "int", "--log-every", "1",
+            "--backend", "gloo", "--checkpoint-dir", ckpt_dir,
+            "--checkpoint-every", str(STEPS), *SMALL]
+    out = ttrain.main(argv + ["--steps", str(STEPS), "--init-method", init,
+                              "--telemetry-dir", tel_dir], device="cpu")
+    # the 4 ranks resume from the checkpoint: no step left to run
+    resumed = ttrain.main(argv + ["--steps", str(STEPS), "--init-method",
+                                  init + "_resume"], device="cpu")
     return {k: out.get(k) for k in ("params", "loss", "kind", "cohorts",
                                     "rank", "telemetry_records",
-                                    "comm_sent")} | {"saves": saves}
+                                    "comm_sent")} | {
+        "saves": saves, "resumed": resumed["params"],
+        "resumed_from": resumed["start_step"]}
 
 
 def test_distributed_trainer_matches_the_stacked_round(tmp_path):
     """4 gloo ranks on the reference's mesh for 4 devices, (1, 4) over
-    ("data", "model"): every rank ends with equal parameters, within the
-    C4 bound of the stacked round replayed on the same batches and draws
-    (``fl.dist_round_noise``); rank 0 alone saves the checkpoint, and the
-    telemetry holds one record a step, numbered by step."""
+    ("data", "model"), tensor-parallel: the checkpoint rank 0 alone saves
+    holds the whole tree, every rank's parameters are its blocks of it
+    (the replicated leaves equal on every rank), the 4 ranks resume from
+    it into the same blocks, and it is within the C4 bound of the stacked
+    round replayed on the same batches and draws (``fl.dist_round_noise``);
+    the telemetry holds one record a step, numbered by step."""
     ckpt_dir, tel_dir = str(tmp_path / "ckpt"), str(tmp_path / "tel")
     out = run_ranks(_train_rank, 4, (ckpt_dir, tel_dir),
                     workdir=str(tmp_path / "ranks"), timeout_s=4 * TIMEOUT_S)
     assert [o["rank"] for o in out] == [0, 1, 2, 3]
     assert all(o["kind"] == "fl_round" and o["cohorts"] == 1 for o in out)
     for o in out[1:]:
-        assert torch.equal(o["params"], out[0]["params"])
         assert o["loss"] == out[0]["loss"]
     assert out[0]["saves"] == [STEPS] and all(not o["saves"] for o in out[1:])
     assert ckpt.latest_step(ckpt_dir) == STEPS
@@ -94,8 +105,22 @@ def test_distributed_trainer_matches_the_stacked_round(tmp_path):
     C = math.prod(cohort_axis_sizes(mesh_for_devices(4), cfg.fl.cohort_axes))
     D = model.param_shapes.numel
     params = model.init_flat(cfg.fl.seed, device="cpu")
+    # the whole tree, restored into a single process
     restored = ckpt.restore_params(ckpt_dir, params, model.param_shapes)
-    assert torch.equal(restored, out[0]["params"])
+    mesh = mesh_for_devices(4)
+    specs = trules.param_specs(model, cfg, mesh)
+    assert any(trules.model_dim(s) is not None for s in specs.values())
+    local = convert.local_layout(model.param_shapes, specs, mesh)
+    whole = convert.unflatten_params(restored, model.param_shapes)
+    for rank, o in enumerate(out):
+        at = comm_mod.coords(mesh, rank)
+        assert o["resumed_from"] == STEPS
+        assert o["params"].numel() == local.numel
+        assert torch.equal(o["resumed"], o["params"])
+        blocks = convert.unflatten_params(o["params"], local)
+        for k, leaf in whole.items():
+            assert torch.equal(blocks[k], convert.take_block(
+                leaf, specs[k], mesh, at)), (rank, k)
     fn = make_fl_round(model, cfg, (C,), collective="int", device="cpu")
     gen = make_generator(cfg.fl.seed + 1, torch.device("cpu"))
     for _ in range(STEPS):
@@ -104,7 +129,7 @@ def test_distributed_trainer_matches_the_stacked_round(tmp_path):
         params, m = fn(params, batch,
                        noise=dist_round_noise(model, cfg, gen, C, D))
     np.testing.assert_allclose(out[0]["loss"], float(m["loss"]), rtol=1e-4)
-    diff = (out[0]["params"] - params).abs()
+    diff = (restored - params).abs()
     assert float(diff.max()) <= 1 / 128 + 1e-7
     assert float((diff <= 1e-5).float().mean()) >= 0.999
 

@@ -39,9 +39,12 @@ def test_no_source_imports_jax_or_the_reference():
                           for n in names if _forbidden(n)]
     assert not offenders, offenders
     assert len(_modules()) >= 15
-    # the distributed round's modules are among those checked
+    # the distributed round's and the placement's modules are among those
+    # checked
     assert {"repro_torch.core.comm", "repro_torch.launch.ranks",
-            "repro_torch.launch.mesh"} <= set(_modules())
+            "repro_torch.launch.mesh", "repro_torch.sharding.rules",
+            "repro_torch.sharding.context",
+            "repro_torch.sharding.placement"} <= set(_modules())
 
 
 def test_importing_every_module_loads_neither_jax_nor_the_reference():
