@@ -2493,15 +2493,34 @@ def dist_phase(torch, run_ranks, smi):
 #: at once on the card, and rank 0 the stacked round of the whole cut
 #: beside them; at (1, 4) and (2, 2) over ("data", "model") in
 #: TP_FORMATS; and reduced qwen2.5-14b (bfloat16 weights, float32 norms,
-#: its q/k/v biases) at (1, 4).  TP_ROUNDS rounds a format.
+#: its q/k/v biases) at (1, 4).  The MoE, MLA and the encoder-decoder:
+#: granite-moe-1b-a400m at full width (d_model 1,024, 32 experts top 8,
+#: vocab 49,155, which stays whole) cut to TP_GRANITE_LAYERS of its 24
+#: layers (D = 314,719,232, the same reckoning as olmo's cut) at (1, 4),
+#: its experts 8 a rank; reduced deepseek-v3-671b (MLA, the shared expert,
+#: the multi-token block) at (1, 2), where rank m holds layer m's shared
+#: expert, and at (1, 4) in float32, where every routing's picks must
+#: equal the stacked round's (TP_PICK_FLIPS); whisper-base at full width
+#: and depth (D = 97,182,720, its vocabulary whole) at (1, 4), with
+#: frames, its batch cut to 4 × 64 tokens (each sequence's 1,500 frames
+#: put 3 MB of encoder activations a sequence through the host at each of
+#: its 25 model-group all-reduces a local step).  A mesh is over the
+#: config's last cohort axis ("data", deepseek's "pod") and "model".
+#: TP_ROUNDS rounds a format.
 TP_WORLD = 4
 TP_OLMO_LAYERS = 4
+TP_GRANITE_LAYERS = 4
 TP_FORMATS = ("int", "packed", "rsag")
 TP_ROUNDS = 2
-#: (arch, whether reduced, the cut, mesh shape over ("data", "model"))
+#: (arch, whether reduced, the cut, mesh shape over (cohort axis, "model"))
 TP_JOBS = (("olmo-1b", False, (f"model.n_layers={TP_OLMO_LAYERS}",), (1, 4)),
            ("olmo-1b", False, (f"model.n_layers={TP_OLMO_LAYERS}",), (2, 2)),
-           ("qwen2.5-14b", True, (), (1, 4)))
+           ("qwen2.5-14b", True, (), (1, 4)),
+           ("granite-moe-1b-a400m", False,
+            (f"model.n_layers={TP_GRANITE_LAYERS}",), (1, 4)),
+           ("deepseek-v3-671b", True, (), (1, 2)),
+           ("deepseek-v3-671b", True, ("model.dtype=float32",), (1, 4)),
+           ("whisper-base", False, ("train.global_batch=4",), (1, 4)))
 
 
 def tp_config(arch, small, cut):
@@ -2524,8 +2543,10 @@ def tp_worker(rank, world, init, jobs):
     (outside the timer); one round a format with every wire kernel held to
     its plain version at this rank's operands (``_held_to_plain``); and on
     rank 0, the stacked round of the whole model from the same parameters
-    and draws (``dist_round_noise``) against the gathered first round.
-    Returns host values only."""
+    and draws (``dist_round_noise``) against the gathered first round.  A
+    MoE's expert picks of the first forward (``models.mlp.route``
+    recorded) in the held round and in the stacked round of the first
+    format.  Returns host values only."""
     import torch
     from repro_torch import convert
     from repro_torch.core import comm as comm_mod
@@ -2536,6 +2557,7 @@ def tp_worker(rank, world, init, jobs):
     from repro_torch.kernels import ref as tref
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import build_model
+    from repro_torch.models import mlp as tmlp
     from repro_torch.sharding import rules
     from repro_torch.sharding.placement import gather_block, place_model
 
@@ -2543,24 +2565,39 @@ def tp_worker(rank, world, init, jobs):
     dev = torch.device("cuda", 0)
     comm_mod.init_process_group("gloo", rank, world, dev, init_method=init)
     seeded = lambda s: torch.Generator(device=dev).manual_seed(s)
+    route = tmlp.route
+
+    def recording(picks):
+        def recorded(logits, cfg_, capacity):
+            out = route(logits, cfg_, capacity)
+            picks.append(out[1].argmax(-1).reshape(-1).cpu())
+            return out
+        return recorded
+
     results = []
     try:
         for arch, small, cut, shape in jobs:
-            mesh = tmesh.make_mesh(shape, ("data", "model"))
-            comm = comm_mod.Comm(mesh, ("pod", "data"), dev)
-            C = comm.num_cohorts
+            job_t0 = time.perf_counter()
             cfg = tp_config(arch, small, cut)
+            mesh = tmesh.make_mesh(shape, (cfg.fl.cohort_axes[-1], "model"))
+            comm = comm_mod.Comm(mesh, cfg.fl.cohort_axes, dev)
+            C = comm.num_cohorts
             model = build_model(cfg)
             placed = place_model(model, cfg, comm)
             check(placed is not model, f"{arch} {shape}: nothing placed")
             specs = placed.placement.specs
             params0 = comm.broadcast_(placed.init_flat(1, device=dev))
             gen = seeded(5)
-            batches = [token_batch(gen, cfg.train.global_batch,
-                                   cfg.train.seq_len, cfg.model.vocab_size)
+            batches = [lm_batch(torch, token_batch, gen, cfg)
                        for _ in range(TP_ROUNDS)]
+            moe = cfg.model.moe.enabled
+            # the first forward's routings: the layers', then the
+            # multi-token block's
+            n_fwd = cfg.model.n_layers + (cfg.model.mtp_depth > 0)
+            picks = {"tp": [], "stacked": []}
             res = {"arch": arch + ("-reduced" if small else ""),
-                   "cut": list(cut), "shape": shape, "C": C,
+                   "cut": list(cut), "shape": shape, "axes": list(mesh),
+                   "C": C, "dtype": cfg.model.dtype,
                    "D": model.param_shapes.numel,
                    "D_local": placed.param_shapes.numel,
                    "sharded": sorted(k for k, v in specs.items()
@@ -2613,12 +2650,15 @@ def tp_worker(rank, world, init, jobs):
             for fmt in TP_FORMATS:
                 seen = {}
                 restore = _held_to_plain(torch, ops, tref, seen)
+                if moe and fmt == TP_FORMATS[0]:
+                    tmlp.route = recording(picks["tp"])
                 try:
                     make_dist_fl_round(placed, cfg, comm, collective=fmt)(
                         params0, batches[0], seeded(11))
                     torch.cuda.synchronize()
                 finally:
                     restore()
+                    tmlp.route = route
                 res["formats"][fmt]["plain"] = seen
             del params0, params
             torch.cuda.empty_cache()
@@ -2628,11 +2668,18 @@ def tp_worker(rank, world, init, jobs):
                 full0 = model.init_flat(1, device=dev)
                 for fmt in TP_FORMATS:
                     torch.cuda.reset_peak_memory_stats()
-                    want, wm = make_fl_round(model, cfg, comm.axis_sizes,
-                                             collective=fmt, device=dev)(
-                        full0, batches[0], noise=dist_round_noise(
-                            model, cfg, seeded(11), C, res["D"]))
-                    torch.cuda.synchronize()
+                    if moe and fmt == TP_FORMATS[0]:
+                        tmlp.route = recording(picks["stacked"])
+                    try:
+                        want, wm = make_fl_round(
+                            model, cfg, comm.axis_sizes, collective=fmt,
+                            device=dev)(full0, batches[0],
+                                        noise=dist_round_noise(
+                                            model, cfg, seeded(11), C,
+                                            res["D"]))
+                        torch.cuda.synchronize()
+                    finally:
+                        tmlp.route = route
                     a = _flat32(torch, gathered.pop(fmt)).to(dev)
                     b = _flat32(torch, want)
                     diff = (a - b).abs()
@@ -2652,9 +2699,18 @@ def tp_worker(rank, world, init, jobs):
                             torch.cuda.max_memory_allocated()}
                     del want, a, b, diff, over
                 del full0
+                if moe:
+                    tp_p, st_p = picks["tp"][:n_fwd], picks["stacked"][:n_fwd]
+                    res["picks"] = {
+                        "n_fwd": n_fwd,
+                        "routings": [len(picks["tp"]), len(picks["stacked"])],
+                        "per_routing": st_p[0].numel() if st_p else 0,
+                        "flips": [int((a != b).sum())
+                                  for a, b in zip(tp_p, st_p)]}
             comm.barrier()
             torch.cuda.empty_cache()
             res["model_sent"] = comm.sent["model"]
+            res["job_s"] = time.perf_counter() - job_t0
             results.append(res)
         return results
     finally:
@@ -2662,10 +2718,11 @@ def tp_worker(rank, world, init, jobs):
 
 
 def tp_phase(torch, run_ranks, smi):
-    """The distributed round tensor-parallel over "model": TP_WORLD worker
+    """The distributed round tensor-parallel over "model": worker
     processes (``spawn``) on cuda:0 over gloo with host staging, the
-    kernels already built, one spawn for TP_JOBS.  A worker that fails,
-    hangs or is killed fails the phase.  Checks each rank's parameter
+    kernels already built, one spawn for TP_JOBS of each world size
+    (TP_WORLD, then 2).  A worker that fails, hangs or is killed fails
+    the phase.  Checks each rank's parameter
     bytes equal ``sharding.bytes_per_device``; finite losses, the same on
     every rank; the quantized formats' gathered parameters after the first
     round against the stacked round on the same draws at the bfloat16
@@ -2673,20 +2730,41 @@ def tp_phase(torch, run_ranks, smi):
     larger of the two values, 99 % equal), the loss within 1e-3;
     and every call of a wire kernel in one round a format ``torch.equal``
     to its plain version at the rank's own operands, each kernel the
-    counted rounds launched among them.  Returns the launches summed over
-    ranks and counted rounds, and each wire kernel's largest difference
-    from its plain version."""
+    counted rounds launched among them; for a MoE, the expert picks of the
+    first forward that differ from the stacked round's, counted a routing,
+    each routing at most its share of TP_PICK_FLIPS.  Returns the
+    launches summed over ranks and counted rounds, and each wire kernel's
+    largest difference from its plain version."""
     from repro_torch.core import comm as tcomm
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     work = ROOT / "build" / f"tp_smoke_{int(time.time() * 1e3)}"
-    ranks = run_ranks(tp_worker, TP_WORLD, (list(TP_JOBS),),
-                      workdir=str(work), timeout_s=tcomm.TIMEOUT_S)
+    runs = []
+    for world in sorted({math.prod(job[3]) for job in TP_JOBS},
+                        reverse=True):
+        jobs = [job for job in TP_JOBS if math.prod(job[3]) == world]
+        ranks = run_ranks(tp_worker, world, (jobs,),
+                          workdir=str(work / f"w{world}"),
+                          timeout_s=tcomm.TIMEOUT_S)
+        runs += [(ranks, j) for j in range(len(jobs))]
     total, err = {}, {}
-    for j, res0 in enumerate(ranks[0]):
+    for ranks, j in runs:
+        res0 = ranks[0][j]
         where = f"{res0['arch']} {tuple(res0['shape'])}"
+        if "picks" in res0:
+            p = res0["picks"]
+            bound = TP_PICK_FLIPS[res0["dtype"]]
+            bound = bound[:1] + bound[1:] * (p["n_fwd"] - 1)
+            check(len(p["flips"]) == p["n_fwd"]
+                  and all(f <= b * p["per_routing"]
+                          for f, b in zip(p["flips"], bound)),
+                  f"{where}: expert picks flip against the stacked round's "
+                  f"beyond {bound} a routing: {p}")
+            print(f"tp round {where}: expert picks that differ from the "
+                  f"stacked round's in the first forward, a routing: "
+                  f"{p['flips']} of {p['per_routing']}")
         for r in ranks:
             check(r[j]["param_bytes"] == r[j]["bytes_per_device"],
                   f"{where}: a rank holds {r[j]['param_bytes']} parameter "
@@ -2721,7 +2799,7 @@ def tp_phase(torch, run_ranks, smi):
                         for i in range(TP_ROUNDS))
             print(json.dumps({
                 "tp_round": fmt, "model": res0["arch"], "cut": res0["cut"],
-                "mesh": list(res0["shape"]), "axes": ["data", "model"],
+                "mesh": list(res0["shape"]), "axes": res0["axes"],
                 "ranks": len(ranks), "backend": "gloo, host staging",
                 "cohorts": res0["C"], "D": res0["D"],
                 "D_local": res0["D_local"],
@@ -2748,7 +2826,8 @@ def tp_phase(torch, run_ranks, smi):
                 "card": smi}))
         print(f"tp round {where}: {len(res0['sharded'])} leaves sharded over "
               f"model={res0['shape'][1]}, D_local {res0['D_local']:,} of "
-              f"{res0['D']:,}; layout {res0['layout']}")
+              f"{res0['D']:,}; layout {res0['layout']}; the job "
+              f"{res0['job_s']:.1f} s on rank 0")
     print(f"tp phase: {time.perf_counter() - t0:.1f} s  ({smi})")
     return total, err
 
@@ -2849,8 +2928,21 @@ ZOO_SMALL_MODES = LM_MODES
 #: reduced bfloat16 deepseek's first forward: the share of its second
 #: layer's 512 expert picks that may differ between card and CPU (MLA's
 #: bfloat16 products round otherwise on each side before that router; a
-#: probe on the card saw 1 of 512, its first layer's picks equal)
+#: probe on the card saw 1 of 512, its first layer's picks equal); in
+#: ``tp_phase`` the share of the first routing's picks in a MoE job's
+#: first forward that may differ from the stacked round's (the split
+#: products round otherwise before that router)
 DEEPSEEK_PICK_FLIPS = 0.01
+#: ``tp_phase``: the share of a routing's picks in a MoE job's first
+#: forward that may differ from the stacked round's, the first routing's
+#: then every later one's, by the job's dtype.  In bfloat16 the first sees
+#: the split products' roundings alone (DEEPSEEK_PICK_FLIPS); a later one
+#: also the flipped tokens' expert outputs, which causal attention mixes
+#: into every later token (ROADMAP C9): granite's cut flipped 69–106 of
+#: 2,048 on the card, 0.0518 at most, held to 0.08.  In float32 none may
+#: flip, as on the CPU against the reference.
+TP_PICK_FLIPS = {"bfloat16": (DEEPSEEK_PICK_FLIPS, 0.08),
+                       "float32": (0.0, 0.0)}
 
 
 def lm_config(get_config, apply_overrides, arch="olmo-1b"):

@@ -453,3 +453,30 @@ def copy_to_model(x: torch.Tensor, comm) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, comm) -> torch.Tensor:
     """g at a row-parallel product's output: the partial sums summed."""
     return _ReduceFromModel.apply(x, comm) if _has_model_group(comm) else x
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The whole tensor from every model rank's block along ``dim``
+    forward; the rank's own block of the gradient backward, summed with
+    nothing (the gradient is whole on every rank, see
+    :func:`gather_from_model`)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim, ctx.n = comm, dim, x.shape[dim]
+        return torch.cat(comm.model_gather(x.contiguous()), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.comm.model_index * ctx.n,
+                           ctx.n), None, None
+
+
+def gather_from_model(x: torch.Tensor, comm, dim: int) -> torch.Tensor:
+    """A leaf sharded along ``dim`` gathered whole over the model group,
+    for a use that every rank makes whole on the same inputs (a layer's
+    shared expert whose layer dim the rules shard): its gradient is then
+    whole and equal on every rank, and each keeps its block of it, where a
+    reduce-scatter would scale it by the model size."""
+    return (_GatherFromModel.apply(x, comm, dim) if _has_model_group(comm)
+            else x)

@@ -13,8 +13,9 @@ A mesh is an ordered dict of axis name -> size.  The cohort axes
 
 Stacked, the "model" axis runs unsharded.  One process a position, the
 ranks that differ only on "model" hold their cohort's model as
-``sharding.rules`` places it (``sharding.placement``): the dense decoders
-tensor-parallel, each rank its blocks of the sharded leaves; where the
+``sharding.rules`` places it (``sharding.placement``): the dense decoders,
+the MoE, MLA and the encoder-decoder tensor-parallel, each rank its
+blocks of the sharded leaves; where the
 rules shard no leaf (the QNN, ``train.dp_over_model``), replicas.
 """
 from __future__ import annotations

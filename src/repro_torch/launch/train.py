@@ -16,17 +16,20 @@ trainer runs distributed, one process a mesh position:
 
 Rank, world size and local rank come from the environment ``torchrun``
 sets (RANK, WORLD_SIZE, LOCAL_RANK; ``--init-method`` "env://"), the mesh
-is the reference's for the world size, and each rank runs its cohort
+is the reference's for the world size, (1, world) below its 4-device
+debug mesh, its "data" axis named for the config's last cohort axis where
+the config has none ("pod" for deepseek-v3), and each rank runs its cohort
 through ``core.fl.make_dist_fl_round`` over real collectives
 (``core.comm``).  "nccl" takes one card a rank (cuda:LOCAL_RANK); "gloo"
 runs on the CPU (``main(..., device="cpu")``) or lets several ranks share
 a card (cuda:LOCAL_RANK mod the cards), staging every payload through
 pinned host memory.  The ranks of the "model" axis hold their cohort's
 model as ``sharding.rules`` places it (``sharding.placement``): a dense
-decoder tensor-parallel, each rank its blocks of the sharded leaves,
-built from the seed a leaf at a time; the QNN, whose leaves the rules
-never shard, as replicas; a family whose tensor-parallel forward is not
-ported raises at a model axis above 1.  The first rank of each cohort
+decoder or a MoE (granite, deepseek-v3 with MLA) tensor-parallel, each
+rank its blocks of the sharded leaves, built from the seed a leaf at a
+time; the QNN, whose leaves the rules never shard, as replicas; RWKV-6
+and the Griffin hybrid, whose tensor-parallel forward is not ported,
+raise at a model axis above 1.  The first rank of each cohort
 group broadcasts its parameters over the group.  Rank 0 alone writes
 checkpoints and telemetry: the whole tree, each sharded leaf gathered over
 the model group as it is written (the file a single process writes; the
@@ -89,7 +92,8 @@ from repro_torch.data.synthetic import token_batch
 from repro_torch.device import (DeviceLike, make_generator, resolve_device,
                                 seconds_since)
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import cohort_axis_sizes, mesh_for_devices
+from repro_torch.launch.mesh import (cohort_axis_sizes, make_mesh,
+                                     mesh_for_devices)
 from repro_torch.models import build_model
 from repro_torch.obs import sinks as obs_sinks
 from repro_torch.obs import tap as obs_tap
@@ -213,18 +217,18 @@ def _train(args: argparse.Namespace, dev: torch.device,
     if world is None:
         mesh = mesh_for_devices(args.devices or 1)
     else:
-        mesh = mesh_for_devices(world)
+        mesh = (mesh_for_devices(world) if world >= 4
+                else make_mesh((1, world), ("data", "model")))
+        axis = cfg.fl.cohort_axes[-1]
+        if axis not in mesh:
+            mesh = {axis if a == "data" else a: n for a, n in mesh.items()}
         if args.devices and args.devices != world:
             raise ValueError(f"--devices {args.devices} on {world} ranks: "
                              f"the distributed mesh is the world's")
         if math.prod(mesh.values()) != world:
             raise ValueError(f"the reference's mesh for {world} devices is "
                              f"{mesh}, which {world} ranks do not fill: "
-                             f"launch 1, 4, 8, ... ranks")
-        if not cohort_axis_sizes(mesh, cfg.fl.cohort_axes):
-            raise ValueError(f"the mesh {mesh} has no cohort axis of "
-                             f"fl.cohort_axes {cfg.fl.cohort_axes}: the "
-                             f"distributed mode runs the FL round only")
+                             f"launch 1 to 3 ranks or a multiple of 4")
         comm = comm_mod.Comm(mesh, cfg.fl.cohort_axes, dev)
         model = place_model(model, cfg, comm)
     log(f"mesh: {mesh}  arch: {cfg.model.name} "

@@ -6,6 +6,12 @@ encoder's k and v, projected once: ``project_cross_kv``).
 Weights are (d, H·hd) matrices for one model or (C, d, H·hd) for C stacked
 cohorts, with x (B, S, d) or (C, B, S, d) (``common.linear``).
 
+Under tensor parallelism (``sharding.placement``) a rank whose wq holds a
+block of the heads runs its query heads and the kv heads they read
+(``_local_q``, ``_local_kv``), and wo row-parallel; so does the
+cross-attention, its k and v projected from the encoder's states that the
+caller passed through f once for every layer (``project_cross_kv``).
+
 Cache convention (per layer), as the reference's: k and v (B, C, KV, hd)
 in the model's dtype, C the capacity (the context, or the window of a
 sliding-window cache); ``kv_pos`` (B, C) int32 the absolute position each
@@ -53,7 +59,7 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor,
     tensor parallelism the rank's heads (:func:`_local_qkv`)."""
     hd = cfg.resolved_head_dim
     lead = x.shape[:-1]
-    if tp is not None and params["wq"].shape[-1] < cfg.n_heads * hd:
+    if _tp_heads(params, cfg, tp):
         q, k, v = _local_qkv(params, x, cfg, tp)
     else:
         q = common.linear(x, params["wq"])
@@ -69,28 +75,47 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
 def _local_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor,
                cfg: ModelConfig, tp):
-    """Rank m's query heads [m·Hl, (m+1)·Hl) (wq holds their columns) and
-    the kv heads they read, head h reading kv head h // (H / KV): wk and
-    wv's own columns where they shard too, else the columns of those kv
-    heads taken from the replicated wk and wv (a contiguous run where the
-    heads group evenly, one kv head a query head otherwise).  The biases
-    replicate, and each rank takes its heads' block of them.  A replicated
-    leaf that each rank uses a part of passes through f, so its gradient
-    sums over the model group."""
-    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    """Rank m's query heads and the kv heads they read
+    (:func:`_local_q`, :func:`_local_kv`), x through f once."""
+    xin = common.column_input(x, tp)
+    return (_local_q(params, xin, cfg, tp), *_local_kv(params, xin, cfg, tp))
 
-    def pick(t, cols):
-        t = comm_mod.copy_to_model(t, tp)
-        return t[..., cols] if isinstance(cols, slice) else \
-            t.index_select(-1, cols)
 
+def _pick(t: torch.Tensor, cols, tp) -> torch.Tensor:
+    """Columns ``cols`` (a slice or an index tensor) of a replicated leaf
+    through f: each rank uses a part of it, so its gradient sums over the
+    model group."""
+    t = comm_mod.copy_to_model(t, tp)
+    return t[..., cols] if isinstance(cols, slice) else \
+        t.index_select(-1, cols)
+
+
+def _local_q(params: Dict[str, torch.Tensor], xin: torch.Tensor,
+             cfg: ModelConfig, tp) -> torch.Tensor:
+    """Rank m's query heads [m·Hl, (m+1)·Hl) (wq holds their columns) from
+    ``xin`` (``common.column_input``), with their block of the replicated
+    bias."""
+    hd = cfg.resolved_head_dim
     Hl = params["wq"].shape[-1] // hd
     first = tp.model_index * Hl
-    xin = common.column_input(x, tp)
     q = common.column_linear(xin, params["wq"])
     if cfg.qkv_bias:
-        q = common.add_bias(q, pick(params["bq"],
-                                    slice(first * hd, (first + Hl) * hd)))
+        q = common.add_bias(q, _pick(params["bq"],
+                                     slice(first * hd, (first + Hl) * hd), tp))
+    return q
+
+
+def _local_kv(params: Dict[str, torch.Tensor], xin: torch.Tensor,
+              cfg: ModelConfig, tp):
+    """The kv heads rank m's query heads read, head h reading kv head
+    h // (H / KV): wk and wv's own columns where they shard too, else the
+    columns of those kv heads taken from the replicated wk and wv (a
+    contiguous run where the heads group evenly, one kv head a query head
+    otherwise).  The biases replicate, and each rank takes its heads'
+    block of them."""
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    Hl = params["wq"].shape[-1] // hd
+    first = tp.model_index * Hl
     KVl = params["wk"].shape[-1] // hd
     if KVl < KV:                    # kv heads shard too
         wcols, bcols = None, slice(tp.model_index * KVl * hd,
@@ -102,15 +127,15 @@ def _local_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor,
             wcols = slice(lo * hd, (lo + n) * hd)
         else:
             wcols = torch.tensor([h * hd + i for h in heads
-                                  for i in range(hd)], device=x.device)
+                                  for i in range(hd)], device=xin.device)
         bcols = wcols
     out = []
     for w, b in (("wk", "bk"), ("wv", "bv")):
-        wt = params[w] if wcols is None else pick(params[w], wcols)
+        wt = params[w] if wcols is None else _pick(params[w], wcols, tp)
         y = common.column_linear(xin, wt)
-        out.append(common.add_bias(y, pick(params[b], bcols))
+        out.append(common.add_bias(y, _pick(params[b], bcols, tp))
                    if cfg.qkv_bias else y)
-    return q, out[0], out[1]
+    return out[0], out[1]
 
 
 def self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -131,7 +156,7 @@ def self_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
         k = common.apply_rope(k, positions, cfg.rope_theta)
     o = attend(q, k, v, positions, positions, causal=True, window=window)
     o = o.reshape(*x.shape[:-1], -1)
-    if tp is not None and o.shape[-1] < cfg.n_heads * cfg.resolved_head_dim:
+    if _tp_heads(params, cfg, tp):
         out = common.row_linear(o, params["wo"], tp)
     else:
         out = common.linear(o, params["wo"])
@@ -191,29 +216,50 @@ def init_cross_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
 
 def cross_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                     enc_k: torch.Tensor, enc_v: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Decoder-to-encoder attention (whisper): x (..., S, d) attends to
     enc_k and enc_v (..., Se, KV, hd) with every position 0, no mask and
-    no rope.  Returns (..., S, d)."""
+    no rope.  Returns (..., S, d).  Where wq holds one model rank's heads
+    (tensor parallelism over ``tp``), the rank's query heads attend to the
+    kv heads :func:`project_cross_kv` gave it, and wo is row-parallel."""
     hd = cfg.resolved_head_dim
-    q = common.linear(x, params["wq"])
-    if cfg.qkv_bias:
-        q = common.add_bias(q, params["bq"])
-    q = q.reshape(*x.shape[:-1], cfg.n_heads, hd)
+    local = _tp_heads(params, cfg, tp)
+    if local:
+        q = _local_q(params, common.column_input(x, tp), cfg, tp)
+    else:
+        q = common.linear(x, params["wq"])
+        if cfg.qkv_bias:
+            q = common.add_bias(q, params["bq"])
+    q = q.reshape(*x.shape[:-1], -1, hd)
     zero = torch.zeros((1,), dtype=torch.int32, device=x.device)
     o = attend(q, enc_k, enc_v, zero, zero, causal=False)
-    return common.linear(o.reshape(*x.shape[:-1], -1), params["wo"])
+    o = o.reshape(*x.shape[:-1], -1)
+    return (common.row_linear(o, params["wo"], tp) if local
+            else common.linear(o, params["wo"]))
 
 
 def project_cross_kv(params: Dict[str, torch.Tensor], enc_out: torch.Tensor,
-                     cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                     cfg: ModelConfig, tp=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder's k and v (..., Se, KV, hd), once for every decode
-    step."""
+    step; under tensor parallelism the kv heads the rank's query heads
+    read (:func:`_local_kv`), from ``enc_out`` through f
+    (``common.column_input``), which the caller takes once for all its
+    layers, so that the encoder's gradient sums every rank's heads."""
     hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    lead = enc_out.shape[:-1]
+    if _tp_heads(params, cfg, tp):
+        k, v = _local_kv(params, enc_out, cfg, tp)
+        return k.reshape(*lead, -1, hd), v.reshape(*lead, -1, hd)
     k = common.linear(enc_out, params["wk"])
     v = common.linear(enc_out, params["wv"])
     if cfg.qkv_bias:
         k = common.add_bias(k, params["bk"])
         v = common.add_bias(v, params["bv"])
-    lead = enc_out.shape[:-1]
     return k.reshape(*lead, KV, hd), v.reshape(*lead, KV, hd)
+
+
+def _tp_heads(params: Dict[str, torch.Tensor], cfg: ModelConfig, tp) -> bool:
+    """Whether wq holds one model rank's block of the heads."""
+    return tp is not None and \
+        params["wq"].shape[-1] < cfg.n_heads * cfg.resolved_head_dim

@@ -12,6 +12,8 @@ float32), so that it reads the latent and never rebuilds K and V.
 Weights are (in, out) matrices for one model or (C, in, out) for C
 stacked cohorts, with x (B, S, d) or (C, B, S, d) (``common.linear``).
 ``q_norm`` and ``kv_norm`` are float32 rmsnorm scales (``1 + scale``).
+Under tensor parallelism the full-sequence form runs on the rank's heads
+(:func:`mla_attention`).
 """
 from __future__ import annotations
 
@@ -62,13 +64,18 @@ def latent_width(cfg: ModelConfig) -> int:
     return cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
 
 
-def _queries(params, x, positions, cfg: ModelConfig):
-    """x (..., S, d) -> q_nope (..., S, H, nope), q_rope (..., S, H, rope)."""
+def _queries(params, x, positions, cfg: ModelConfig, tp=None):
+    """x (..., S, d) -> q_nope (..., S, H, nope), q_rope (..., S, H, rope);
+    where w_uq holds one model rank's heads, the rank's, f on the normed
+    query latent (:func:`mla_attention`)."""
     m = cfg.mla
     dq = m.qk_nope_head_dim + m.qk_rope_head_dim
     ql = common.rmsnorm(common.linear(x, params["w_dq"]), params["q_norm"])
-    q = common.linear(ql, params["w_uq"]).reshape(*x.shape[:-1],
-                                                  cfg.n_heads, dq)
+    if tp is not None and params["w_uq"].shape[-1] < cfg.n_heads * dq:
+        q = common.column_linear(common.column_input(ql, tp), params["w_uq"])
+    else:
+        q = common.linear(ql, params["w_uq"])
+    q = q.reshape(*x.shape[:-1], -1, dq)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = common.apply_rope(q[..., m.qk_nope_head_dim:], positions,
                                cfg.rope_theta)
@@ -87,21 +94,43 @@ def _latent(params, x, positions, cfg: ModelConfig):
 
 def mla_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, *,
-                  window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                  window: int = 0, tp=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence MLA (train / prefill): x (B, S, d), or (C, B, S, d)
     with stacked weights; positions (B, S).  Returns (out, the cache's
-    entries (..., S, r + d_rope): the latent and the rope'd shared key)."""
+    entries (..., S, r + d_rope): the latent and the rope'd shared key).
+
+    Where w_uq holds one model rank's heads (tensor parallelism over
+    ``tp``; w_uk and w_uv then too), the rank attends with its heads: the
+    replicated low-rank path (w_dq, w_dkv and the two norms) runs whole,
+    f where it ends (on the normed query latent, the normed kv latent and
+    the rope'd shared key, so that its gradient sums every rank's heads),
+    and wo is row-parallel (``common.row_linear``).  Where the heads do not
+    divide the model axis the rules replicate MLA, and it runs whole."""
     m = cfg.mla
     lead, H = x.shape[:-1], cfg.n_heads
-    q_nope, q_rope = _queries(params, x, positions, cfg)
+    q_nope, q_rope = _queries(params, x, positions, cfg, tp)
     latent, k_rope = _latent(params, x, positions, cfg)
-    k_nope = common.linear(latent, params["w_uk"]).reshape(
-        *lead, H, m.qk_nope_head_dim)
-    v = common.linear(latent, params["w_uv"]).reshape(*lead, H, m.v_head_dim)
-    k = torch.cat([k_nope, k_rope.expand(*lead, H, m.qk_rope_head_dim)], -1)
+    Hl = q_nope.shape[-2]
+    if Hl < H:
+        lat32 = common.column_input(latent, tp)
+        k_nope = common.column_linear(lat32, params["w_uk"])
+        v = common.column_linear(lat32, params["w_uv"])
+        # the shared key's gradient summed over the heads in float32
+        k_shared = common.column_input(k_rope, tp).expand(
+            *lead, Hl, m.qk_rope_head_dim).to(k_nope.dtype)
+    else:
+        k_nope = common.linear(latent, params["w_uk"])
+        v = common.linear(latent, params["w_uv"])
+        k_shared = k_rope.expand(*lead, H, m.qk_rope_head_dim)
+    k = torch.cat([k_nope.reshape(*lead, Hl, m.qk_nope_head_dim), k_shared],
+                  -1)
+    v = v.reshape(*lead, Hl, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
     o = attn.attend(q, k, v, positions, positions, causal=True, window=window)
-    out = common.linear(o.reshape(*lead, -1), params["wo"])
+    o = o.reshape(*lead, -1)
+    out = (common.row_linear(o, params["wo"], tp) if Hl < H
+           else common.linear(o, params["wo"]))
     return out, torch.cat([latent, k_rope[..., 0, :]], -1)
 
 

@@ -32,17 +32,20 @@ cohort (``core.fl.local_sgd``).
 Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass, the same numbers.
 
-**Tensor parallelism** (the dense and vlm families: ``tensor_parallel``).
-A model placed on a rank of the distributed round
+**Tensor parallelism** (the dense, vlm and MoE families:
+``tensor_parallel``).  A model placed on a rank of the distributed round
 (``sharding.placement.place_model``) holds its blocks of the leaves
 (``param_shapes`` the local layout) and reduces over ``tp``'s model group:
 the embedding sharded over its vocabulary looks up the tokens in its
-block, zeros the rest and sums (g); attention and the MLP run their heads'
-and ff columns' blocks (``attention``, ``mlp``); the logits of a sharded
-head (or tied embedding) are the block's vocabulary, and the
-cross-entropy and the accuracy reduce over the model group (the max, the
-sum of exponentials and the target's logit; the first index of the
-largest logit).  The same code runs one process with ``tp`` None.
+block, zeros the rest and sums (g); attention, MLA and the MLP run their
+heads' and ff columns' blocks (``attention``, ``mla``, ``mlp``), the MoE
+its experts or their ff columns (``mlp.moe``); a layer-stacked leaf whose
+layer dim the rules shard is gathered whole before use
+(``_whole_layers``); the logits of a sharded head (or tied embedding) are
+the block's vocabulary, and the cross-entropy and the accuracy reduce
+over the model group (the max, the sum of exponentials and the target's
+logit; the first index of the largest logit: :class:`VocabParallel`).
+The same code runs one process with ``tp`` None.
 
 The cache is a dict of tensors: the attention layers' ``k`` and ``v``
 (L_att, B, C, KV, hd) in the model's dtype (an MLA stack's ``latent``
@@ -217,8 +220,67 @@ def _vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -(target - torch.log(sumexp)).mean(dim=(-2, -1))
 
 
+class VocabParallel:
+    """The embedding, logits, cross-entropy and accuracy of a model that
+    may be placed on a rank of the distributed round
+    (``sharding.placement``): where its table or head holds one model
+    rank's block of the vocabulary, the lookup, the logits and their
+    reductions run over ``tp``'s model group; else as one process.  The
+    LM and the encoder-decoder share them."""
+    #: where placed on a rank (``sharding.placement``): its Placement and
+    #: the ``core.comm.Comm`` of its model group
+    placement = None
+    tp = None
+
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               stacked: bool) -> torch.Tensor:
+        table = params["embed"]
+        Vl = table.shape[-2]
+        if self.tp is None or Vl == self.cfg.vocab_size:
+            return embed_tokens(table, tokens, stacked)
+        # this rank's block of the vocabulary: its tokens' rows, zeros for
+        # the others, summed over the model group
+        local = tokens.long() - self.tp.model_index * Vl
+        inside = (local >= 0) & (local < Vl)
+        rows = embed_tokens(table, torch.where(inside, local, 0), stacked)
+        return comm_mod.reduce_from_model(
+            rows.masked_fill(~inside[..., None], 0), self.tp)
+
+    def _vocab_sharded(self, t: torch.Tensor) -> bool:
+        """Whether ``t``'s last axis is one model rank's block of the
+        vocabulary (a head's, the logits')."""
+        return self.tp is not None and t.shape[-1] < self.cfg.vocab_size
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """The logits in float32: under tensor parallelism with a sharded
+        head (or tied embedding), this rank's block of the vocabulary."""
+        w = (params["embed"].transpose(-1, -2) if self.cfg.tie_embeddings
+             else params["head"])
+        if self._vocab_sharded(w):
+            x32 = common.column_input(x, self.tp)
+            return common.column_linear(x32, w).float()
+        return common.linear(x, w).float()
+
+    def _ce(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if self._vocab_sharded(logits):
+            return _vocab_parallel_cross_entropy(logits, labels, self.tp)
+        return _cross_entropy(logits, labels)
+
+    def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The vocabulary index of the largest logit (the first of equals),
+        over the model group where the logits are a block of it."""
+        if not self._vocab_sharded(logits):
+            return logits.argmax(-1)
+        Vl = logits.shape[-1]
+        mx, arg = logits.max(-1)
+        top = self.tp.model_all_reduce(mx, "max")
+        cand = torch.where(mx == top, arg + self.tp.model_index * Vl,
+                           self.cfg.vocab_size)
+        return self.tp.model_all_reduce(cand, "min")
+
+
 @dataclass
-class LM:
+class LM(VocabParallel):
     """Decoder-only language model of every family but the cnn and the
     encoder-decoder: dense, vlm, MoE (with MLA and multi-token
     prediction), RWKV-6 and the Griffin hybrid."""
@@ -252,16 +314,12 @@ class LM:
     #: the reference's ``LM.loss`` ignores its rng: no fake-quant in the
     #: local steps (the QNN's STE is the cnn's, ``CNNModel``)
     quantizes_training = False
-    #: where placed on a rank (``sharding.placement``): its Placement and
-    #: the ``core.comm.Comm`` of its model group
-    placement = None
-    tp = None
-
     @property
     def tensor_parallel(self) -> bool:
         """Whether the forward runs split over a model group: the dense
-        decoders (MoE, MLA, RWKV-6 and Griffin wait for ROADMAP A.5)."""
-        return self.cfg.family in ("dense", "vlm")
+        decoders, the MoE and MLA (RWKV-6 and Griffin wait for ROADMAP
+        A.5's second half)."""
+        return self.cfg.family in ("dense", "vlm", "moe")
 
     # -- init ------------------------------------------------------------------
 
@@ -284,8 +342,13 @@ class LM:
         views = convert.unflatten_params(flat, self.param_shapes)
 
         def put(path, v, layer=None):
-            # a placed model keeps its block of each leaf drawn whole
+            # a placed model keeps its block of each leaf drawn whole (of a
+            # leaf whose layer dim shards, its own layers)
             if self.placement is not None:
+                if layer is not None:
+                    layer = self.placement.local_layer(path, layer)
+                    if layer is None:
+                        return
                 v = self.placement.block(path, v, layer=layer is not None)
             (views[path] if layer is None else views[path][layer]).copy_(v)
 
@@ -341,68 +404,33 @@ class LM:
 
     # -- forward (full sequence) -------------------------------------------------
 
-    def _embed(self, params: Params, tokens: torch.Tensor,
-               stacked: bool) -> torch.Tensor:
-        table = params["embed"]
-        Vl = table.shape[-2]
-        if self.tp is None or Vl == self.cfg.vocab_size:
-            return embed_tokens(table, tokens, stacked)
-        # this rank's block of the vocabulary: its tokens' rows, zeros for
-        # the others, summed over the model group
-        local = tokens.long() - self.tp.model_index * Vl
-        inside = (local >= 0) & (local < Vl)
-        rows = embed_tokens(table, torch.where(inside, local, 0), stacked)
-        return comm_mod.reduce_from_model(
-            rows.masked_fill(~inside[..., None], 0), self.tp)
-
-    def _vocab_sharded(self, t: torch.Tensor) -> bool:
-        """Whether ``t``'s last axis is one model rank's block of the
-        vocabulary (a head's, the logits')."""
-        return self.tp is not None and t.shape[-1] < self.cfg.vocab_size
-
-    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """The logits in float32: under tensor parallelism with a sharded
-        head (or tied embedding), this rank's block of the vocabulary."""
-        w = (params["embed"].transpose(-1, -2) if self.cfg.tie_embeddings
-             else params["head"])
-        if self._vocab_sharded(w):
-            x32 = common.column_input(x, self.tp)
-            return common.column_linear(x32, w).float()
-        return common.linear(x, w).float()
-
-    def _ce(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        if self._vocab_sharded(logits):
-            return _vocab_parallel_cross_entropy(logits, labels, self.tp)
-        return _cross_entropy(logits, labels)
-
-    def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
-        """The vocabulary index of the largest logit (the first of equals),
-        over the model group where the logits are a block of it."""
-        if not self._vocab_sharded(logits):
-            return logits.argmax(-1)
-        Vl = logits.shape[-1]
-        mx, arg = logits.max(-1)
-        top = self.tp.model_all_reduce(mx, "max")
-        cand = torch.where(mx == top, arg + self.tp.model_index * Vl,
-                           self.cfg.vocab_size)
-        return self.tp.model_all_reduce(cand, "min")
-
     def _layers(self, params: Params, stacked: bool) -> List[Params]:
         """Each layer's leaves, keyed by their path below the layer.  A
         stacked leaf is unbound once: its backward stacks the layers'
         gradients in one write, where a select a layer would zero-fill the
         whole leaf and add into it once a layer."""
         if homogeneous(self.cfg):
-            blocks = {k[len("blocks/"):]: v.unbind(1 if stacked else 0)
-                      for k, v in params.items() if k.startswith("blocks/")}
+            dim, L = (1 if stacked else 0), self.cfg.n_layers
+            blocks = {k[len("blocks/"):]: self._whole_layers(v, dim).unbind(
+                dim) for k, v in params.items() if k.startswith("blocks/")}
             return [{k: v[i] for k, v in blocks.items()}
-                    for i in range(self.cfg.n_layers)]
+                    for i in range(L)]
         out: List[Params] = [{} for _ in range(self.cfg.n_layers)]
         for k, v in params.items():
             if k.startswith("blocks/"):
                 i, rest = k[len("blocks/"):].split("/", 1)
                 out[int(i)][rest] = v
         return out
+
+    def _whole_layers(self, v: torch.Tensor, dim: int) -> torch.Tensor:
+        """A layer-stacked leaf with every layer: where the rules shard its
+        layer dim (``dim``) over the model group (the reference's expert
+        dim of a stacked shared expert, rank m holding a block of the
+        layers), the leaf gathered whole, each rank keeping its block of
+        the gradient (``comm.gather_from_model``)."""
+        if self.tp is None or v.shape[dim] == self.cfg.n_layers:
+            return v
+        return comm_mod.gather_from_model(v, self.tp, dim)
 
     def _backbone(self, params: Params, tokens: torch.Tensor, *,
                   stacked: bool, remat: bool,
@@ -457,7 +485,8 @@ class LM:
                 griffin.init_recurrent_state(lead, cfg, x.dtype, x.device), cfg)
         elif cfg.mla.enabled:
             mix, entry = mla.mla_attention(_sub(layer, "mla"), h, positions,
-                                           cfg, window=block_window(cfg, kind))
+                                           cfg, window=block_window(cfg, kind),
+                                           tp=self.tp)
         else:
             mix, entry = attn.self_attention(_sub(layer, "attn"), h, positions,
                                              cfg, window=block_window(cfg, kind),
@@ -474,7 +503,7 @@ class LM:
         cfg = self.cfg
         h = common.apply_norm(x, _sub(layer, "norm2"), cfg)
         if cfg.moe.enabled:
-            ff, aux = mlp.moe(_sub(layer, "moe"), h, cfg)
+            ff, aux = mlp.moe(_sub(layer, "moe"), h, cfg, self.tp)
         else:
             ff, aux = mlp.mlp(_sub(layer, "mlp"), h, cfg, self.tp), None
         return x + ff.to(x.dtype), aux

@@ -15,6 +15,14 @@ scales and biases float32 and the rest the model's dtype
 ``loss_stacked`` runs C cohorts at once, a leading C on every leaf and on
 the tokens, labels and frames (``core.fl.local_sgd``).
 
+Placed on a rank of the distributed round (``sharding.placement``), the
+model holds its blocks and runs tensor-parallel over ``tp``'s model
+group as the LM does: both stacks' self-attention and MLP on the rank's
+heads and ff columns, the cross-attention on its heads, the encoder's
+states through f once ahead of every decoder layer's cross k and v
+(``attention.project_cross_kv``), and the vocabulary's blocks where the
+table and head shard (:class:`transformer.VocabParallel`).
+
 The decode cache holds the decoder's self-attention ``k`` and ``v`` (L, B,
 C, KV, hd), the cross-attention's ``cross_k`` and ``cross_v`` (L, B, Se,
 KV, hd), projected once in ``prefill``, ``kv_pos`` (B, C) and ``length``;
@@ -33,8 +41,7 @@ from repro_torch.config.base import Config, ModelConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
-from repro_torch.models.transformer import (_cross_entropy, _sub,
-                                            embed_tokens, torch_dtype)
+from repro_torch.models.transformer import VocabParallel, _sub, torch_dtype
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -78,7 +85,7 @@ def whisper_param_shapes(cfg: ModelConfig) -> convert.Layout:
 
 
 @dataclass
-class WhisperModel:
+class WhisperModel(VocabParallel):
     """The encoder-decoder (family ``audio``, ``is_encoder_decoder``)."""
     config: Config
 
@@ -96,6 +103,9 @@ class WhisperModel:
 
     #: the reference's loss ignores its rng: no fake-quant in local steps
     quantizes_training = False
+    #: the forward runs split over a model group where placed on a rank
+    #: (``sharding.placement``)
+    tensor_parallel = True
 
     # -- init ------------------------------------------------------------------
 
@@ -114,13 +124,17 @@ class WhisperModel:
         views = convert.unflatten_params(flat, self.param_shapes)
         norm = common.make_norm_params(cfg, cfg.d_model, device=dev)
 
+        def put(path, v, layer=None):
+            # a placed model keeps its block of each leaf drawn whole
+            if self.placement is not None:
+                v = self.placement.block(path, v, layer=layer is not None)
+            (views[path] if layer is None else views[path][layer]).copy_(v)
+
         def fill(prefix, leaves, layer=None):
             for k, v in leaves.items():
-                view = views[f"{prefix}/{k}"]
-                (view if layer is None else view[layer]).copy_(v)
+                put(f"{prefix}/{k}", v, layer)
 
-        views["embed"].copy_(common.embed_init(
-            gen, (cfg.vocab_size, cfg.d_model)))
+        put("embed", common.embed_init(gen, (cfg.vocab_size, cfg.d_model)))
         for pre, L, mixers in (("enc", cfg.n_encoder_layers, ENC_MIXERS),
                                ("dec", cfg.n_layers, DEC_MIXERS)):
             for i in range(L):
@@ -132,8 +146,7 @@ class WhisperModel:
                 fill(f"{pre}/mlp", mlp.init_mlp_params(gen, cfg, dtype=dt), i)
         fill("enc_norm", norm)
         fill("final_norm", norm)
-        views["head"].copy_(common.dense_init(
-            gen, (cfg.d_model, cfg.vocab_size)))
+        put("head", common.dense_init(gen, (cfg.d_model, cfg.vocab_size)))
         return flat
 
     def init(self, seed: Union[int, torch.Generator] = 0, *,
@@ -165,13 +178,17 @@ class WhisperModel:
         h = frames.to(self.dtype)
         for lp in self._layers(params, "enc", stacked):
             a = common.apply_norm(h, _sub(lp, "norm1"), cfg)
-            q, k, v = attn._project_qkv(_sub(lp, "attn"), a, cfg)
+            sa = _sub(lp, "attn")
+            q, k, v = attn._project_qkv(sa, a, cfg, self.tp)
             q = common.apply_rope(q, positions, cfg.rope_theta)
             k = common.apply_rope(k, positions, cfg.rope_theta)
             o = attn.attend(q, k, v, positions, positions, causal=False)
-            h = h + common.linear(o.reshape(*h.shape[:-1], -1), lp["attn/wo"])
+            o = o.reshape(*h.shape[:-1], -1)
+            h = h + (common.row_linear(o, sa["wo"], self.tp)
+                     if attn._tp_heads(sa, cfg, self.tp)
+                     else common.linear(o, sa["wo"]))
             m = common.apply_norm(h, _sub(lp, "norm2"), cfg)
-            h = h + mlp.mlp(_sub(lp, "mlp"), m, cfg)
+            h = h + mlp.mlp(_sub(lp, "mlp"), m, cfg, self.tp)
         return common.apply_norm(h, _sub(params, "enc_norm"), cfg)
 
     # -- decoder ---------------------------------------------------------------
@@ -190,25 +207,28 @@ class WhisperModel:
         B, S = tokens.shape[-2:]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
-        h = embed_tokens(params["embed"], tokens, stacked)
+        h = self._embed(params, tokens, stacked)
+        if attn._tp_heads(_sub(params, "dec/cross_attn"), cfg, self.tp):
+            # every layer's cross k and v read the rank's heads: f once
+            enc_out = common.column_input(enc_out, self.tp)
         for i, lp in enumerate(self._layers(params, "dec", stacked)):
             a = common.apply_norm(h, _sub(lp, "norm1"), cfg)
             sa, (k, v) = attn.self_attention(_sub(lp, "self_attn"), a,
-                                             positions, cfg)
+                                             positions, cfg, tp=self.tp)
             h = h + sa
             c = common.apply_norm(h, _sub(lp, "norm_x"), cfg)
             cross = _sub(lp, "cross_attn")
-            ek, ev = attn.project_cross_kv(cross, enc_out, cfg)
-            h = h + attn.cross_attention(cross, c, ek, ev, cfg)
+            ek, ev = attn.project_cross_kv(cross, enc_out, cfg, self.tp)
+            h = h + attn.cross_attention(cross, c, ek, ev, cfg, self.tp)
             if store is not None:
                 store(i, (k, v, ek, ev))
             del k, v, ek, ev
             m = common.apply_norm(h, _sub(lp, "norm2"), cfg)
-            h = h + mlp.mlp(_sub(lp, "mlp"), m, cfg)
+            h = h + mlp.mlp(_sub(lp, "mlp"), m, cfg, self.tp)
         h = common.apply_norm(h, _sub(params, "final_norm"), cfg)
         if last_only:
             h = h[..., -1:, :]
-        return common.linear(h, params["head"]).float()
+        return self._logits(params, h)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], rng=None,
              *, remat: Optional[bool] = None
@@ -218,7 +238,7 @@ class WhisperModel:
         are ignored, as the reference's."""
         enc_out = self.encode(params, batch["frames"])
         logits = self._decoder_full(params, batch["tokens"], enc_out)
-        ce = _cross_entropy(logits, batch["labels"])
+        ce = self._ce(logits, batch["labels"])
         return ce, {"ce": ce}
 
     def loss_stacked(self, params: Params, batch: Dict[str, torch.Tensor], *,
@@ -230,9 +250,9 @@ class WhisperModel:
         enc_out = self.encode(params, batch["frames"], stacked=True)
         logits = self._decoder_full(params, batch["tokens"], enc_out,
                                     stacked=True)
-        ce = _cross_entropy(logits, batch["labels"])
+        ce = self._ce(logits, batch["labels"])
         with torch.no_grad():
-            hit = logits.argmax(-1) == batch["labels"].long()
+            hit = self._argmax(logits) == batch["labels"].long()
             acc = hit.float().mean(dim=(-2, -1))
         return ce, acc
 
@@ -298,7 +318,7 @@ class WhisperModel:
         length = cache["length"]
         positions = length.expand(B, 1)
         slot = torch.remainder(length, cache["k"].shape[2]).long().reshape(1)
-        h = embed_tokens(params["embed"], tokens, False)
+        h = self._embed(params, tokens, False)
         for i, lp in enumerate(self._layers(params, "dec", False)):
             a = common.apply_norm(h, _sub(lp, "norm1"), cfg)
             h = h + attn.decode_self_attention(
@@ -314,4 +334,4 @@ class WhisperModel:
         h = common.apply_norm(h, _sub(params, "final_norm"), cfg)
         new = dict(cache, length=length + 1,
                    kv_pos=cache["kv_pos"].index_copy(1, slot, positions))
-        return common.linear(h, params["head"]).float(), new
+        return self._logits(params, h), new

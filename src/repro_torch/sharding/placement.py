@@ -12,19 +12,22 @@ model group: Megatron's f and g, ``comm.copy_to_model`` and
 ``comm.reduce_from_model``).  The forward reads the placement from the
 leaves' shapes and ``tp.model_index``.
 
-Only the dense decoders (families "dense" and "vlm") have a
-tensor-parallel forward.  A family the rules would shard whose forward is
-not ported (MoE, MLA, RWKV-6, the Griffin hybrid, the encoder-decoder)
-raises ``NotImplementedError`` naming ROADMAP A.5; ``train.zero_over_model``
-(parameters model-sharded while the batch is too, gathered per use)
-raises naming A.6.  Nothing falls back to whole replicas.
+The dense decoders (families "dense" and "vlm"), the MoE (expert
+parallelism, or the experts' ff columns where E does not divide the model
+axis; deepseek-v3's MLA, shared expert and multi-token block) and the
+encoder-decoder (whisper) have a tensor-parallel forward.  A family the
+rules would shard whose forward is not ported (RWKV-6, the Griffin
+hybrid) raises ``NotImplementedError`` naming ROADMAP A.5's second half;
+``train.zero_over_model`` (parameters model-sharded while the batch is
+too, gathered per use) raises naming A.6.  Nothing falls back to whole
+replicas.
 """
 from __future__ import annotations
 
 import copy
 import math
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
@@ -51,6 +54,16 @@ class Placement:
         spec = self.specs[path]
         return convert.take_block(x, spec[1:] if layer else spec, self.mesh,
                                   self.coords)
+
+    def local_layer(self, path: str, i: int) -> Optional[int]:
+        """Layer ``i`` of layer-stacked leaf ``path`` in the rank's block:
+        its index there, or None where the rules shard the layer dim and
+        another model rank holds it."""
+        if rules.model_dim(self.specs[path]) != 0:
+            return i
+        n = self.full[path][0] // self.mesh["model"]
+        i -= self.coords["model"] * n
+        return i if 0 <= i < n else None
 
     def take_wire(self, x: torch.Tensor) -> torch.Tensor:
         """A wire vector (..., D) over every leaf in leaf order -> the
@@ -96,8 +109,8 @@ def place_model(model, config, comm):
         raise NotImplementedError(
             f"{name}: the rules shard its leaves over model="
             f"{comm.model_size}, and its family's tensor-parallel forward "
-            f"is not ported (ROADMAP A.5: MoE, MLA, RWKV-6, Griffin and "
-            f"whisper); run it with model=1")
+            f"is not ported (ROADMAP A.5, second half: RWKV-6 and "
+            f"Griffin); run it with model=1")
     cfg = config.model
     head = specs["embed" if cfg.tie_embeddings else "head"]
     want = resolve_logical(comm.mesh, "vocab", cfg.vocab_size)

@@ -7,6 +7,10 @@ At 4 ranks the mesh is (1, 4) over ("data", "model"), and reduced
 olmo-1b runs tensor-parallel: each rank holds its blocks
 (``sharding.placement``), and the checkpoint rank 0 writes holds the whole
 tree, which a single process restores and the 4 ranks resume from.
+On 2 ranks the mesh is (1, 2) over (the config's last cohort axis,
+"model"): reduced granite (the MoE, expert-parallel) and reduced
+deepseek-v3 (MLA, the shared expert and MTP) train, checkpoint their
+blocks and restore them.
 """
 import json
 import math
@@ -132,6 +136,86 @@ def test_distributed_trainer_matches_the_stacked_round(tmp_path):
     diff = (restored - params).abs()
     assert float(diff.max()) <= 1 / 128 + 1e-7
     assert float((diff <= 1e-5).float().mean()) >= 0.999
+
+
+GRANITE = ["model.n_layers=2", "model.d_model=128", "model.n_heads=4",
+           "model.n_kv_heads=4", "model.moe.num_experts=4",
+           "model.moe.experts_per_token=2", "model.moe.expert_d_ff=64",
+           "model.vocab_size=512", "model.dtype=float32",
+           "train.global_batch=8", "train.seq_len=32"]
+DEEPSEEK = GRANITE + ["model.d_ff=64", "model.mla.kv_lora_rank=32",
+                      "model.mla.q_lora_rank=48",
+                      "model.mla.qk_rope_head_dim=16",
+                      "model.mla.qk_nope_head_dim=32",
+                      "model.mla.v_head_dim=32", "train.fsdp=false"]
+
+
+def _moe_rank(rank, world, init, arch, overrides, ckpt_dir):
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    argv = ["--arch", arch, "--collective", "rsag", "--backend", "gloo",
+            "--checkpoint-dir", ckpt_dir, "--checkpoint-every", str(STEPS),
+            *overrides]
+    out = ttrain.main(argv + ["--steps", str(STEPS), "--init-method", init],
+                      device="cpu")
+    resumed = ttrain.main(argv + ["--steps", str(STEPS + 1),
+                                  "--init-method", init + "_resume"],
+                          device="cpu")
+    return {"params": out["params"], "loss": out["loss"],
+            "mesh": out["mesh"], "kind": out["kind"],
+            "resumed_from": resumed["start_step"],
+            "resumed_loss": resumed["loss"]}
+
+
+def _train_moe_on_two_ranks(tmp_path, arch, overrides, mesh):
+    """Train ``arch`` on 2 gloo ranks, resume it, and hold every rank's
+    blocks to those of the whole tree rank 0's checkpoint holds; returns
+    the placement."""
+    ckpt_dir = str(tmp_path / "ckpt")
+    out = run_ranks(_moe_rank, 2, (arch, overrides, ckpt_dir),
+                    workdir=str(tmp_path / "ranks"), timeout_s=4 * TIMEOUT_S)
+    assert all(o["kind"] == "fl_round" and o["mesh"] == mesh for o in out)
+    assert out[1]["loss"] == out[0]["loss"]
+    assert np.isfinite(out[0]["loss"])
+    assert all(o["resumed_from"] == STEPS for o in out)
+    assert out[1]["resumed_loss"] == out[0]["resumed_loss"]
+    cfg = apply_overrides(get_config(arch), tuple(overrides))
+    model = build_model(cfg)
+    specs = trules.param_specs(model, cfg, mesh)
+    local = convert.local_layout(model.param_shapes, specs, mesh)
+    whole = convert.unflatten_params(ckpt.restore_params(
+        ckpt_dir, model.init_flat(5, device="cpu"), model.param_shapes),
+        model.param_shapes)
+    for rank, o in enumerate(out):
+        at = comm_mod.coords(mesh, rank)
+        blocks = convert.unflatten_params(o["params"], local)
+        for k, leaf in whole.items():
+            assert torch.equal(blocks[k], convert.take_block(
+                leaf, specs[k], mesh, at)), (rank, k)
+    return specs
+
+
+def test_distributed_trainer_trains_the_moe_tensor_parallel(tmp_path):
+    """Reduced granite (expert-parallel: 2 of its 4 experts a rank, its
+    heads and vocabulary split too) on 2 gloo ranks, the mesh (1, 2) over
+    ("data", "model"): the blocks rank 0's checkpoint holds are every
+    rank's, and both ranks restore them and step on from there with equal
+    losses."""
+    specs = _train_moe_on_two_ranks(tmp_path, "granite-moe-1b-a400m",
+                                    GRANITE, {"data": 1, "model": 2})
+    assert specs["blocks/moe/w_up"] == (None, "model", None, None)
+
+
+def test_distributed_trainer_trains_deepseek_tensor_parallel(tmp_path):
+    """Reduced deepseek-v3 (MLA on 2 of 4 heads a rank, 2 of 4 routed
+    experts, the shared expert's stacked leaves split on their layer
+    dimension, MTP) on 2 gloo ranks, the mesh (1, 2) over its cohort axis
+    "pod" and "model": as the granite test."""
+    specs = _train_moe_on_two_ranks(tmp_path, "deepseek-v3-671b", DEEPSEEK,
+                                    {"pod": 1, "model": 2})
+    assert specs["blocks/moe/shared/w_gate"] == ("model", None, None)
+    assert specs["blocks/mla/w_uq"] == (None, None, "model")
 
 
 def _nccl_rank(rank, world, init):

@@ -27,8 +27,10 @@ each from one generator.  Checks:
   gathered leaf by leaf into the checkpoint rank 0 writes: the file a
   single process writes of the whole init, which every rank restores
   into its own blocks;
-* the named ``NotImplementedError`` for reduced granite (MoE) at (1, 2),
-  and for ``train.zero_over_model``.
+* the named ``NotImplementedError`` for reduced rwkv6-7b and
+  recurrentgemma-2b at (1, 2) (ROADMAP A.5's second half), and for
+  ``train.zero_over_model``; granite-moe-1b-a400m, deepseek-v3-671b and
+  whisper-base placed at (1, 4).
 """
 import functools
 import math
@@ -322,12 +324,22 @@ def _fake_comm(shape):
 
 
 def test_unported_families_and_zero_over_model_raise():
-    granite = reduced(get_config("granite-moe-1b-a400m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        make_dist_fl_round(build_model(granite), granite, _fake_comm((1, 2)))
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        rec = reduced(get_config(arch))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A.5, second half"):
+            make_dist_fl_round(build_model(rec), rec, _fake_comm((1, 2)))
+        # one model rank: nothing is placed, every family runs
+        assert tplace.place_model(build_model(rec), rec,
+                                  _fake_comm((2, 1))).placement is None
     zero = apply_overrides(_cfg(), ("train.zero_over_model=true",))
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         make_dist_fl_round(build_model(zero), zero, _fake_comm((1, 4)))
-    # one model rank: nothing is placed, every family runs
-    assert tplace.place_model(build_model(granite), granite,
-                              _fake_comm((2, 1))).placement is None
+    # the MoE, MLA and the encoder-decoder are placed
+    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b", "whisper-base"):
+        cfg = get_config(arch)
+        comm = _fake_comm((1, 4))
+        comm.mesh = tmesh.make_mesh((1, 4), (cfg.fl.cohort_axes[-1],
+                                             "model"))
+        assert tplace.place_model(build_model(cfg), cfg,
+                                  comm).placement is not None

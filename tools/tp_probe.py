@@ -1,8 +1,10 @@
 """The tensor-parallel distributed round alone on the card: the device
 and build phases of ``chip_smoke.py``, then its ``tp_phase`` (4 workers
 on cuda:0 over gloo with host staging; olmo-1b at full width cut in
-depth, at (1, 4) and (2, 2) over ("data", "model"), and reduced
-qwen2.5-14b at (1, 4); int, packed and rsag).  It prints the phase's
+depth, at (1, 4) and (2, 2) over ("data", "model"), reduced qwen2.5-14b
+at (1, 4), granite-moe-1b-a400m at full width cut in depth at (1, 4),
+reduced deepseek-v3-671b at (1, 2) and (1, 4) over ("pod", "model"), and
+whisper-base at (1, 4) with frames; int, packed and rsag).  It prints the phase's
 JSON lines, the card's name and power limit, and the launches a kernel.
 
     PYTHONPATH=src python3 tools/tp_probe.py
