@@ -769,8 +769,8 @@ def make_dist_fl_round(model, config: Config, comm, *,
     layout of ``sharding.placement.place_model(model, config, comm)``
     (the model's own layout where the rules shard no leaf over "model");
     the model axis's ranks of a cohort hold its blocks, and their
-    replicated leaves stay equal.  An unported family, or
-    ``train.zero_over_model``, at model > 1 raises ``NotImplementedError``.
+    replicated leaves stay equal.  ``train.zero_over_model`` at model > 1
+    raises ``NotImplementedError``.
     Rank c (``comm.cohort``, its index over the cohort axes only) takes
     rows [c·b, (c+1)·b) of the global batch, runs :func:`local_sgd` with
     one cohort (the forward tensor-parallel over the model group), and

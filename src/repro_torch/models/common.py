@@ -97,6 +97,16 @@ def row_linear(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
     return comm_mod.reduce_from_model(out, tp).to(x.dtype)
 
 
+def own_block(t: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
+    """The model rank's block of ``t`` along ``dim`` (the
+    ``tp.model_index``-th of ``tp.model_size`` equal contiguous blocks),
+    taken through f: ``t`` is whole and the same on every rank, and each
+    rank uses a different part of it, so its gradient sums over the model
+    group."""
+    n = t.shape[dim] // tp.model_size
+    return comm_mod.copy_to_model(t, tp).narrow(dim, tp.model_index * n, n)
+
+
 def promoted_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """:func:`linear` at x's dtype, the weight cast to it (exactly, from
     bfloat16 to float32): JAX promotes a product of float32 activations

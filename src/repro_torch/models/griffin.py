@@ -18,6 +18,21 @@ run in float32, the weights cast up exactly (``common.promoted_linear``).
 
 Decode state per recurrent layer: {"h": (B, d_rnn) float32,
 "conv": (B, width−1, d_rnn)} in the model's dtype.
+
+**Tensor parallelism** (``tp``, a ``core.comm.Comm``; the leaves one
+model rank's blocks, ``sharding.placement``).  The rule: f
+(``comm.copy_to_model``) goes where a tensor that is whole on every rank
+meets a product or a narrowing that differs by rank, and g
+(``comm.reduce_from_model``) after a partial sum; a gathered tensor
+(``comm.gather_from_model``) is used whole by every rank, else f follows
+it.  So: f on x, then ``w_x`` and ``w_gate`` column-parallel (the rank's
+d_rnn channels); the depthwise convolution on those channels,
+``conv_w`` and ``conv_b`` narrowed through f; the post-conv u gathered
+whole and taken through f for ``w_a``'s and ``w_i``'s columns (each rank
+reads all of u with its own columns: the gather's backward is then a
+reduce-scatter), ``b_a``, ``b_i`` and ``lam`` narrowed through f; the
+LRU's scan on the rank's channels, with its own block of u; ``w_out``
+row-parallel (g).
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import comm as comm_mod
 from repro_torch.models import common
 
 LRU_C = 8.0
@@ -81,17 +97,22 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _rg_lru(params: Params, x: torch.Tensor, h0: torch.Tensor
+def _rg_lru(params: Params, x: torch.Tensor, h0: torch.Tensor, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., B, S, dr); h0 (..., B, dr) float32.  Returns (y (..., B, S,
-    dr) in x's dtype, h_final)."""
+    dr) in x's dtype, h_final).  Under ``tp`` with ``w_a`` split, x, h0 and
+    the outputs are the rank's channels."""
     mm = common.promoted_linear
     x32 = x.float()
-    r = torch.sigmoid(mm(x32, params["w_a"])
-                      + common.per_cohort(params["b_a"], x))
-    i = torch.sigmoid(mm(x32, params["w_i"])
-                      + common.per_cohort(params["b_i"], x))
-    log_a = -LRU_C * common.per_cohort(_softplus(params["lam"]), x) * r
+    b_a, b_i, lam = params["b_a"], params["b_i"], params["lam"]
+    xin = x32
+    if tp is not None and params["w_a"].shape[-1] < params["w_a"].shape[-2]:
+        xin = comm_mod.copy_to_model(
+            comm_mod.gather_from_model(x32, tp, -1), tp)
+        b_a, b_i, lam = (common.own_block(t, tp) for t in (b_a, b_i, lam))
+    r = torch.sigmoid(mm(xin, params["w_a"]) + common.per_cohort(b_a, x))
+    i = torch.sigmoid(mm(xin, params["w_i"]) + common.per_cohort(b_i, x))
+    log_a = -LRU_C * common.per_cohort(_softplus(lam), x) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x32)
 
@@ -105,16 +126,32 @@ def _rg_lru(params: Params, x: torch.Tensor, h0: torch.Tensor
 
 
 def recurrent_block(params: Params, x: torch.Tensor,
-                    state: Dict[str, torch.Tensor], cfg: ModelConfig
+                    state: Dict[str, torch.Tensor], cfg: ModelConfig, tp=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Griffin recurrent block. x (..., B, S, d).  Returns (out, float32
-    where the weights are not; the new state)."""
-    gate = F.gelu(common.linear(x, params["w_gate"]), approximate="tanh")
-    u = common.linear(x, params["w_x"])
-    u, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"],
-                               state["conv"])
-    y, new_h = _rg_lru(params, u, state["h"])
-    out = common.promoted_linear(y * gate, params["w_out"])
+    where the weights are not; the new state).  Under ``tp`` with ``w_x``
+    split the (whole) state is narrowed to the rank's channels, and the
+    new state is theirs."""
+    dr = cfg.recurrent.d_rnn or cfg.d_model
+    if tp is None or params["w_x"].shape[-1] == dr:
+        gate = F.gelu(common.linear(x, params["w_gate"]), approximate="tanh")
+        u = common.linear(x, params["w_x"])
+        u, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"],
+                                   state["conv"])
+        y, new_h = _rg_lru(params, u, state["h"])
+        out = common.promoted_linear(y * gate, params["w_out"])
+        return out, {"h": new_h, "conv": new_conv}
+    x32 = common.column_input(x, tp)
+    gate = F.gelu(common.column_linear(x32, params["w_gate"]),
+                  approximate="tanh")
+    u = common.column_linear(x32, params["w_x"])
+    n = u.shape[-1]
+    own = lambda t: t.narrow(-1, tp.model_index * n, n)
+    u, new_conv = _causal_conv(u, common.own_block(params["conv_w"], tp),
+                               common.own_block(params["conv_b"], tp),
+                               own(state["conv"]))
+    y, new_h = _rg_lru(params, u, own(state["h"]), tp)
+    out = common.row_linear(y * gate, params["w_out"], tp)
     return out, {"h": new_h, "conv": new_conv}
 
 

@@ -23,6 +23,31 @@ reference's does, and the block rounds it into the residual stream.
 
 Decode state per layer: {"S": (B, H, hd, hd) float32, "x_tm": (B, d),
 "x_cm": (B, d)} in the model's dtype.
+
+**Tensor parallelism** (``tp``, a ``core.comm.Comm``; the leaves one
+model rank's blocks, ``sharding.placement``).  The rule: f
+(``comm.copy_to_model``) goes where a tensor that is whole on every rank
+meets a product or a narrowing that differs by rank, and g
+(``comm.reduce_from_model``) after a partial sum; a gathered tensor
+(``comm.gather_from_model``) is used whole by every rank, else f follows
+it.  So: ``ddlerp_A``'s 5 × 32 columns split flat and ``ddlerp_B`` its
+32 rows of every mix, which do not line up; f on the first mix, then
+tanh's block gathered whole and ``ddlerp_B`` gathered whole (1.3 MB in
+bfloat16 at rwkv6-7b's width, where summing the partial (B, S, 5, d)
+mixes would move 20 bytes a channel a token), and every rank computes the
+whole mixes.  f on the five mixes, then ``w_r``, ``w_k``, ``w_v`` and
+``w_g`` column-parallel (the rank's channels); the decay's low rank
+split on both sides alike, its partial sum summed by g, then narrowed to
+the rank's channels through f, as are ``decay_base``, ``bonus_u`` and
+``ln_x_scale``; the token loop and the per-head group norm on the rank's
+heads, no collective; ``w_o`` row-parallel.  Where the model axis splits
+a head (H not a multiple of it), r, k and v are gathered whole, every
+rank runs every head, and y is narrowed through f to the rank's channels
+for the gate and ``w_o``.  The channel mix: f on its key input,
+``cm_wk`` column- and ``cm_wv`` row-parallel (g); ``cm_wr`` row-parallel
+on the rank's channels of its input, taken through f, its sum (g) before
+the sigmoid: both factors whole.  Each leaf whose placement does not
+split is used whole, as with ``tp`` None.
 """
 from __future__ import annotations
 
@@ -32,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import comm as comm_mod
 from repro_torch.models import common
 
 DDLERP_RANK = 32
@@ -87,43 +113,74 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
                      dim=-2)
 
 
-def _ddlerp(params: Params, x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+def _ddlerp(params: Params, x: torch.Tensor, xs: torch.Tensor,
+            tp=None) -> torch.Tensor:
     """Per-token mix coefficients -> the 5 mixed inputs (..., B, S, 5, d),
-    float32 (``mu_base`` promotes)."""
+    float32 (``mu_base`` promotes), whole on every model rank of ``tp``."""
     delta = xs - x
     base_mix = params["mu_base"]                                # (.., 5, d)
     mixed0 = x + delta * common.per_cohort(base_mix[..., 0, :], x)
-    z = torch.tanh(common.promoted_linear(mixed0, params["ddlerp_A"]))
+    A, B = params["ddlerp_A"], params["ddlerp_B"]
+    if tp is not None and A.shape[-1] < MIXES * DDLERP_RANK:
+        z = torch.tanh(common.promoted_linear(
+            comm_mod.copy_to_model(mixed0, tp), A))
+        z = comm_mod.gather_from_model(z, tp, -1)
+        if B.shape[-2] < DDLERP_RANK:   # B splits only where A does
+            B = comm_mod.gather_from_model(B, tp, -2)
+    else:
+        z = torch.tanh(common.promoted_linear(mixed0, A))
     z = z.reshape(*z.shape[:-1], MIXES, DDLERP_RANK)            # (.., B,S,5,R)
-    dyn = torch.einsum("...bsmr,...mrd->...bsmd", z,
-                       params["ddlerp_B"].to(z.dtype))
+    dyn = torch.einsum("...bsmr,...mrd->...bsmd", z, B.to(z.dtype))
     mix = common.per_cohort(base_mix, dyn, 2) + dyn             # (.., B,S,5,d)
     return x[..., None, :] + delta[..., None, :] * mix
 
 
 def time_mix(params: Params, x: torch.Tensor, state_S: torch.Tensor,
-             x_prev: torch.Tensor, cfg: ModelConfig
+             x_prev: torch.Tensor, cfg: ModelConfig, tp=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (..., B, S, d); state_S (..., B, H, hd, hd) float32; x_prev
-    (..., B, d).  Returns (out (..., B, S, d) float32, new S, new x_prev)."""
+    (..., B, d).  Returns (out (..., B, S, d) float32, new S, new x_prev).
+    Under ``tp`` with ``w_r`` split over whole heads, the (whole) state
+    is narrowed to the rank's heads, and the new S is theirs."""
     *lead, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
     mm = common.promoted_linear
-    mixed = _ddlerp(params, x, _shift(x, x_prev))
-    xr, xk, xv, xw, xg = mixed.unbind(-2)
+    mixed = _ddlerp(params, x, _shift(x, x_prev), tp)
+    chan = tp is not None and params["w_r"].shape[-1] < d
+    # the rules split decay_A's 64 columns wherever they split w_r's d on
+    # the reference's meshes (model a power of two up to 16, d a multiple
+    # of 64); another placement fails here rather than run untested
+    assert tp is None or chan == (
+        params["decay_A"].shape[-1] < DECAY_RANK), "decay_A, w_r split apart"
+    own_heads = chan and H % tp.model_size == 0
+    xr, xk, xv, xw, xg = (comm_mod.copy_to_model(mixed, tp) if chan
+                          else mixed).unbind(-2)
 
     def heads(t):
-        return t.reshape(*lead, S, H, hd).float()
+        if chan and not own_heads:
+            t = comm_mod.gather_from_model(t, tp, -1)
+        return t.reshape(*lead, S, -1, hd).float()
 
     r = heads(mm(xr, params["w_r"]))
     k = heads(mm(xk, params["w_k"]))
     v = heads(mm(xv, params["w_v"]))
     g = F.silu(mm(xg, params["w_g"]))
-    decay = common.per_cohort(params["decay_base"], xw) + mm(
-        torch.tanh(mm(xw, params["decay_A"])), params["decay_B"])
-    w = torch.exp(-torch.exp(decay.float())).reshape(*lead, S, H, hd)
-    u = common.per_cohort(params["bonus_u"], state_S[..., 0], 2)  # (.., H, hd)
+    low = torch.tanh(mm(xw, params["decay_A"]))
+    dsum = (common.row_linear(low, params["decay_B"], tp) if chan
+            else mm(low, params["decay_B"]))
+    base, u, scale = (params["decay_base"], params["bonus_u"],
+                      params["ln_x_scale"])
+    if own_heads:
+        base, dsum, u, scale = (common.own_block(base, tp),
+                                common.own_block(dsum, tp),
+                                common.own_block(u, tp, -2),
+                                common.own_block(scale, tp))
+        Hl = u.shape[-2]
+        state_S = state_S.narrow(-3, tp.model_index * Hl, Hl)
+    decay = common.per_cohort(base, dsum) + dsum
+    w = torch.exp(-torch.exp(decay.float())).reshape(*lead, S, -1, hd)
+    u = common.per_cohort(u, state_S[..., 0], 2)                # (.., H, hd)
 
     # y_t = r_t·S_{t-1} + (r_t·(u ⊙ k_t)) v_t.  Only the state update
     # S_t = w_t ⊙ S_{t-1} + k_tᵀ v_t runs token by token, one launch a
@@ -148,36 +205,53 @@ def time_mix(params: Params, x: torch.Tensor, state_S: torch.Tensor,
     # per-head groupnorm (population variance, eps 1e-5), then the gate
     mu = y.mean(-1, keepdim=True)
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
-    y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(*lead, S, d)
-    y = y * common.per_cohort(params["ln_x_scale"], y)
-    out = mm(y.to(x.dtype) * g, params["w_o"])
+    y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(*lead, S, -1)
+    y = y * common.per_cohort(scale, y)
+    if chan and not own_heads:
+        y = common.own_block(y, tp)
+    gated = y.to(x.dtype) * g
+    out = (common.row_linear(gated, params["w_o"], tp) if chan
+           else mm(gated, params["w_o"]))
     return out, S_prev, x[..., -1, :]
 
 
-def channel_mix(params: Params, x: torch.Tensor, x_prev: torch.Tensor
+def channel_mix(params: Params, x: torch.Tensor, x_prev: torch.Tensor,
+                cfg: ModelConfig, tp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (..., B, S, d) float32, new x_prev)."""
+    """Returns (out (..., B, S, d) float32, new x_prev); under ``tp``
+    (``cfg.d_ff`` tells whether ``cm_wk`` is a block) both factors of the
+    output are whole on every model rank."""
     mm = common.promoted_linear
     xs = _shift(x, x_prev)
     xk = x + (xs - x) * common.per_cohort(params["cm_mu_k"], x)
     xr = x + (xs - x) * common.per_cohort(params["cm_mu_r"], x)
-    k = torch.square(F.relu(mm(xk, params["cm_wk"])))
-    out = torch.sigmoid(mm(xr, params["cm_wr"])) * mm(k, params["cm_wv"])
-    return out, x[..., -1, :]
+    if tp is not None and params["cm_wk"].shape[-1] < cfg.d_ff:
+        k = torch.square(F.relu(mm(comm_mod.copy_to_model(xk, tp),
+                                   params["cm_wk"])))
+        kv = common.row_linear(k, params["cm_wv"], tp)
+    else:
+        kv = mm(torch.square(F.relu(mm(xk, params["cm_wk"]))),
+                params["cm_wv"])
+    if tp is not None and params["cm_wr"].shape[-2] < x.shape[-1]:
+        rr = common.row_linear(common.own_block(xr, tp), params["cm_wr"], tp)
+    else:
+        rr = mm(xr, params["cm_wr"])
+    return torch.sigmoid(rr) * kv, x[..., -1, :]
 
 
 def rwkv_block(params: Params, x: torch.Tensor, norm1: Params, norm2: Params,
-               state: Dict[str, torch.Tensor], cfg: ModelConfig
+               state: Dict[str, torch.Tensor], cfg: ModelConfig, tp=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Pre-LN residual block: time-mix + channel-mix.
 
     state: {"S": (..., B, H, hd, hd), "x_tm": (..., B, d), "x_cm": (..., B, d)}.
     """
     h = common.apply_norm(x, norm1, cfg)
-    att, new_S, new_x_tm = time_mix(params, h, state["S"], state["x_tm"], cfg)
+    att, new_S, new_x_tm = time_mix(params, h, state["S"], state["x_tm"], cfg,
+                                    tp)
     x = x + att.to(x.dtype)
     h = common.apply_norm(x, norm2, cfg)
-    cm, new_x_cm = channel_mix(params, h, state["x_cm"])
+    cm, new_x_cm = channel_mix(params, h, state["x_cm"], cfg, tp)
     x = x + cm.to(x.dtype)
     return x, {"S": new_S, "x_tm": new_x_tm, "x_cm": new_x_cm}
 

@@ -32,14 +32,17 @@ cohort (``core.fl.local_sgd``).
 Under ``train.remat`` each layer runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward pass, the same numbers.
 
-**Tensor parallelism** (the dense, vlm and MoE families:
-``tensor_parallel``).  A model placed on a rank of the distributed round
-(``sharding.placement.place_model``) holds its blocks of the leaves
-(``param_shapes`` the local layout) and reduces over ``tp``'s model group:
-the embedding sharded over its vocabulary looks up the tokens in its
-block, zeros the rest and sums (g); attention, MLA and the MLP run their
-heads' and ff columns' blocks (``attention``, ``mla``, ``mlp``), the MoE
-its experts or their ff columns (``mlp.moe``); a layer-stacked leaf whose
+**Tensor parallelism** (every family).  A model placed on a rank of the
+distributed round (``sharding.placement.place_model``) holds its blocks
+of the leaves (``param_shapes`` the local layout) and reduces over
+``tp``'s model group: the embedding sharded over its vocabulary looks up
+the tokens in its block, zeros the rest and sums (g); attention, MLA and
+the MLP run their heads' and ff columns' blocks (``attention``, ``mla``,
+``mlp``), the MoE its experts or their ff columns (``mlp.moe``), RWKV-6
+its channels and heads (``rwkv.time_mix``, ``rwkv.channel_mix``), the
+Griffin hybrid's RG-LRU block its d_rnn channels
+(``griffin.recurrent_block``) beside its local attention and MLP, which
+shard or replicate as the rules place them; a layer-stacked leaf whose
 layer dim the rules shard is gathered whole before use
 (``_whole_layers``); the logits of a sharded head (or tied embedding) are
 the block's vocabulary, and the cross-entropy and the accuracy reduce
@@ -314,12 +317,6 @@ class LM(VocabParallel):
     #: the reference's ``LM.loss`` ignores its rng: no fake-quant in the
     #: local steps (the QNN's STE is the cnn's, ``CNNModel``)
     quantizes_training = False
-    @property
-    def tensor_parallel(self) -> bool:
-        """Whether the forward runs split over a model group: the dense
-        decoders, the MoE and MLA (RWKV-6 and Griffin wait for ROADMAP
-        A.5's second half)."""
-        return self.cfg.family in ("dense", "vlm", "moe")
 
     # -- init ------------------------------------------------------------------
 
@@ -474,7 +471,8 @@ class LM(VocabParallel):
             x, state = rwkv.rwkv_block(
                 _sub(layer, "rwkv"), x, _sub(layer, "norm1"),
                 _sub(layer, "norm2"),
-                rwkv.init_rwkv_state(lead, cfg, x.dtype, x.device), cfg)
+                rwkv.init_rwkv_state(lead, cfg, x.dtype, x.device), cfg,
+                self.tp)
             if store is not None:
                 store(state)
             return x, None
@@ -482,7 +480,8 @@ class LM(VocabParallel):
         if kind == "recurrent":
             mix, entry = griffin.recurrent_block(
                 _sub(layer, "rec"), h,
-                griffin.init_recurrent_state(lead, cfg, x.dtype, x.device), cfg)
+                griffin.init_recurrent_state(lead, cfg, x.dtype, x.device), cfg,
+                self.tp)
         elif cfg.mla.enabled:
             mix, entry = mla.mla_attention(_sub(layer, "mla"), h, positions,
                                            cfg, window=block_window(cfg, kind),

@@ -103,9 +103,6 @@ class WhisperModel(VocabParallel):
 
     #: the reference's loss ignores its rng: no fake-quant in local steps
     quantizes_training = False
-    #: the forward runs split over a model group where placed on a rank
-    #: (``sharding.placement``)
-    tensor_parallel = True
 
     # -- init ------------------------------------------------------------------
 

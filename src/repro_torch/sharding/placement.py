@@ -12,15 +12,14 @@ model group: Megatron's f and g, ``comm.copy_to_model`` and
 ``comm.reduce_from_model``).  The forward reads the placement from the
 leaves' shapes and ``tp.model_index``.
 
-The dense decoders (families "dense" and "vlm"), the MoE (expert
-parallelism, or the experts' ff columns where E does not divide the model
-axis; deepseek-v3's MLA, shared expert and multi-token block) and the
-encoder-decoder (whisper) have a tensor-parallel forward.  A family the
-rules would shard whose forward is not ported (RWKV-6, the Griffin
-hybrid) raises ``NotImplementedError`` naming ROADMAP A.5's second half;
-``train.zero_over_model`` (parameters model-sharded while the batch is
-too, gathered per use) raises naming A.6.  Nothing falls back to whole
-replicas.
+Every family has a tensor-parallel forward: the dense decoders
+(families "dense" and "vlm"), the MoE (expert parallelism, or the
+experts' ff columns where E does not divide the model axis; deepseek-v3's
+MLA, shared expert and multi-token block), the encoder-decoder
+(whisper), RWKV-6 and the Griffin hybrid.  ``train.zero_over_model``
+(parameters model-sharded while the batch is too, gathered per use)
+raises ``NotImplementedError`` naming ROADMAP A.6.  Nothing falls back to
+whole replicas.
 """
 from __future__ import annotations
 
@@ -105,12 +104,6 @@ def place_model(model, config, comm):
     specs = rules.param_specs(model, config, comm.mesh)
     if all(rules.model_dim(s) is None for s in specs.values()):
         return model
-    if not getattr(model, "tensor_parallel", False):
-        raise NotImplementedError(
-            f"{name}: the rules shard its leaves over model="
-            f"{comm.model_size}, and its family's tensor-parallel forward "
-            f"is not ported (ROADMAP A.5, second half: RWKV-6 and "
-            f"Griffin); run it with model=1")
     cfg = config.model
     head = specs["embed" if cfg.tie_embeddings else "head"]
     want = resolve_logical(comm.mesh, "vocab", cfg.vocab_size)

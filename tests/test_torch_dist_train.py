@@ -8,9 +8,10 @@ olmo-1b runs tensor-parallel: each rank holds its blocks
 (``sharding.placement``), and the checkpoint rank 0 writes holds the whole
 tree, which a single process restores and the 4 ranks resume from.
 On 2 ranks the mesh is (1, 2) over (the config's last cohort axis,
-"model"): reduced granite (the MoE, expert-parallel) and reduced
-deepseek-v3 (MLA, the shared expert and MTP) train, checkpoint their
-blocks and restore them.
+"model"): reduced granite (the MoE, expert-parallel), reduced
+deepseek-v3 (MLA, the shared expert and MTP), reduced rwkv6-7b and the
+reduced 3-layer Griffin hybrid train, checkpoint their blocks and
+restore them.
 """
 import json
 import math
@@ -216,6 +217,36 @@ def test_distributed_trainer_trains_deepseek_tensor_parallel(tmp_path):
                                     {"pod": 1, "model": 2})
     assert specs["blocks/moe/shared/w_gate"] == ("model", None, None)
     assert specs["blocks/mla/w_uq"] == (None, None, "model")
+
+
+RECURRENT = {
+    "rwkv6-7b": ["model.n_layers=2", "model.d_model=256", "model.n_heads=4",
+                 "model.n_kv_heads=4", "model.d_ff=512",
+                 "model.vocab_size=512", "model.dtype=float32",
+                 "train.global_batch=4", "train.seq_len=16"],
+    "recurrentgemma-2b": ["model.n_layers=3", "model.d_model=256",
+                          "model.n_heads=4", "model.n_kv_heads=1",
+                          "model.d_ff=512", "model.vocab_size=512",
+                          "model.recurrent.d_rnn=256",
+                          "model.local_window=16", "model.dtype=float32",
+                          "train.global_batch=4", "train.seq_len=16"]}
+
+
+@pytest.mark.parametrize("arch", list(RECURRENT))
+def test_distributed_trainer_trains_the_recurrent_families_tensor_parallel(
+        tmp_path, arch):
+    """Reduced rwkv6-7b (its time mix on 2 of 4 heads a rank, the channel
+    mix's ff and rows split) and the reduced hybrid at 3 layers (the
+    RG-LRU on half its channels a rank, the local attention's query heads
+    split, its one kv head whole) on 2 gloo ranks at (1, 2): trained,
+    checkpointed and resumed as the granite test."""
+    specs = _train_moe_on_two_ranks(tmp_path, arch, RECURRENT[arch],
+                                    {"data": 1, "model": 2})
+    if arch == "rwkv6-7b":
+        assert specs["blocks/rwkv/ddlerp_B"] == (None, None, "model", None)
+    else:
+        assert specs["blocks/0/rec/w_a"] == (None, "model")
+        assert specs["blocks/2/attn/wk"] == (None, None)
 
 
 def _nccl_rank(rank, world, init):

@@ -233,7 +233,7 @@ def test_rwkv_modules_match_in_float32(C):
     jn1, tn1 = _norm(cfg, rng, C)
     jn2, tn2 = _norm(cfg, rng, C)
     tm = trwkv.time_mix(tp, tx, tS0, txt, tcfg.model)
-    cm = trwkv.channel_mix(tp, tx, txc)
+    cm = trwkv.channel_mix(tp, tx, txc, tcfg.model)
     blk, st = trwkv.rwkv_block(tp, tx, tn1, tn2,
                                {"S": tS0, "x_tm": txt, "x_cm": txc}, tcfg.model)
     jtm = jax.jit(lambda p, x, s, xp: jrwkv.time_mix(p, x, s, xp, cfg))

@@ -27,10 +27,10 @@ each from one generator.  Checks:
   gathered leaf by leaf into the checkpoint rank 0 writes: the file a
   single process writes of the whole init, which every rank restores
   into its own blocks;
-* the named ``NotImplementedError`` for reduced rwkv6-7b and
-  recurrentgemma-2b at (1, 2) (ROADMAP A.5's second half), and for
-  ``train.zero_over_model``; granite-moe-1b-a400m, deepseek-v3-671b and
-  whisper-base placed at (1, 4).
+* reduced and full rwkv6-7b and recurrentgemma-2b placed at (1, 2),
+  (1, 4) and (2, 2), granite-moe-1b-a400m, deepseek-v3-671b and
+  whisper-base at (1, 4); the named ``NotImplementedError`` for
+  ``train.zero_over_model`` (ROADMAP A.6).
 """
 import functools
 import math
@@ -323,15 +323,17 @@ def _fake_comm(shape):
                                  num_cohorts=shape[0], cohort=0)
 
 
-def test_unported_families_and_zero_over_model_raise():
+def test_every_family_is_placed_and_zero_over_model_raises():
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):
-        rec = reduced(get_config(arch))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A.5, second half"):
-            make_dist_fl_round(build_model(rec), rec, _fake_comm((1, 2)))
-        # one model rank: nothing is placed, every family runs
-        assert tplace.place_model(build_model(rec), rec,
-                                  _fake_comm((2, 1))).placement is None
+        for cfg in (reduced(get_config(arch)), get_config(arch)):
+            model = build_model(cfg)
+            for shape in ((1, 2), (1, 4), (2, 2)):
+                placed = tplace.place_model(model, cfg, _fake_comm(shape))
+                assert placed.placement is not None, (arch, shape)
+                assert placed.param_shapes.numel < model.param_shapes.numel
+            # one model rank: nothing is placed, every family runs
+            assert tplace.place_model(model, cfg,
+                                      _fake_comm((2, 1))).placement is None
     zero = apply_overrides(_cfg(), ("train.zero_over_model=true",))
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         make_dist_fl_round(build_model(zero), zero, _fake_comm((1, 4)))

@@ -1,6 +1,7 @@
 """Shared harness of the tensor-parallel family tests
 (``test_torch_tp_moe.py``, ``test_torch_tp_mla.py``,
-``test_torch_tp_whisper.py``): one reduced float32 model of the reference
+``test_torch_tp_whisper.py``, ``test_torch_tp_rwkv.py``,
+``test_torch_tp_griffin.py``): one reduced float32 model of the reference
 on gloo ranks on the CPU at (1, m) over (its last cohort axis, "model"),
 against the reference's loss and ``jax.grad`` and against the stacked
 round.
@@ -16,8 +17,10 @@ and the parent gathers them (``full_leaves``).  The reference side
 and its picks from a forward (``jax.lax.top_k``'s indices recorded),
 layer by layer.
 """
+import concurrent.futures
 import functools
 import math
+import types
 
 import numpy as np
 import torch
@@ -133,28 +136,37 @@ def _job(rank, arch, shape, extra, ref_params):
 
 def run_meshes(tmp_path_factory, arch, meshes, refs):
     """``meshes`` (name -> (shape, extra)) on gloo ranks, one spawn a
-    world size; ``refs`` the :func:`reference` of each extra.  Returns
-    name -> every rank's result."""
-    out = {}
+    world size, the spawns at once; ``refs`` the :func:`reference` of each
+    extra.  Returns name -> every rank's result."""
+    spawns = {}
     for world in sorted({math.prod(s) for s, _ in meshes.values()}):
         names = [n for n, (s, _) in meshes.items() if math.prod(s) == world]
         jobs = [(meshes[n][0], tuple(meshes[n][1]),
                  refs[meshes[n][1]]["params"]) for n in names]
-        res = run_ranks(family_rank, world, (arch, jobs),
-                        workdir=str(tmp_path_factory.mktemp(f"w{world}")),
-                        timeout_s=TIMEOUT_S)
-        for j, n in enumerate(names):
-            out[n] = [r[j] for r in res]
+        spawns[world] = (names, functools.partial(
+            run_ranks, family_rank, world, (arch, jobs),
+            workdir=str(tmp_path_factory.mktemp(f"w{world}")),
+            timeout_s=TIMEOUT_S))
+    with concurrent.futures.ThreadPoolExecutor(len(spawns)) as pool:
+        running = {w: pool.submit(run) for w, (_, run) in spawns.items()}
+        out = {}
+        for world, (names, _) in spawns.items():
+            res = running[world].result()
+            for j, n in enumerate(names):
+                out[n] = [r[j] for r in res]
     return out
 
 
-def reference(arch, extra=()):
+def reference(arch, extra=(), ulp_draws=0):
     """The reference's reduced model with ``extra``: its parameters (numpy
     leaves), its loss and metrics, ``jax.grad`` of its loss (by path) on
     round 0's batch, and its forward's expert picks, layer by layer
-    (``jax.lax.top_k``'s indices recorded by ``jax.debug.callback``).  JAX is
-    imported here only: the spawned ranks import this module and need
-    none of it."""
+    (``jax.lax.top_k``'s indices recorded by ``jax.debug.callback``); with
+    ``ulp_draws``, by path, the largest share of the leaf's largest
+    gradient entry by which one float32 ulp on every parameter moves the
+    leaf's gradient, over that many draws (``ulp_spread``).  JAX is
+    imported here only: the spawned ranks import this module and need none
+    of it."""
     import jax
     import jax.numpy as jnp
     from repro.config.base import apply_overrides as japply
@@ -166,8 +178,18 @@ def reference(arch, extra=()):
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(REF_KEY))
     b = {k: jnp.asarray(v) for k, v in batch(config(arch, extra), 0).items()}
     key = jax.random.PRNGKey(0)
-    (loss, metrics), grads = jax.jit(jax.value_and_grad(
-        jmodel.loss, has_aux=True))(params, b, key)
+    value_and_grad = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))
+    (loss, metrics), grads = value_and_grad(params, b, key)
+    np_grads = convert.tree_paths(jax.tree_util.tree_map(np.asarray, grads))
+    rng, spread = np.random.default_rng(11), dict.fromkeys(np_grads, 0.0)
+    for _ in range(ulp_draws):
+        moved = jax.tree_util.tree_map(lambda x: np.nextafter(
+            np.asarray(x), np.where(rng.random(x.shape) < 0.5, -np.inf,
+                                    np.inf).astype(x.dtype)), params)
+        _, again = value_and_grad(moved, b, key)
+        again = convert.tree_paths(jax.tree_util.tree_map(np.asarray, again))
+        spread = {k: max(v, _share(again[k], np_grads[k]))
+                  for k, v in spread.items()}
     picks = []
     if jcfg.model.moe.enabled:
         top_k = jax.lax.top_k
@@ -187,9 +209,7 @@ def reference(arch, extra=()):
     np_tree = jax.tree_util.tree_map(np.asarray, params)
     return {"params": np_tree, "loss": float(loss),
             "metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": convert.tree_paths(jax.tree_util.tree_map(np.asarray,
-                                                               grads)),
-            "picks": picks}
+            "grads": np_grads, "picks": picks, "ulp_spread": spread}
 
 
 def mesh_of(shape, cfg):
@@ -212,12 +232,17 @@ def full_leaves(locals_, layout, specs):
             for k in layout}
 
 
-def near(got, want, rel, what):
-    """Every entry within ``rel`` of the largest reference entry."""
+def _share(got, want):
+    """The largest difference as a share of the largest reference entry."""
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
-    scale = max(float(np.abs(want).max()), 1e-30)
-    err = float(np.abs(got - want).max()) / scale
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def near(got, want, rel, what):
+    """Every entry within ``rel`` of the largest reference entry."""
+    err = _share(got, want)
     assert err <= rel, f"{what}: {err:.3g} of the largest entry > {rel:g}"
 
 
@@ -237,11 +262,29 @@ def check_forward(ranks, ref):
                                        err_msg=k)
 
 
-def check_gradients(ranks, ref, arch, extra, shape, replicated):
-    """Every leaf's gathered gradient within 1e-5 of its largest entry in
-    ``jax.grad``'s; the leaves the rules replicate (``replicated``: names
-    that must be among them) hold the whole gradient, ``torch.equal`` on
-    every rank."""
+def whole_gradients(arch, extra, ref):
+    """The port's own gradient of one process (no placement) on the
+    reference's parameters and round 0's batch, by path."""
+    cfg = config(arch, extra)
+    model = build_model(cfg)
+    live = {k: v.clone().requires_grad_(True) for k, v in
+            convert.unflatten_params(convert.flat_from_tree(
+                ref["params"], device="cpu"), model.param_shapes).items()}
+    model.loss(live, _torch_batch(batch(cfg, 0)))[0].backward()
+    return {k: v.grad.numpy() for k, v in live.items()}
+
+
+def check_gradients(ranks, ref, arch, extra, shape, replicated, rel=1e-5,
+                    ulps=0, whole=None):
+    """Every leaf's gathered gradient within ``rel`` of its largest entry
+    in ``jax.grad``'s, plus ``ulps`` times the share by which one float32
+    ulp on every parameter moves the reference's own gradient of that leaf
+    (``ref["ulp_spread"]``: an input on which float32 cannot resolve
+    ``rel``, ROADMAP C10); with ``whole`` (:func:`whole_gradients`), also
+    within ``rel`` of the port's gradient of one process (the split sums
+    alone).  The leaves the rules replicate (``replicated``: names that
+    must be among them) hold the whole gradient, ``torch.equal`` on every
+    rank."""
     _, model, specs = specs_of(arch, extra, shape)
     rep = {k for k, s in specs.items() if trules.model_dim(s) is None}
     for name in replicated:
@@ -250,7 +293,10 @@ def check_gradients(ranks, ref, arch, extra, shape, replicated):
     grads = full_leaves([o["grads"] for o in ranks], model.param_shapes,
                         specs)
     for k, g in grads.items():
-        near(g.numpy(), ref["grads"][k], 1e-5, k)
+        near(g.numpy(), ref["grads"][k], rel + ulps * ref["ulp_spread"][k],
+             k)
+        if whole is not None:
+            near(g.numpy(), whole[k], rel, k)
         if k in rep:
             for o in ranks[1:]:
                 assert torch.equal(o["grads"][k], ranks[0]["grads"][k]), k
@@ -267,6 +313,33 @@ def check_picks(ranks, ref, flips=0):
         assert differ <= flips, f"{differ} expert picks flip"
         for a, b in zip(o["picks"], ranks[0]["picks"]):
             assert torch.equal(a, b)
+
+
+def check_placed_init(arch, extra, shape):
+    """``LM.init_flat`` of the model placed on each rank of ``shape`` (a
+    stand-in comm: the init reduces over nothing) is that rank's blocks of
+    the whole model's init from the same seed, leaf by leaf, in bfloat16
+    with the reference's float32 leaves (a buffer each)."""
+    cfg, model, specs = specs_of(arch, tuple(extra) + ("model.dtype=bfloat16",),
+                                 shape)
+    assert set(model.param_shapes.buffer_dtypes) == {torch.bfloat16,
+                                                     torch.float32}
+    m = mesh_of(shape, cfg)
+    whole = convert.unflatten_params(model.init_flat(SEED, device="cpu"),
+                                     model.param_shapes)
+    for rank in range(math.prod(shape)):
+        comm = types.SimpleNamespace(mesh=m, model_size=shape[1], rank=rank)
+        placed = tplace.place_model(model, cfg, comm)
+        assert placed is not model
+        blocks = convert.unflatten_params(placed.init_flat(SEED,
+                                                           device="cpu"),
+                                          placed.param_shapes)
+        at = comm_mod.coords(m, rank)
+        for k, leaf in whole.items():
+            assert blocks[k].dtype == leaf.dtype, k
+            assert torch.equal(blocks[k], convert.take_block(
+                leaf, specs[k], m, at)), (rank, k)
+    return specs
 
 
 def check_rounds(ranks, arch, extra, shape):
